@@ -22,7 +22,32 @@ non-zero and prints no result line.
    B = 512) is then held against the plain version: the flush's uniforms
    are replayed from the service generator's saved state;
 6. times with CUDA events (kernel, plain version, the bound) and one
-   ``svc.sample(16)`` request on the host clock.
+   ``svc.sample(16)`` request on the host clock;
+7. the partial-trace kernels (``csrc/partial_trace.cu``) against their
+   plain versions on random non-symmetric Θ, L1, L2 at N1 x N2 = 100 x 100
+   (the main shape), 64 x 150 and 7 x 13;
+8. data for the fit: n = 1000 subsets drawn through the service of the
+   phase-5 model (E|Y| = 20, N = 100 x 100); the init is a second
+   ``random_kron(gen2, (100, 100))`` (paper §5.1);
+9. at the init, on the full batch, the A and C of the dense route through
+   the kernels, of the dense route through the plain versions
+   (``backend="reference"``) and of the per-subset route
+   (``accumulate_AC``) agree;
+10. the learning main path: ``model.fit(batch, algorithm="krk",
+   use_dense_theta=True, schedule=armijo(a0=1.5), iters=5, log_every=5)``
+   under an ``InMemoryTracker`` (so the health check reads CUDA factors).
+   The partial-trace launch counts and the ``kernels.partial_trace_*.cuda``
+   counters are reset just before and read just after: 5 sweeps make 5 A
+   and 10 C launches (A once per sweep; C once per Θ build, twice with the
+   block-CCCP refresh). The tracked LL never falls by more than
+   ``_ASCENT_TOL``, ends above the init's, both factors stay PD, and
+   ``FitReport.health`` is present. The same 5 sweeps with the plain
+   partial traces give the same accepted step and backtrack count and
+   factors within tolerance;
+11. times with CUDA events for each partial trace (kernel, plain version,
+   the ``torch.einsum`` library call, the bound), the Θ build and its
+   steps, a factor eigh and one log-likelihood, and one sweep on the host
+   clock (both fits run after a 1-sweep warm-up fit).
 
 Tolerances: picks of kernel and plain version are compared row by row.
 A differing row is accepted only when the exact chain (float64, along the
@@ -35,6 +60,19 @@ columns a row may pick past the span only on such exhausted mass; those
 rows are counted and printed. Marginals: atol 0.05 at 3000 draws (about 5 standard
 errors). Mean |Y| of the service rows: within 1 of E|Y|.
 
+Partial traces, kernel against plain version on the same Θ: elementwise
+``|kernel - plain| <= 1e-4 * (the same contraction over |Θ| and |L|) +
+1e-7``, because the two sum N2² or N1² float32 terms in other orders.
+Dense route against the per-subset route: ``max |Δ| <= 1e-4 * max |ref|``
+(the same float32 terms, summed through Θ or straight into A and C). The
+kernel fit against the plain fit after 5 sweeps: accepted step and
+backtracks equal, LLs within rtol 1e-4, factors within
+``1e-3 * max |L|``. The trajectory itself amplifies float32 noise: on the
+CPU two runs of the same fit already differ by 1e-5 to 3e-5 of max |L|
+after 5 sweeps (threaded sums), and taking the partial traces in float64
+moves them by 2e-5 to 4e-5 (20 x 20 and 50 x 50); on the card the scatter
+into Θ also runs in atomics.
+
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 are the kernel table and the timing line as JSON, each with the card's
 name and power limit.
@@ -46,6 +84,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -202,6 +241,70 @@ def bound(picks: np.ndarray, N1: int, Nr: int, k: int):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+# ---------------------------------------------------------------------------
+# phases 7-11 helpers: partial traces and learning
+# ---------------------------------------------------------------------------
+
+PT_SHAPES = ((100, 100), (64, 150), (7, 13))
+
+
+def pt_bound(N1: int, N2: int):
+    """Least time (ms) of one partial trace and what bounds it. Bytes: Θ
+    (N x N), the factor and the output, each once. Operations: one
+    multiply and one add per element of Θ."""
+    N = N1 * N2
+    nbytes = 4.0 * (N * N + N1 * N1 + N2 * N2)
+    t_ops, t_bytes = 2.0 * N * N / FP32_FLOPS, nbytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def check_pt(got, want, tol, label: str) -> float:
+    """Elementwise ``|got - want| <= tol``; returns max |got - want|."""
+    err = (got - want).abs()
+    bad = int((err > tol).sum())
+    check(bad == 0, f"{label}: {bad} entries beyond tolerance, max |Δ| "
+          f"{float(err.max())!r}")
+    return float(err.max())
+
+
+def check_partial_traces(gen, dev) -> dict:
+    """Phase 7: both kernels against their plain versions on random
+    non-symmetric inputs; returns max |Δ| per kernel and the main-shape
+    inputs for timing."""
+    from repro_torch.kernels import partial_trace as pt
+    err = {"A": 0.0, "C": 0.0}
+    main = None
+    for N1, N2 in PT_SHAPES:
+        N = N1 * N2
+        t4 = torch.randn((N, N), generator=gen, device=dev).reshape(
+            N1, N2, N1, N2)
+        L1 = torch.randn((N1, N1), generator=gen, device=dev)
+        L2 = torch.randn((N2, N2), generator=gen, device=dev)
+        A = pt.partial_trace_A_cuda(t4, L2)
+        C = pt.partial_trace_C_cuda(t4, L1)
+        torch.cuda.synchronize()
+        a4 = t4.abs()
+        eA = check_pt(A, pt.partial_trace_A_plain(t4, L2),
+                      1e-4 * pt.partial_trace_A_plain(a4, L2.abs()) + 1e-7,
+                      f"partial_trace_A {N1}x{N2}")
+        eC = check_pt(C, pt.partial_trace_C_plain(t4, L1),
+                      1e-4 * pt.partial_trace_C_plain(a4, L1.abs()) + 1e-7,
+                      f"partial_trace_C {N1}x{N2}")
+        del a4
+        print(f"  partial traces {N1}x{N2}: max |kernel - plain| A {eA!r}, "
+              f"C {eC!r}")
+        err["A"], err["C"] = max(err["A"], eA), max(err["C"], eC)
+        if main is None:
+            main = (t4, L1, L2)
+    return {"err": err, "main": main}
+
+
+def max_rel(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -230,13 +333,16 @@ def main() -> None:
     power_limit = smi.split(",")[-1].strip()
     dev = torch.device("cuda", 0)
 
-    # -- 2. build -----------------------------------------------------------
+    # -- 2. build: one nvcc per source, started together --------------------
     t0 = time.perf_counter()
-    log = _build.build("phase2_select")
-    print(f"build: phase2_select in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "ptxas" in line:
-            print(f"  phase2_select: {line.strip()}")
+    sources = ("phase2_select", "partial_trace")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        logs = dict(zip(sources, pool.map(_build.build, sources)))
+    print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "ptxas" in line:
+                print(f"  {name}: {line.strip()}")
 
     # -- 3. kernel vs plain -------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -362,6 +468,153 @@ def main() -> None:
         torch.cuda.synchronize()
         req.append((time.perf_counter() - t0) * 1e3)
 
+    # -- 7. partial-trace kernels vs plain ----------------------------------
+    from repro_torch.core.dpp import (SubsetBatch, identity_padded,
+                                      masked_inv_and_logdet, scatter_theta)
+    from repro_torch.core.krk_picard import (AC_from_dense_theta,
+                                             _subset_blocks, accumulate_AC,
+                                             theta_matrix_kron)
+    from repro_torch.learning.objective import log_likelihood_factored
+    from repro_torch.kernels import partial_trace as pt
+    from repro_torch.learning import schedules
+    pt_check = check_partial_traces(gen, dev)
+
+    # -- 8. data for the fit ------------------------------------------------
+    fit_rows = [r for r in main.service(seed=2).sample(1000) if r]
+    batch = SubsetBatch.from_lists(fit_rows, device=dev)
+    init = dpp.random_kron(torch.Generator(device=dev).manual_seed(2),
+                           (100, 100))
+    L1, L2 = init.factors
+    print(f"fit data: n = {batch.n} subsets, k_max {batch.k_max}, mean "
+          f"|Y| {float(batch.sizes().float().mean())!r}")
+
+    # -- 9. the routes agree at the init -------------------------------------
+    theta = theta_matrix_kron(L1, L2, batch)
+    A_k, C_k = AC_from_dense_theta(theta, L1, L2)
+    A_r, C_r = AC_from_dense_theta(theta, L1, L2, backend="reference")
+    A_s, C_s = accumulate_AC(L1, L2, batch)
+    torch.cuda.synchronize()
+    N1, N2 = init.sizes
+    t4a = theta.abs().reshape(N1, N2, N1, N2)
+    pt_check["err"]["A"] = max(pt_check["err"]["A"], check_pt(
+        A_k, A_r, 1e-4 * pt.partial_trace_A_plain(t4a, L2.abs()) + 1e-7,
+        "init A: kernel vs plain"))
+    pt_check["err"]["C"] = max(pt_check["err"]["C"], check_pt(
+        C_k, C_r, 1e-4 * pt.partial_trace_C_plain(t4a, L1.abs()) + 1e-7,
+        "init C: kernel vs plain"))
+    del t4a
+    routes = {"A_kernel_vs_subset": max_rel(A_k, A_s),
+              "C_kernel_vs_subset": max_rel(C_k, C_s),
+              "A_plain_vs_subset": max_rel(A_r, A_s),
+              "C_plain_vs_subset": max_rel(C_r, C_s)}
+    print(f"routes at init (max |Δ| / max |ref|): {json.dumps(routes)}")
+    for k, v in routes.items():
+        check(v <= 1e-4, f"routes at init: {k} {v!r} > 1e-4")
+
+    # -- 10. the learning main path ------------------------------------------
+    fit_kw = dict(algorithm="krk", use_dense_theta=True,
+                  schedule=schedules.armijo(a0=1.5), iters=5, log_every=5)
+    init.fit(batch, **dict(fit_kw, iters=1))   # warm-up: cuSOLVER, caches
+    fit_tracker = obs.InMemoryTracker()
+    pt.partial_trace_A_cuda.launches = 0
+    pt.partial_trace_C_cuda.launches = 0
+    with obs.use(fit_tracker):
+        rep = init.fit(batch, **fit_kw)
+        torch.cuda.synchronize()
+    fit_launches = {"A": pt.partial_trace_A_cuda.launches,
+                    "C": pt.partial_trace_C_cuda.launches}
+    fit_counts = {k: int(fit_tracker.counter_value(
+        f"kernels.partial_trace_{k}.cuda")) for k in ("A", "C")}
+    lls = rep.log_likelihoods
+    print(f"fit: LL {lls}, accepted a {float(rep.state.sched.a)!r}, "
+          f"backtracks {int(rep.state.sched.backtracks)}, launches "
+          f"{fit_launches}, counters {fit_counts}, health "
+          f"{rep.health and rep.health['verdict']}, sweep times "
+          f"{rep.sweep_times}")
+    check(fit_launches == {"A": 5, "C": 10}, f"the fit launched the "
+          f"partial traces {fit_launches} times, not A 5 and C 10")
+    check(fit_counts == fit_launches, f"kernels.partial_trace_*.cuda "
+          f"{fit_counts} do not match the launches {fit_launches}")
+    check(not any(fit_tracker.counter_value(
+        f"kernels.partial_trace_{k}.reference") for k in ("A", "C")),
+        "the fit took a plain partial trace on the card")
+    from repro_torch.learning.schedules import _ASCENT_TOL
+    steps = np.diff(lls)
+    check(len(lls) == 6 and np.isfinite(lls).all(), f"LL track {lls}")
+    check(bool((steps >= -_ASCENT_TOL).all()), f"the LL fell by more than "
+          f"{_ASCENT_TOL} in a sweep: {lls}")
+    check(lls[-1] > lls[0], f"final LL {lls[-1]} not above init {lls[0]}")
+    min_eigs = [float(torch.linalg.eigvalsh(f)[0]) for f in
+                rep.model.factors]
+    check(min(min_eigs) > 0, f"a learned factor is not PD: {min_eigs}")
+    check(rep.health is not None, "FitReport.health is missing")
+    rep_p = init.fit(batch, backend="reference", **fit_kw)
+    torch.cuda.synchronize()
+    fit_agree = {"lls_plain": rep_p.log_likelihoods,
+                 "a": [float(rep.state.sched.a), float(rep_p.state.sched.a)],
+                 "backtracks": [int(rep.state.sched.backtracks),
+                                int(rep_p.state.sched.backtracks)],
+                 "factor_max_rel": [max_rel(f, g) for f, g in
+                                    zip(rep.model.factors,
+                                        rep_p.model.factors)]}
+    print(f"fit with plain partial traces: {json.dumps(fit_agree)}")
+    check(fit_agree["a"][0] == fit_agree["a"][1]
+          and fit_agree["backtracks"][0] == fit_agree["backtracks"][1],
+          f"kernel and plain fits accepted other steps: {fit_agree}")
+    check(np.allclose(lls, rep_p.log_likelihoods, rtol=1e-4, atol=0.0),
+          f"kernel and plain fits' LLs differ: {lls} vs "
+          f"{rep_p.log_likelihoods}")
+    check(max(fit_agree["factor_max_rel"]) <= 1e-3,
+          f"kernel and plain fits' factors differ: {fit_agree}")
+
+    # -- 11. times ------------------------------------------------------------
+    t4, L1r, L2r = pt_check["main"]
+    pt_times = {}
+    for k, kern, plain, lib, L in (
+            ("A", pt.partial_trace_A_cuda, pt.partial_trace_A_plain,
+             "kulv,vu->kl", L2r),
+            ("C", pt.partial_trace_C_cuda, pt.partial_trace_C_plain,
+             "iujv,ij->uv", L1r)):
+        plain1 = cuda_ms(lambda: plain(t4, L), reps=5, warmup=1)
+        kern_ms = cuda_ms(lambda: kern(t4, L), reps=20, warmup=3)
+        lib_ms = cuda_ms(lambda: torch.einsum(lib, t4, L), reps=5, warmup=1)
+        plain2 = cuda_ms(lambda: plain(t4, L), reps=5, warmup=0)
+        b_ms, b_by = pt_bound(*PT_SHAPES[0])
+        pt_times[k] = {"ms": kern_ms, "plain_ms": min(plain1, plain2),
+                       "plain_runs_ms": [plain1, plain2],
+                       "library_ms": lib_ms, "bound_ms": b_ms,
+                       "bound_by": b_by}
+        print(f"  partial_trace_{k} {PT_SHAPES[0]}: "
+              f"{json.dumps(pt_times[k])}")
+    theta_ms = cuda_ms(lambda: theta_matrix_kron(L1, L2, batch), reps=5,
+                       warmup=1)
+    # where a sweep's time goes: the Θ build's steps, a factor eigh, and
+    # one log-likelihood (each Armijo trial evaluates one)
+    _, _, B1, B2 = _subset_blocks(L1, L2, batch)
+    sub = identity_padded(B1 * B2, batch.mask)
+    chol, _ = torch.linalg.cholesky_ex(sub)
+    eye = torch.eye(batch.k_max, device=dev).expand_as(sub)
+    inv, _ = masked_inv_and_logdet(sub)
+    parts = {
+        "gather": lambda: identity_padded(
+            torch.mul(*_subset_blocks(L1, L2, batch)[2:]), batch.mask),
+        "cholesky_ex": lambda: torch.linalg.cholesky_ex(sub),
+        "cholesky_solve": lambda: torch.cholesky_solve(eye, chol),
+        "scatter": lambda: scatter_theta(L1.shape[0] * L2.shape[0],
+                                         batch.indices, batch.mask, inv),
+        "factor_eigh": lambda: torch.linalg.eigh(L1),
+        "log_likelihood": lambda: log_likelihood_factored((L1, L2), batch)}
+    breakdown = {k: cuda_ms(f, reps=5, warmup=1) for k, f in parts.items()}
+    print(f"  breakdown (ms): {json.dumps(breakdown)}")
+    learn_timing = {
+        "theta_build_ms": theta_ms, "breakdown_ms": breakdown,
+        "sweep_ms_kernel": rep.sweep_times[0] * 1e3 / 5,
+        "sweep_ms_plain": rep_p.sweep_times[0] * 1e3 / 5,
+        "fit_n": batch.n, "fit_k_max": batch.k_max,
+        "backtracks": int(rep.state.sched.backtracks),
+        "pt_shape": PT_SHAPES[0], "partial_trace_A": pt_times["A"],
+        "partial_trace_C": pt_times["C"]}
+
     row = {"name": "phase2_select", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/phase2_select.cu",
            "replaces": "src/repro/kernels/phase2_select.py:172",
@@ -377,7 +630,21 @@ def main() -> None:
            "b1": times[1], "agree_rows_b1": agree[1]["agree_rows"],
            "agree_rows_main_path": agree_main["agree_rows"],
            "card": card, "power_limit": power_limit}
-    print(json.dumps({"kernels": [row]}))
+    pt_rows = [{"name": f"partial_trace_{k}", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/partial_trace.cu",
+                "replaces": f"src/repro/kernels/partial_trace.py:{line}",
+                "launches": fit_launches[k],
+                "max_abs_err": pt_check["err"][k],
+                "ms": pt_times[k]["ms"], "plain_ms": pt_times[k]["plain_ms"],
+                "bound_ms": pt_times[k]["bound_ms"],
+                "bound_by": pt_times[k]["bound_by"],
+                "library_ms": pt_times[k]["library_ms"],
+                "shapes": {"N1": PT_SHAPES[0][0], "N2": PT_SHAPES[0][1]},
+                "card": card, "power_limit": power_limit}
+               for k, line in (("A", 51), ("C", 72))]
+    print(json.dumps({"learning_timing": learn_timing, "card": card,
+                      "power_limit": power_limit}))
+    print(json.dumps({"kernels": [row, *pt_rows]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,
                                  "svc_sample16_median_ms":
                                      float(np.median(req)),

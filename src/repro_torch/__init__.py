@@ -18,9 +18,10 @@ Policy (``repro_torch._device``):
   uniforms as tensors.
 
 This package imports torch, numpy and the standard library only — never
-jax and never the JAX package. The hand-written Hopper kernel for phase 2
-lives in ``repro_torch/kernels/csrc`` and is built with ``nvcc`` at first
-use (``repro_torch.kernels._build``).
+jax and never the JAX package. The hand-written Hopper kernels (phase 2 of
+the sampler, the partial traces of KrK-Picard's dense-Θ route) live in
+``repro_torch/kernels/csrc`` and are built with ``nvcc`` at first use
+(``repro_torch.kernels._build``).
 """
 
 from ._device import FLOAT, INDEX, resolve_device

@@ -5,11 +5,13 @@ cuSOLVER, so a spectrum is carried across rather than recomputed."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ._device import DeviceLike, as_float
+import torch
+
+from ._device import DeviceLike, as_float, resolve_device
 from .core.dpp import SubsetBatch
 from .dpp.model import Kron
 from .sampling.spectral import FactorSpectrum
@@ -41,3 +43,21 @@ def subset_batch_to_numpy(batch: SubsetBatch
             "mask": batch.mask.cpu().numpy(),
             "truncated": None if batch.truncated is None
             else batch.truncated.cpu().numpy()}
+
+
+def subset_batch_from_numpy(indices: np.ndarray, mask: np.ndarray,
+                            device: DeviceLike = "cuda") -> SubsetBatch:
+    """The port's ``SubsetBatch`` over int32 ``indices`` and bool ``mask``
+    (n, k_max), e.g. a JAX ``SubsetBatch``'s arrays."""
+    dev = resolve_device(device)
+    return SubsetBatch(
+        torch.from_numpy(np.array(indices, dtype=np.int32)).to(dev),
+        torch.from_numpy(np.array(mask, dtype=bool)).to(dev))
+
+
+def factors_to_numpy(model) -> Tuple[np.ndarray, ...]:
+    """float32 numpy copies of the factors of a ``dpp.Kron``, a
+    ``core.KronDPP`` or a sequence of tensors (on any device)."""
+    factors = model.factors if hasattr(model, "factors") else model
+    return tuple(f.detach().cpu().numpy().astype(np.float32)
+                 for f in factors)

@@ -9,6 +9,8 @@
     batch = model.sample(gen, 64)           # SubsetBatch, one batched call
     svc = model.service(seed=0)             # micro-batching front-end
     rows = svc.sample(16)
+    init = dpp.random_kron(gen, (100, 100))
+    rep = init.fit(batch, algorithm="krk", use_dense_theta=True)  # KrK-Picard
 
 Every entry point defaults to ``device="cuda"`` and raises without a card
 unless ``device="cpu"`` is passed.

@@ -16,6 +16,7 @@ ROADMAP.md item that ports them.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -158,7 +159,7 @@ class DPPModel:
         _not_ported("map", "greedy MAP with greedy_map_update")
 
     def fit(self, batch: SubsetBatch, algorithm=None, **fit_kwargs):
-        _not_ported("fit", "learning with partial_trace_A/C")
+        _not_ported("fit of a Dense model (EM)", "learning: EM")
 
     # -- subclass hooks -----------------------------------------------------
     def _wrap_factors(self, factors: Tuple[torch.Tensor, ...]
@@ -205,6 +206,19 @@ class Kron(DPPModel):
 
     def to_krondpp(self) -> KronDPP:
         return KronDPP(self._factors)
+
+    def fit(self, batch: SubsetBatch, algorithm: str = "krk",
+            **fit_kwargs):
+        """Maximum-likelihood fit through ``repro_torch.learning.fit``
+        (KrK-Picard: "krk" or "krk-stochastic"). Returns the engine's
+        ``FitReport`` with ``report.model`` wrapped back into a ``Kron``.
+        All engine kwargs (iters, schedule, minibatch_size,
+        use_dense_theta, fresh_theta, log_every, health, backend, device,
+        ...) pass through; ``device`` defaults to "cuda"."""
+        from ..learning.api import fit as _fit
+        rep = _fit(self._factors, batch, algorithm=algorithm, **fit_kwargs)
+        fitted = Kron(rep.model.factors, device=rep.model.factors[0].device)
+        return dataclasses.replace(rep, model=fitted)
 
     def _wrap_factors(self, factors):
         return Kron(factors, device=self.device)

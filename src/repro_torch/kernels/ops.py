@@ -15,12 +15,31 @@ from typing import Optional, Sequence
 import torch
 
 from .. import obs
+from .partial_trace import (partial_trace_A_cuda, partial_trace_A_plain,
+                            partial_trace_C_cuda, partial_trace_C_plain)
 from .phase2_select import (canonical_pair, phase2_select_cuda,
                             phase2_select_plain)
 
 
 def _count_dispatch(op: str, engine: str) -> None:
     obs.current_tracker().counter(f"kernels.{op}.{engine}")
+
+
+def _resolve_backend(op: str, x: torch.Tensor, name: str,
+                     backend: Optional[str]) -> str:
+    """None -> "cuda" for a CUDA tensor ``x``, "reference" otherwise;
+    "reference" and "cuda" pass through; "cuda" on a CPU tensor and any
+    other value raise ``ValueError``. Emits the dispatch counter."""
+    if backend is None:
+        backend = "cuda" if x.is_cuda else "reference"
+    if backend not in ("reference", "cuda"):
+        raise ValueError(f"{op} backend must be None, 'reference' or "
+                         f"'cuda', got {backend!r}")
+    if backend == "cuda" and not x.is_cuda:
+        raise ValueError(f"{op} backend='cuda' needs CUDA tensors, got "
+                         f"{name} on {x.device}")
+    _count_dispatch(op, backend)
+    return backend
 
 
 def phase2_select(us: torch.Tensor, Gs: Sequence[torch.Tensor],
@@ -42,24 +61,42 @@ def phase2_select(us: torch.Tensor, Gs: Sequence[torch.Tensor],
     if got != tuple(int(s) for s in sizes):
         raise ValueError(f"sizes {tuple(sizes)} inconsistent with the "
                          f"factor-column row counts {got}")
-    if backend is None:
-        backend = "cuda" if us.is_cuda else "reference"
-    if backend not in ("reference", "cuda"):
-        raise ValueError(f"phase2_select backend must be None, 'reference' "
-                         f"or 'cuda', got {backend!r}")
-    if backend == "cuda" and not us.is_cuda:
-        raise ValueError(f"phase2_select backend='cuda' needs CUDA tensors, "
-                         f"got us on {us.device}")
+    backend = _resolve_backend("phase2_select", us, "us", backend)
     batched = us.dim() == 2
     k_eff = torch.as_tensor(k_eff, device=us.device).to(torch.int32)
     if not batched:
         Gs = tuple(G[None] for G in Gs)
         us, k_eff = us[None], k_eff.reshape(1)
     G1, Gr = canonical_pair(tuple(Gs))
-    _count_dispatch("phase2_select", backend)
     if backend == "reference":
         picks = phase2_select_plain(us, k_eff, G1, Gr)
     else:
         picks = phase2_select_cuda(us.contiguous(), k_eff.contiguous(),
                                    G1.contiguous(), Gr.contiguous())
     return picks if batched else picks[0]
+
+
+# ---------------------------------------------------------------------------
+# partial traces (KrK-Picard dense-Θ batch route)
+# ---------------------------------------------------------------------------
+
+def partial_trace_A(theta: torch.Tensor, L2: torch.Tensor, N1: int, N2: int,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """A[k,l] = Σ_{u,v} Θ4[k,u,l,v] L2[v,u] of the N x N ``theta``
+    (N = N1·N2) -> (N1, N1). ``backend`` as for ``phase2_select``."""
+    theta4 = theta.reshape(N1, N2, N1, N2)
+    if _resolve_backend("partial_trace_A", theta, "theta",
+                        backend) == "reference":
+        return partial_trace_A_plain(theta4, L2)
+    return partial_trace_A_cuda(theta4.contiguous(), L2.contiguous())
+
+
+def partial_trace_C(theta: torch.Tensor, L1: torch.Tensor, N1: int, N2: int,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """C[u,v] = Σ_{i,j} L1[i,j] Θ4[i,u,j,v] of the N x N ``theta``
+    -> (N2, N2). ``backend`` as for ``phase2_select``."""
+    theta4 = theta.reshape(N1, N2, N1, N2)
+    if _resolve_backend("partial_trace_C", theta, "theta",
+                        backend) == "reference":
+        return partial_trace_C_plain(theta4, L1)
+    return partial_trace_C_cuda(theta4.contiguous(), L1.contiguous())

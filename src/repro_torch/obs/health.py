@@ -162,10 +162,11 @@ class HealthMonitor:
         backtracks: Armijo backtracks taken during this chunk.
         """
         th = self.thresholds
-        if algorithm == "em":
-            arrays = [np.asarray(params[0], dtype=np.float64)]
-        else:
-            arrays = [np.asarray(p, dtype=np.float64) for p in params]
+        # host float64 copies; a CUDA tensor has no numpy view, so tensors
+        # are read through .detach().cpu() first
+        arrays = [np.asarray(p.detach().cpu() if hasattr(p, "detach")
+                             else p, dtype=np.float64)
+                  for p in (params[:1] if algorithm == "em" else params)]
 
         # A monitor must never take a fit down: nonfinite factors (or an
         # eigensolver that refuses them) are themselves the hardest

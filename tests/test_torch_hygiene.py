@@ -17,8 +17,10 @@ import pytest
 import torch
 
 from repro_torch import FLOAT, INDEX, dpp
-from repro_torch.convert import kron_from_numpy, spectrum_from_numpy
+from repro_torch.convert import (kron_from_numpy, spectrum_from_numpy,
+                                  subset_batch_from_numpy)
 from repro_torch.core import SubsetBatch, random_krondpp
+from repro_torch.learning import LearningEngine, fit, schedules
 from repro_torch.sampling import SamplingService
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -29,7 +31,9 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
 def test_importing_the_port_loads_no_jax_and_no_jax_package():
     code = ("import sys, repro_torch, repro_torch.dpp, "
             "repro_torch.sampling.service, repro_torch.convert, "
-            "repro_torch.kernels.ops, repro_torch.kernels._build\n"
+            "repro_torch.kernels.ops, repro_torch.kernels._build, "
+            "repro_torch.kernels.partial_trace, repro_torch.core.krk_picard, "
+            "repro_torch.learning, repro_torch.learning.api\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -71,6 +75,14 @@ def test_no_jax_or_jax_package_import_in_port_sources(path):
     lambda: kron_from_numpy([np.eye(3)]),
     lambda: spectrum_from_numpy([np.ones(3)], [np.eye(3)]),
     lambda: SubsetBatch.from_lists([[0, 1]]),
+    lambda: subset_batch_from_numpy(np.zeros((1, 2), np.int32),
+                                    np.ones((1, 2), bool)),
+    lambda: schedules.init_state(schedules.armijo()),
+    lambda: LearningEngine().init_state((np.eye(2), np.eye(3))),
+    lambda: fit((np.eye(2), np.eye(3)),
+                SubsetBatch.from_lists([[0, 1]], device="cpu")),
+    lambda: dpp.Kron((np.eye(2), np.eye(3)), device="cpu").fit(
+        SubsetBatch.from_lists([[0, 1]], device="cpu")),
 ])
 def test_entry_points_without_a_card_raise(call):
     """Every entry point defaults to device="cuda"; with no card it
@@ -98,5 +110,5 @@ def test_kernel_build_is_deferred_to_first_launch():
     assert _build._LIBS == {}
     assert _build.source_path("phase2_select").is_file()
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == \
-        ["phase2_select"]
+        ["partial_trace", "phase2_select"]
     assert _build.library_path("phase2_select").parent == _build.BUILD_DIR

@@ -171,7 +171,7 @@ def test_facade_sample_returns_subset_batch_with_provenance():
     lambda m, g: m.marginal(0),
     lambda m, g: m.condition([0]),
     lambda m, g: m.map(2),
-    lambda m, g: m.fit(None),
+    lambda m, g: m.fit(None, algorithm="em", device="cpu"),
     lambda m, g: m.serving(),
     lambda m, g: m.service(device="cpu").sample_kdpp(2),
     lambda m, g: m.service(device="cpu").draw_keyed(None),
