@@ -6,9 +6,11 @@ Phases, in order, none of them guarded by a try: any failure exits
 non-zero and prints no result line.
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: nvcc compiles ``src/repro_torch/kernels/csrc/phase2_select.cu``
-   into ``build/kernels/``; the ``-Xptxas -v`` lines give registers and
-   shared memory;
+2. build: nvcc compiles the four sources of
+   ``src/repro_torch/kernels/csrc/`` (phase2_select, partial_trace,
+   greedy_map, kron_matvec), one process each, started together, into
+   ``build/kernels/``; the ``-Xptxas -v`` lines give registers and shared
+   memory;
 3. the phase-2 kernel against its plain PyTorch version on the card, at
    the main path's shapes (N = 100 x 100, E|Y| = 20, B = 1 and 64) and at
    the edges (m = 1, m = 3, degenerate columns), on the same uniforms;
@@ -21,8 +23,9 @@ non-zero and prints no result line.
    just after. The flush's own launch (285 rows served of one call at
    B = 512) is then held against the plain version: the flush's uniforms
    are replayed from the service generator's saved state;
-6. times with CUDA events (kernel, plain version, the bound) and one
-   ``svc.sample(16)`` request on the host clock;
+6. times of the phase-2 kernel and its plain version (``kernel_times``:
+   device time from ``torch.profiler`` and CUDA events around a loop),
+   the bound, and one ``svc.sample(16)`` request on the host clock;
 7. the partial-trace kernels (``csrc/partial_trace.cu``) against their
    plain versions on random non-symmetric Θ, L1, L2 at N1 x N2 = 100 x 100
    (the main shape), 64 x 150 and 7 x 13;
@@ -44,10 +47,52 @@ non-zero and prints no result line.
    ``FitReport.health`` is present. The same 5 sweeps with the plain
    partial traces give the same accepted step and backtrack count and
    factors within tolerance;
-11. times with CUDA events for each partial trace (kernel, plain version,
-   the ``torch.einsum`` library call, the bound), the Θ build and its
+11. times of each partial trace (``kernel_times`` of the kernel, the plain
+   version and the ``torch.einsum`` library call; the bound); with CUDA
+   events around a loop, the Θ build and its
    steps, a factor eigh and one log-likelihood, and one sweep on the host
-   clock (both fits run after a 1-sweep warm-up fit).
+   clock (both fits run after a 1-sweep warm-up fit);
+12. the greedy-MAP step kernel (``csrc/greedy_map.cu``) against its plain
+   version at N in {1, 33, 4097, 10^4} x k in {1, 20, 200}, with C
+   row-major and as the transposed (k, N) buffer the MAP loop keeps; the
+   Kronecker matvec kernel (``csrc/kron_matvec.cu``) at (N1, N2, batch) =
+   (3, 4, 2), (64, 96, 7), (1, 1, 1), (100, 100, 64) in float32 and
+   bfloat16;
+13. the MAP path at full width: ``main.map(k, max_dense=10_000)`` on the
+   phase-5 model (N = 10^4, the dense L is 400 MB) for k = 20 and 200,
+   launch count and ``kernels.greedy_map_update.cuda`` reset before and
+   read after each call (k each); the same selection through the plain
+   update (``backend="reference"``); where the two lists first differ, the
+   float64 conditional variances of the two candidates given the common
+   prefix; log det L_Y of both pick sets; one ``map(20)`` on a 64 x 64
+   model under the default guard;
+14. the eigenvector path at full width: ``assemble_eigvecs`` of a phase-1
+   selection (k_max 46) of the phase-5 spectrum through one
+   ``kron_matvec`` launch (counted), VᵀV = I on the valid columns, equal to
+   the gather route run by hand on the card;
+15. the k-DPP path at full width: ``main.sample(gen, 64, k=20)`` and
+   ``svc.sample_kdpp(20, 16)``, one phase-2 launch each (counted); every
+   row 20 distinct items; the model call's own launch held against
+   ``phase2_select_plain`` on its replayed phase-1 output; inclusion
+   frequencies of 3000 k = 2 draws of a (2, 3) kernel through the kernel
+   against the exact k-DPP marginals by enumeration;
+16. times: ``kernel_times`` of each new kernel, its plain version and its
+   library yardstick, beside its bound; with CUDA events around a loop,
+   one ``map(20)`` and one ``map(200)``, ``assemble_eigvecs``, the k-DPP
+   call and its phase 1 (ESP table, backward draw, compaction, gather);
+   ``kernel_times`` of its phase 2; ``svc.sample_kdpp(20, 16)`` on the
+   host clock;
+17. the device times of every ``kernels`` row (``fill_device_times``),
+   after every host-clock time above, with the host's time of one small
+   launch before and after the profiler sessions.
+
+Every row of the ``kernels`` line is timed by ``kernel_times``: ``ms``,
+``plain_ms`` and ``library_ms`` are device times (the durations of the
+call's kernels, copies and fills, from ``torch.profiler``), so the
+column ``launches × (ms - bound_ms)`` compares like with like; the
+``*_loop`` keys are CUDA events around a loop of calls, the host's
+launch cost included. The profiler runs last, so that no host-clock time
+is taken after a profiler session.
 
 Tolerances: picks of kernel and plain version are compared row by row.
 A differing row is accepted only when the exact chain (float64, along the
@@ -59,6 +104,21 @@ exact residual mass is already at or below MASS_EPS. With degenerate
 columns a row may pick past the span only on such exhausted mass; those
 rows are counted and printed. Marginals: atol 0.05 at 3000 draws (about 5 standard
 errors). Mean |Y| of the service rows: within 1 of E|Y|.
+
+Greedy update, kernel against plain version: rtol 1e-5 with atol
+1e-5 · max |lcol| for e and 1e-5 · max |lcol|² for d_new (C · cj summed in
+other orders). Greedy MAP, kernel run against plain run: the picks in
+order; a first difference is accepted only as a tie, where the exact
+(float64) conditional variances of the two candidates given the common
+prefix differ by at most 1e-4 · max diag L (float32 roundoff of a t-step
+update chain is about t · 2^-24 ≈ 1.2e-5 of max diag L at t = 200, and the
+margin is 8), and the two pick sets' log det L_Y then agree to 1e-3
+relative. Kronecker matvec: rtol = atol = 2e-4 in float32 and 3e-2 in
+bfloat16 (tests/test_kernels.py). Eigenvectors: |VᵀV - I| <= 1e-4 (a
+float32 eigh is orthonormal to about N_f · 2^-24 ≈ 6e-6 per factor); the
+kernel route against the gather route within 1e-6 (each output is a sum
+with one non-zero term, so both round the same product once). k-DPP
+marginals: atol 0.04 at 3000 draws (4.4 standard errors at p = 0.5).
 
 Partial traces, kernel against plain version on the same Θ: elementwise
 ``|kernel - plain| <= 1e-4 * (the same contraction over |Θ| and |L|) +
@@ -74,17 +134,19 @@ moves them by 2e-5 to 4e-5 (20 x 20 and 50 x 50); on the card the scatter
 into Θ also runs in atomics.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
-are the kernel table and the timing line as JSON, each with the card's
-name and power limit.
+are the kernel table (all five kernels) and the timing lines as JSON,
+each with the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -92,6 +154,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12      # H100 SXM bf16 tensor cores, dense
 HBM_BYTES_S = 3.35e12    # H100 SXM HBM3
 
 
@@ -210,6 +273,8 @@ def phase1_inputs(spec, k_max: int, B: int, gen):
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, reps: int, warmup: int) -> float:
+    """Wall time of one call: CUDA events around a loop of ``reps`` calls,
+    so the host's launch cost and the gaps between launches are in it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -221,6 +286,87 @@ def cuda_ms(fn, reps: int, warmup: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, reps: int, warmup: int = 3, expect: str = "") -> float:
+    """Device time of one call: the summed durations of every kernel, copy
+    and fill that ``reps`` calls ran on the card, as ``torch.profiler``
+    (CUPTI) records them, over ``reps``. Host launch cost, gaps and host
+    syncs stay out of it, so it reads the same way for one hand-written
+    kernel and for a plain version of many launches. ``expect``: a kernel
+    name that must be among the recorded ones."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = sum(e.time_range.elapsed_us() for e in dev)
+    check(us > 0, "torch.profiler recorded no device time")
+    check(not expect or any(expect in e.name for e in dev),
+          f"torch.profiler recorded no {expect} launch")
+    return us / 1e3 / reps
+
+
+DEVICE_TIMES = []        # kernel_times rows whose device times are owed
+
+
+def kernel_times(kern, plain, library, reps: int, plain_reps: int,
+                 expect: str, **keys) -> dict:
+    """The timing keys of a ``kernels`` row, every row measured the same
+    way. Now, ``ms_loop``, ``plain_ms_loop`` and ``library_ms_loop``
+    (``cuda_ms``). Later, in ``fill_device_times``, once every host-clock
+    time of the script is taken (so that no profiler session can slow the
+    host's launches under them): ``ms``, ``plain_ms`` and ``library_ms``,
+    device times (``device_ms``), the plain version and the library call
+    measured before and after the kernel and the lesser kept, both
+    readings in ``*_runs_ms``. ``keys`` (bound, shapes) go into the same dict."""
+    out = {"ms_loop": cuda_ms(kern, reps, 3), "library_ms": None, **keys}
+    for name, fn in (("plain", plain), ("library", library)):
+        if fn is not None:
+            out[f"{name}_ms_loop"] = cuda_ms(fn, plain_reps, 1)
+    DEVICE_TIMES.append((out, kern, plain, library, reps, plain_reps,
+                         expect))
+    return out
+
+
+def fill_device_times() -> None:
+    """The device times owed to every ``kernel_times`` row."""
+    for out, kern, plain, library, reps, plain_reps, expect in DEVICE_TIMES:
+        others = {k: f for k, f in (("plain", plain), ("library", library))
+                  if f is not None}
+        before = {k: device_ms(f, plain_reps, 1) for k, f in others.items()}
+        out["ms"] = device_ms(kern, reps, 3, expect=expect)
+        for k, f in others.items():
+            after = device_ms(f, plain_reps, 0)
+            out[f"{k}_ms"] = min(before[k], after)
+            out[f"{k}_runs_ms"] = [before[k], after]
+    DEVICE_TIMES.clear()
+
+
+def host_launch_us(n: int = 2000) -> float:
+    """Host time of one small PyTorch launch: ``n`` in-place adds on a
+    1000-element tensor between two syncs, on the host clock."""
+    x = torch.ones(1000, device="cuda")
+    x.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def greedy_library(lcol, C, cj, dj, d):
+    """The greedy update's library yardstick: ``torch.mv`` and the
+    elementwise tail."""
+    return d - ((lcol - torch.mv(C, cj))
+                / torch.sqrt(torch.clamp_min(dj[0], 1e-12))) ** 2
 
 
 def bound(picks: np.ndarray, N1: int, Nr: int, k: int):
@@ -305,6 +451,169 @@ def max_rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+# ---------------------------------------------------------------------------
+# phases 12-16 helpers: greedy MAP, Kronecker matvec, k-DPP
+# ---------------------------------------------------------------------------
+
+GREEDY_NS = (1, 33, 4097, 10_000)
+GREEDY_KS = (1, 20, 200)
+KM_SHAPES = ((3, 4, 2), (64, 96, 7), (1, 1, 1), (100, 100, 64))
+GREEDY_TIE_TOL = 1e-4      # of max diag L, on the float64 chain
+
+
+def greedy_inputs(N: int, k: int, gen, dev):
+    """One step's (lcol, C, cj, dj, d), C row-major (N, k); d positive."""
+    lcol = torch.randn((N,), generator=gen, device=dev)
+    C = 0.3 * torch.randn((N, k), generator=gen, device=dev)
+    cj = C[N // 2].clone()
+    dj = 1.0 + torch.rand((1,), generator=gen, device=dev)
+    d = 1.0 + 4.0 * torch.rand((N,), generator=gen, device=dev)
+    return lcol, C, cj, dj, d
+
+
+def greedy_bound(N: int, k: int):
+    """Least time (ms) of one greedy update and what bounds it. Bytes:
+    lcol, C, cj, dj and d read once, e and d_new written once.
+    Operations: 2Nk for C · cj and 4N for the elementwise tail."""
+    nbytes = 4.0 * (N * k + 2 * N + k + 1) + 4.0 * 2 * N
+    flops = 2.0 * N * k + 4.0 * N
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def km_bound(A, B, X):
+    """Least time (ms) of one Kronecker matvec on these inputs and what
+    bounds it. Operations, counted on X's non-zeros (a one-hot batch needs
+    far fewer than a dense one): T = mat(X[b]) · Bᵀ costs 2 N2 per non-zero
+    of X, at the bfloat16 tensor-core rate when X and B are bfloat16 (exact
+    products, float32 sums) and at the float32 rate otherwise; Y = A · T
+    costs 2 N1 N2 per non-zero row of mat(X[b]), at the float32 rate (T is
+    float32). Bytes: A, B and X read once, Y written once."""
+    N1, N2, batch = int(A.shape[0]), int(B.shape[0]), int(X.shape[0])
+    nz = X.reshape(batch, N1, N2) != 0
+    rate1 = (BF16_FLOPS if X.dtype == B.dtype == torch.bfloat16
+             else FP32_FLOPS)
+    t_ops = (2.0 * N2 * float(nz.sum()) / rate1
+             + 2.0 * N1 * N2 * float(nz.any(dim=2).sum()) / FP32_FLOPS)
+    nbytes = (A.element_size() * N1 * N1 + B.element_size() * N2 * N2
+              + 2.0 * X.element_size() * batch * N1 * N2)
+    t_bytes = nbytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def check_greedy_update(gen, dev) -> float:
+    """Phase 12a: the step kernel against its plain version; returns the
+    largest |kernel - plain| over e and d_new."""
+    from repro_torch.kernels import greedy_map as gm
+    worst = 0.0
+    for N in GREEDY_NS:
+        for k in GREEDY_KS:
+            lcol, C, cj, dj, d = greedy_inputs(N, k, gen, dev)
+            scale = float(lcol.abs().max())
+            for layout, Cv in (("row-major", C),
+                               ("(k, N) buffer", C.t().contiguous().t())):
+                e, dn = gm.greedy_map_update_cuda(lcol, Cv, cj, dj, d)
+                torch.cuda.synchronize()
+                e_p, dn_p = gm.greedy_map_update_plain(lcol, Cv, cj, dj, d)
+                for got, want, atol in ((e, e_p, 1e-5 * scale),
+                                        (dn, dn_p, 1e-5 * scale ** 2)):
+                    err = (got - want).abs()
+                    bad = int((err > atol + 1e-5 * want.abs()).sum())
+                    check(bad == 0, f"greedy_map_update N={N} k={k} "
+                          f"{layout}: {bad} entries beyond tolerance, max "
+                          f"|Δ| {float(err.max())!r}")
+                    worst = max(worst, float(err.max()))
+    print(f"greedy_map_update: {len(GREEDY_NS) * len(GREEDY_KS) * 2} cases "
+          f"within tolerance, max |kernel - plain| {worst!r}")
+    return worst
+
+
+def check_kron_matvec(gen, dev) -> dict:
+    """Phase 12b: the Kronecker matvec kernel against its plain version;
+    returns the largest |kernel - plain| per dtype."""
+    from repro_torch.kernels import kron_matvec as km
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for N1, N2, batch in KM_SHAPES:
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
+            A = torch.randn((N1, N1), generator=gen, device=dev).to(dtype)
+            B = torch.randn((N2, N2), generator=gen, device=dev).to(dtype)
+            X = torch.randn((batch, N1 * N2), generator=gen,
+                            device=dev).to(dtype)
+            got = km.kron_matvec_cuda(A, B, X)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype, f"kron_matvec returned {got.dtype}")
+            want = km.kron_matvec_plain(A, B, X).float()
+            err = (got.float() - want).abs()
+            bad = int((err > tol + tol * want.abs()).sum())
+            name = str(dtype).split(".")[-1]
+            check(bad == 0, f"kron_matvec {N1}x{N2} batch {batch} {name}: "
+                  f"{bad} entries beyond tolerance, max |Δ| "
+                  f"{float(err.max())!r}")
+            worst[name] = max(worst[name], float(err.max()))
+    print(f"kron_matvec: {len(KM_SHAPES) * 2} cases within tolerance, max "
+          f"|kernel - plain| {json.dumps(worst)}")
+    return worst
+
+
+def conditional_variances(L, prefix) -> torch.Tensor:
+    """Exact (float64) conditional variances of every item given the
+    items ``prefix``: diag L - diag(L[:, P] L[P, P]^{-1} L[P, :])."""
+    d = torch.diagonal(L).double()
+    if len(prefix) == 0:
+        return d
+    P = torch.as_tensor(np.asarray(prefix, np.int64), device=L.device)
+    Lp = L.index_select(0, P).double()                  # (t, N)
+    X = torch.linalg.solve(Lp.index_select(1, P), Lp)
+    return d - (Lp * X).sum(dim=0)
+
+
+def logdet(L, picks) -> float:
+    P = torch.as_tensor(np.asarray(picks, np.int64), device=L.device)
+    sign, ld = torch.linalg.slogdet(L.index_select(0, P).index_select(
+        1, P).double())
+    check(float(sign) > 0, f"L_Y of the picks is not PD (sign {sign})")
+    return float(ld)
+
+
+def compare_maps(L, pk, pp, label: str) -> dict:
+    """Kernel picks ``pk`` against plain picks ``pp`` of the same L, in
+    order. A first difference must be a tie on the exact chain (float64
+    conditional variances of the two candidates given the common prefix
+    within GREEDY_TIE_TOL · max diag L); log det L_Y of both sets."""
+    out = {"identical": bool((pk == pp).all())}
+    ld_k, ld_p = logdet(L, pk), logdet(L, pp)
+    out.update(logdet_kernel=ld_k, logdet_plain=ld_p)
+    diff = np.nonzero(pk != pp)[0]
+    if diff.size:
+        t = int(diff[0])
+        d64 = conditional_variances(L, pk[:t])
+        scale = float(torch.diagonal(L).max())
+        a, b = int(pk[t]), int(pp[t])
+        gap = abs(float(d64[a]) - float(d64[b])) / scale
+        out.update(first_difference=t, candidates=[a, b],
+                   d64=[float(d64[a]), float(d64[b])], tie_gap=gap)
+        check(gap <= GREEDY_TIE_TOL, f"{label}: picks differ at step {t} "
+              f"({a} vs {b}) and the exact conditional variances differ by "
+              f"{gap!r} of max diag L > {GREEDY_TIE_TOL}: no tie")
+        check(abs(ld_k - ld_p) <= 1e-3 * abs(ld_p), f"{label}: log det "
+              f"L_Y {ld_k!r} (kernel) vs {ld_p!r} (plain)")
+    print(f"  {label}: {json.dumps(out)}")
+    return out
+
+
+def kdpp_marginals(L: np.ndarray, k: int) -> np.ndarray:
+    """P(i in Y) of the k-DPP of L, by enumeration of all k-subsets."""
+    N = L.shape[0]
+    marg, Z = np.zeros(N), 0.0
+    for Y in itertools.combinations(range(N), k):
+        w = np.linalg.det(L[np.ix_(Y, Y)])
+        Z += w
+        marg[list(Y)] += w
+    return marg / Z
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -335,7 +644,7 @@ def main() -> None:
 
     # -- 2. build: one nvcc per source, started together --------------------
     t0 = time.perf_counter()
-    sources = ("phase2_select", "partial_trace")
+    sources = ("phase2_select", "partial_trace", "greedy_map", "kron_matvec")
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
@@ -446,19 +755,15 @@ def main() -> None:
     times = {}
     for B, (us, ke, G1, Gr) in inputs.items():
         picks_k = p2.phase2_select_cuda(us, ke, G1, Gr).cpu().numpy()
-        plain1 = cuda_ms(lambda: p2.phase2_select_plain(us, ke, G1, Gr),
-                         reps=5, warmup=1)
-        kern = cuda_ms(lambda: p2.phase2_select_cuda(us, ke, G1, Gr),
-                       reps=20, warmup=3)
-        plain2 = cuda_ms(lambda: p2.phase2_select_plain(us, ke, G1, Gr),
-                         reps=5, warmup=0)
         b_ms, b_by = bound(picks_k, int(G1.shape[1]), int(Gr.shape[1]),
                            k_max)
-        times[B] = {"ms": kern, "plain_ms": min(plain1, plain2),
-                    "plain_runs_ms": [plain1, plain2], "bound_ms": b_ms,
-                    "bound_by": b_by,
-                    "live_steps": int((picks_k >= 0).sum()),
-                    "max_row_steps": int((picks_k >= 0).sum(axis=1).max())}
+        times[B] = kernel_times(
+            partial(p2.phase2_select_cuda, us, ke, G1, Gr),
+            partial(p2.phase2_select_plain, us, ke, G1, Gr), None,
+            reps=20, plain_reps=5, expect="phase2_select_kernel",
+            bound_ms=b_ms, bound_by=b_by,
+            live_steps=int((picks_k >= 0).sum()),
+            max_row_steps=int((picks_k >= 0).sum(axis=1).max()))
         print(f"  phase2_select B={B}: {json.dumps(times[B])}")
     svc.sample(16)                              # warm the request path
     req = []
@@ -575,15 +880,11 @@ def main() -> None:
              "kulv,vu->kl", L2r),
             ("C", pt.partial_trace_C_cuda, pt.partial_trace_C_plain,
              "iujv,ij->uv", L1r)):
-        plain1 = cuda_ms(lambda: plain(t4, L), reps=5, warmup=1)
-        kern_ms = cuda_ms(lambda: kern(t4, L), reps=20, warmup=3)
-        lib_ms = cuda_ms(lambda: torch.einsum(lib, t4, L), reps=5, warmup=1)
-        plain2 = cuda_ms(lambda: plain(t4, L), reps=5, warmup=0)
         b_ms, b_by = pt_bound(*PT_SHAPES[0])
-        pt_times[k] = {"ms": kern_ms, "plain_ms": min(plain1, plain2),
-                       "plain_runs_ms": [plain1, plain2],
-                       "library_ms": lib_ms, "bound_ms": b_ms,
-                       "bound_by": b_by}
+        pt_times[k] = kernel_times(
+            partial(kern, t4, L), partial(plain, t4, L),
+            partial(torch.einsum, lib, t4, L), reps=20, plain_reps=5,
+            expect=f"partial_trace_{k}_", bound_ms=b_ms, bound_by=b_by)
         print(f"  partial_trace_{k} {PT_SHAPES[0]}: "
               f"{json.dumps(pt_times[k])}")
     theta_ms = cuda_ms(lambda: theta_matrix_kron(L1, L2, batch), reps=5,
@@ -615,17 +916,229 @@ def main() -> None:
         "pt_shape": PT_SHAPES[0], "partial_trace_A": pt_times["A"],
         "partial_trace_C": pt_times["C"]}
 
+    # -- 12. greedy-MAP and Kronecker-matvec kernels vs plain ----------------
+    from repro_torch.kernels import greedy_map as gm
+    from repro_torch.kernels import kron_matvec as km
+    from repro_torch.kernels import ops
+    from repro_torch.sampling import kdpp as kd
+    from repro_torch.sampling.batched import (assemble_eigvecs,
+                                              compact_selection,
+                                              split_mixed_radix)
+    gm_err = check_greedy_update(gen, dev)
+    km_err = check_kron_matvec(gen, dev)
+
+    # -- 13. the MAP path ----------------------------------------------------
+    L_main = main.dense_kernel(10_000)
+    map_launches, map_cmp = {}, {}
+    for k in (20, 200):
+        map_tracker = obs.InMemoryTracker()
+        gm.greedy_map_update_cuda.launches = 0
+        with obs.use(map_tracker):
+            picks_map = main.map(k, max_dense=10_000)
+            torch.cuda.synchronize()
+        map_launches[k] = gm.greedy_map_update_cuda.launches
+        cnt = int(map_tracker.counter_value("kernels.greedy_map_update.cuda"))
+        print(f"map({k}) at N = {main.N}: launches {map_launches[k]}, "
+              f"kernels.greedy_map_update.cuda {cnt}")
+        check(map_launches[k] == k and cnt == k, f"map({k}) launched the "
+              f"update {map_launches[k]} times, counted {cnt}, not {k}")
+        check(map_tracker.counter_value(
+            "kernels.greedy_map_update.reference") == 0,
+            f"map({k}) took the plain update on the card")
+        check(picks_map.dtype == torch.int32 and picks_map.is_cuda
+              and tuple(picks_map.shape) == (k,), f"map({k}) returned "
+              f"{picks_map.dtype} {tuple(picks_map.shape)} on "
+              f"{picks_map.device}")
+        pk = picks_map.cpu().numpy()
+        check(len(set(pk.tolist())) == k and pk.min() >= 0
+              and pk.max() < main.N, f"map({k}) picks invalid: {pk}")
+        pp = ops.greedy_map_kdpp(L_main, k, backend="reference").cpu().numpy()
+        map_cmp[k] = compare_maps(L_main, pk, pp, f"map({k}) kernel vs plain")
+    guard = dpp.random_kron(gen, (64, 64)).rescale(20.0, cache)
+    gm.greedy_map_update_cuda.launches = 0
+    picks_64 = guard.map(20).cpu().numpy()
+    check(len(set(picks_64.tolist())) == 20
+          and gm.greedy_map_update_cuda.launches == 20,
+          f"map(20) of a 64 x 64 model: {picks_64}, launches "
+          f"{gm.greedy_map_update_cuda.launches}")
+    print(f"map(20) of a 64 x 64 model under the default guard: 20 distinct "
+          f"picks, 20 launches")
+
+    # -- 14. the eigenvector path ---------------------------------------------
+    spec_m = svc.spectrum
+    u_sel = torch.rand((spec_m.N,), generator=gen, device=dev)
+    sel, valid, _ = compact_selection(
+        u_sel < torch.sigmoid(spec_m.log_eigenvalues()), svc.k_max)
+    eig_tracker = obs.InMemoryTracker()
+    km.kron_matvec_cuda.launches = 0
+    with obs.use(eig_tracker):
+        V = assemble_eigvecs(spec_m.vecs, spec_m.sizes, sel, valid)
+        torch.cuda.synchronize()
+    eig_launches = km.kron_matvec_cuda.launches
+    eig_count = int(eig_tracker.counter_value("kernels.kron_matvec.cuda"))
+    Vv = V[:, valid].double()
+    orth = float((Vv.T @ Vv - torch.eye(Vv.shape[1], device=dev,
+                                        dtype=torch.float64)).abs().max())
+    i_f, j_f = split_mixed_radix(sel, spec_m.sizes)
+    P1, P2 = spec_m.vecs
+    V_gather = (P1[:, i_f][:, None, :] * P2[:, j_f][None, :, :]).reshape(
+        spec_m.N, svc.k_max) * valid[None, :].to(V.dtype)
+    eig_err = float((V - V_gather).abs().max())
+    eig = {"k_max": svc.k_max, "valid": int(valid.sum()),
+           "launches": eig_launches, "counter": eig_count,
+           "orthonormality_err": orth, "kernel_vs_gather": eig_err}
+    print(f"assemble_eigvecs at N = {spec_m.N}: {json.dumps(eig)}")
+    check(eig_launches == 1 and eig_count == 1, f"assemble_eigvecs made "
+          f"{eig_launches} kron_matvec launches, counted {eig_count}, not 1")
+    check(tuple(V.shape) == (spec_m.N, svc.k_max), f"V is {tuple(V.shape)}")
+    check(orth <= 1e-4, f"VᵀV - I is {orth!r} > 1e-4 on the valid columns")
+    check(eig_err <= 1e-6, f"kernel route vs gather route: {eig_err!r}")
+
+    # -- 15. the k-DPP path ---------------------------------------------------
+    kdpp_tracker = obs.InMemoryTracker()
+    gen_k = torch.Generator(device=dev).manual_seed(3)
+    kdpp_state = gen_k.get_state()
+    p2.launches = 0
+    with obs.use(kdpp_tracker):
+        kb = main.sample(gen_k, 64, k=20)
+        kdpp_rows = svc.sample_kdpp(20, 16)
+        torch.cuda.synchronize()
+    kdpp_launches = p2.launches
+    kdpp_count = int(kdpp_tracker.counter_value("kernels.phase2_select.cuda"))
+    print(f"k-DPP: model.sample(gen, 64, k=20) and svc.sample_kdpp(20, 16): "
+          f"phase-2 launches {kdpp_launches}, kernels.phase2_select.cuda "
+          f"{kdpp_count}")
+    check(kdpp_launches == 2 and kdpp_count == 2, f"the k-DPP calls launched "
+          f"phase 2 {kdpp_launches} times, counted {kdpp_count}, not 2")
+    check(len(kdpp_rows) == 16, f"svc.sample_kdpp gave {len(kdpp_rows)} rows")
+    for r in [*kb.to_lists(), *kdpp_rows]:
+        check(len(r) == 20 and len(set(r)) == 20
+              and all(0 <= i < main.N for i in r), f"a k-DPP row is not 20 "
+              f"distinct items: {r}")
+    replay_k = torch.Generator(device=dev)
+    replay_k.set_state(kdpp_state)
+    u_k = torch.rand((64, spec_m.N), generator=replay_k, device=dev)
+    us_k = torch.rand((64, 20), generator=replay_k, device=dev)
+    mask_k = kd._phase1_kdpp_from_uniforms(u_k, spec_m.log_eigenvalues(), 20)
+    sel_k, valid_k, _ = compact_selection(mask_k, 20)
+    G1_k, Gr_k = (G.contiguous() for G in p2.canonical_pair(
+        gather_factor_columns(spec_m.vecs, spec_m.sizes, sel_k, valid_k)))
+    ke_k = mask_k.sum(dim=1).to(torch.int32)
+    pk_k = torch.where(kb.mask, kb.indices, -1).cpu().numpy()
+    pp_k = p2.phase2_select_plain(us_k, ke_k, G1_k, Gr_k).cpu().numpy()
+    agree_kdpp = compare_picks(pk_k, pp_k, us_k, ke_k, G1_k, Gr_k,
+                               "k-DPP main path B=64 k=20")
+    small_k = dpp.random_kron(gen, (2, 3))
+    marg = kdpp_marginals(small_k.dense_kernel().double().cpu().numpy(), 2)
+    picks_s = kd.sample_kdpp_batched(gen, small_k.spectrum(cache), 2, 3000,
+                                     backend="cuda").cpu().numpy()
+    check((picks_s >= 0).all() and all(len(set(r)) == 2 for r in
+                                       picks_s.tolist()),
+          "a (2, 3) k = 2 draw is not 2 distinct items")
+    mem_k = np.zeros((3000, 6))
+    mem_k[np.arange(3000)[:, None], picks_s] = 1.0
+    kdpp_marg_err = float(np.abs(mem_k.mean(0) - marg).max())
+    print(f"k-DPP marginals (2,3), k = 2, 3000 kernel draws: max |freq - "
+          f"P(i in Y)| = {kdpp_marg_err!r}")
+    check(kdpp_marg_err <= 0.04, f"k-DPP marginals off by {kdpp_marg_err}")
+
+    # -- 16. times --------------------------------------------------------------
+    sel_times = {}
+    gm_times = {}
+    for k in (20, 200):
+        lcol, C, cj, dj, d = greedy_inputs(10_000, k, gen, dev)
+        CTv = C.t().contiguous().t()           # the MAP loop's (k, N) layout
+        b_ms, b_by = greedy_bound(10_000, k)
+        args = (lcol, CTv, cj, dj, d)
+        gm_times[k] = kernel_times(
+            partial(gm.greedy_map_update_cuda, *args),
+            partial(gm.greedy_map_update_plain, *args),
+            partial(greedy_library, *args), reps=200, plain_reps=100,
+            expect="greedy_map_update_kernel", bound_ms=b_ms, bound_by=b_by)
+        print(f"  greedy_map_update N=10000 k={k}: "
+              f"{json.dumps(gm_times[k])}")
+        sel_times[f"map{k}_ms"] = cuda_ms(
+            lambda: main.map(k, max_dense=10_000), reps=3, warmup=1)
+        sel_times[f"map{k}_plain_ms"] = cuda_ms(
+            lambda: ops.greedy_map_kdpp(L_main, k, backend="reference"),
+            reps=3, warmup=1)
+    sel_times["dense_kernel_ms"] = cuda_ms(
+        lambda: main.dense_kernel(10_000), reps=5, warmup=1)
+    km_times = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        A = torch.randn((100, 100), generator=gen, device=dev).to(dtype)
+        B = torch.randn((100, 100), generator=gen, device=dev).to(dtype)
+        X = torch.randn((64, 10_000), generator=gen, device=dev).to(dtype)
+        X3 = X.reshape(64, 100, 100)
+        b_ms, b_by = km_bound(A, B, X)
+        km_times[name] = kernel_times(
+            partial(km.kron_matvec_cuda, A, B, X),
+            partial(km.kron_matvec_plain, A, B, X),
+            partial(torch.einsum, "ki,biu,vu->bkv", A, X3, B),
+            reps=100, plain_reps=50, expect="batched_gemm_kernel",
+            bound_ms=b_ms, bound_by=b_by)
+        print(f"  kron_matvec 100x100 batch 64 {name}: "
+              f"{json.dumps(km_times[name])}")
+    # the eigenvector path's own shape: a one-hot batch of k_max columns
+    E = torch.zeros((svc.k_max, spec_m.N), device=dev)
+    E[torch.arange(svc.k_max, device=dev),
+      i_f.long() * spec_m.sizes[1] + j_f.long()] = 1.0
+    P1c, P2c = P1.contiguous(), P2.contiguous()   # eigh's are column-major
+    E3 = E.reshape(svc.k_max, *spec_m.sizes)
+    b_ms, b_by = km_bound(P1c, P2c, E)
+    km_times["eigvec_onehot"] = kernel_times(
+        partial(km.kron_matvec_cuda, P1c, P2c, E),
+        partial(km.kron_matvec_plain, P1c, P2c, E),
+        partial(torch.einsum, "ki,biu,vu->bkv", P1c, E3, P2c),
+        reps=100, plain_reps=50, expect="batched_gemm_kernel",
+        batch=svc.k_max, bound_ms=b_ms, bound_by=b_by)
+    sel_times["assemble_eigvecs_ms"] = cuda_ms(
+        lambda: assemble_eigvecs(spec_m.vecs, spec_m.sizes, sel, valid),
+        reps=20, warmup=2)
+    ll_m = spec_m.log_eigenvalues()
+    sel_times["kdpp_sample64_ms"] = cuda_ms(
+        lambda: main.sample(gen, 64, k=20), reps=5, warmup=1)
+    sel_times["kdpp_esp_table_ms"] = cuda_ms(
+        lambda: kd.log_esp_table(ll_m, 20), reps=5, warmup=1)
+    sel_times["kdpp_phase1_ms"] = cuda_ms(
+        lambda: gather_factor_columns(spec_m.vecs, spec_m.sizes,
+                                      *compact_selection(kd._phase1_kdpp(
+                                          gen, ll_m, 20, 64), 20)[:2]),
+        reps=5, warmup=1)
+    picks_kd = p2.phase2_select_cuda(us_k, ke_k, G1_k, Gr_k).cpu().numpy()
+    b_ms, b_by = bound(picks_kd, *spec_m.sizes, 20)
+    sel_times["kdpp_phase2"] = kernel_times(
+        partial(p2.phase2_select_cuda, us_k, ke_k, G1_k, Gr_k),
+        partial(p2.phase2_select_plain, us_k, ke_k, G1_k, Gr_k), None,
+        reps=20, plain_reps=5, expect="phase2_select_kernel",
+        bound_ms=b_ms, bound_by=b_by)
+    svc.sample_kdpp(20, 16)                     # warm
+    kreq = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        svc.sample_kdpp(20, 16)
+        torch.cuda.synchronize()
+        kreq.append((time.perf_counter() - t0) * 1e3)
+    sel_times["svc_sample_kdpp16_ms"] = kreq
+    sel_times["svc_sample_kdpp16_median_ms"] = float(np.median(kreq))
+    print(f"  selection times: {json.dumps(sel_times)}")
+
+    # -- 17. device times of every kernels row --------------------------------
+    launch_us = [host_launch_us()]
+    fill_device_times()
+    launch_us.append(host_launch_us())
+    print(f"device times filled for every kernels row; one small launch from "
+          f"the host before and after the profiler sessions: {launch_us} µs")
+
     row = {"name": "phase2_select", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/phase2_select.cu",
            "replaces": "src/repro/kernels/phase2_select.py:172",
            "launches": launches,
            "max_abs_err": max(a["max_boundary_gap"] for a in
-                              [*agree.values(), *edges, agree_main]),
-           "ms": times[64]["ms"], "plain_ms": times[64]["plain_ms"],
-           "bound_ms": times[64]["bound_ms"],
-           "bound_by": times[64]["bound_by"], "library_ms": None,
-           "agree_rows": agree[64]["agree_rows"],
-           "kernel_ms": times[64]["ms"],
+                              [*agree.values(), *edges, agree_main,
+                               agree_kdpp]),
+           **times[64], "agree_rows": agree[64]["agree_rows"],
            "shapes": {"N1": 100, "Nr": 100, "k_max": k_max, "B": 64},
            "b1": times[1], "agree_rows_b1": agree[1]["agree_rows"],
            "agree_rows_main_path": agree_main["agree_rows"],
@@ -634,17 +1147,40 @@ def main() -> None:
                 "source": "src/repro_torch/kernels/csrc/partial_trace.cu",
                 "replaces": f"src/repro/kernels/partial_trace.py:{line}",
                 "launches": fit_launches[k],
-                "max_abs_err": pt_check["err"][k],
-                "ms": pt_times[k]["ms"], "plain_ms": pt_times[k]["plain_ms"],
-                "bound_ms": pt_times[k]["bound_ms"],
-                "bound_by": pt_times[k]["bound_by"],
-                "library_ms": pt_times[k]["library_ms"],
+                "max_abs_err": pt_check["err"][k], **pt_times[k],
                 "shapes": {"N1": PT_SHAPES[0][0], "N2": PT_SHAPES[0][1]},
                 "card": card, "power_limit": power_limit}
                for k, line in (("A", 51), ("C", 72))]
+    gm_row = {"name": "greedy_map_update", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/greedy_map.cu",
+              "replaces": "src/repro/kernels/greedy_map.py:39",
+              "launches": map_launches[20] + map_launches[200],
+              "launches_per_call": {"map20": map_launches[20],
+                                    "map200": map_launches[200]},
+              "max_abs_err": gm_err, **gm_times[200],
+              "shapes": {"N": 10_000, "k": 200, "C": "(k, N) buffer"},
+              "k20": gm_times[20], "map_vs_plain": map_cmp,
+              "card": card, "power_limit": power_limit}
+    km_row = {"name": "kron_matvec", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/kron_matvec.cu",
+              "replaces": "src/repro/kernels/kron_matvec.py:41",
+              "launches": eig_launches, "max_abs_err": km_err["float32"],
+              "max_abs_err_bf16": km_err["bfloat16"],
+              **km_times["float32"],
+              "shapes": {"N1": 100, "N2": 100, "batch": 64,
+                         "dtype": "float32"},
+              "bf16": km_times["bfloat16"],
+              "eigvec_onehot": km_times["eigvec_onehot"],
+              "card": card, "power_limit": power_limit}
+    row["launches_kdpp"] = kdpp_launches
+    row["agree_rows_kdpp"] = agree_kdpp["agree_rows"]
+    learn_timing["host_launch_us_before_after_profiler"] = launch_us
     print(json.dumps({"learning_timing": learn_timing, "card": card,
                       "power_limit": power_limit}))
-    print(json.dumps({"kernels": [row, *pt_rows]}))
+    print(json.dumps({"selection_timing": sel_times, "eigvec": eig,
+                      "kdpp_marginal_err": kdpp_marg_err, "card": card,
+                      "power_limit": power_limit}))
+    print(json.dumps({"kernels": [row, *pt_rows, gm_row, km_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,
                                  "svc_sample16_median_ms":
                                      float(np.median(req)),

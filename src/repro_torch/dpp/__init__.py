@@ -7,6 +7,8 @@
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = dpp.random_kron(gen, (100, 100)).rescale(20.0)   # N = 10^4
     batch = model.sample(gen, 64)           # SubsetBatch, one batched call
+    exact = model.sample(gen, 64, k=20)     # k-DPP: exactly 20 per row
+    best = model.map(20, max_dense=10_000)  # greedy MAP on the dense L
     svc = model.service(seed=0)             # micro-batching front-end
     rows = svc.sample(16)
     init = dpp.random_kron(gen, (100, 100))
@@ -18,6 +20,7 @@ unless ``device="cpu"`` is passed.
 
 from ..sampling.service import SampleTicket, SamplingService
 from ..sampling.spectral import FactorSpectrum, SpectralCache, default_cache
+from . import functional
 from .model import (MAX_DENSE_N, Dense, DPPModel, Kron, from_factors,
                     from_kernel, random_kron)
 
@@ -25,5 +28,5 @@ __all__ = [
     "DPPModel", "Dense", "Kron", "MAX_DENSE_N",
     "from_kernel", "from_factors", "random_kron",
     "FactorSpectrum", "SpectralCache", "default_cache",
-    "SamplingService", "SampleTicket",
+    "SamplingService", "SampleTicket", "functional",
 ]

@@ -24,7 +24,9 @@ import torch
 from .._device import DeviceLike, as_float, resolve_device
 from ..core.dpp import SubsetBatch
 from ..core.krondpp import KronDPP, random_krondpp
+from ..kernels import ops as kernel_ops
 from ..sampling.batched import sample_krondpp_batched
+from ..sampling.kdpp import sample_kdpp_batched
 from ..sampling.service import SamplingService
 from ..sampling.spectral import (FactorSpectrum, SpectralCache, default_cache,
                                  gain_for_expected_size)
@@ -113,20 +115,24 @@ class DPPModel:
                k: Optional[int] = None, k_max: Optional[int] = None,
                cache: Optional[SpectralCache] = None,
                device: DeviceLike = "cuda") -> SubsetBatch:
-        """Exact DPP samples as a ``SubsetBatch`` with ``truncated``
-        provenance, drawn on ``device`` from ``generator`` (which must live
-        there). ``batch_shape`` gives n = prod(shape) rows. ``k_max``
-        overrides the phase-2 budget (default E|Y| + 6σ). Phase 2 runs
-        the CUDA kernel on the card and its plain version on the CPU."""
+        """Exact DPP (or, with ``k``, k-DPP) samples as a ``SubsetBatch``,
+        drawn on ``device`` from ``generator`` (which must live there).
+        ``batch_shape`` gives n = prod(shape) rows. DPP draws carry
+        ``truncated`` provenance and ``k_max`` overrides their phase-2
+        budget (default E|Y| + 6σ); k-DPP rows hold exactly k items (fewer,
+        -1 padded, below the kernel's rank). Phase 2 runs the CUDA kernel
+        on the card and its plain version on the CPU."""
         dev = resolve_device(device)
-        if k is not None:
-            _not_ported("sample(k=...) (k-DPP)", "k-DPP")
         shape = (batch_shape,) if isinstance(batch_shape, int) \
             else tuple(batch_shape)
         n = 1
         for s in shape:
             n *= int(s)
         spec = self.spectrum(cache).to(dev)
+        if k is not None:
+            # exact-k draws cannot overflow their k-slot budget
+            return _picks_to_subsets(sample_kdpp_batched(generator, spec,
+                                                         int(k), n))
         if k_max is None:
             k_max = spec.suggested_k_max()
         picks, _, truncated = sample_krondpp_batched(generator, spec,
@@ -138,6 +144,15 @@ class DPPModel:
         coalesce / one batched call / scatter); takes ``seed=``,
         ``k_max=``, ``max_batch=``, ``device=`` (default "cuda")."""
         return SamplingService(self, **kwargs)
+
+    # -- MAP ----------------------------------------------------------------
+    def map(self, k: int, max_dense: int = MAX_DENSE_N) -> torch.Tensor:
+        """Greedy MAP subset of size k (Chen et al. 2018 fast greedy,
+        ``kernels.ops.greedy_map_kdpp``: the CUDA update kernel on the
+        card) as (k,) int32 on the model's device. Kron kernels run on the
+        dense materialization, guarded by ``max_dense``."""
+        return kernel_ops.greedy_map_kdpp(self.dense_kernel(max_dense),
+                                          int(k))
 
     # -- not ported yet -----------------------------------------------------
     def serving(self, config=None, **kwargs):
@@ -154,9 +169,6 @@ class DPPModel:
 
     def condition(self, observed, max_dense: int = MAX_DENSE_N):
         _not_ported("condition", "log_prob, marginal and condition")
-
-    def map(self, k: int, max_dense: int = MAX_DENSE_N):
-        _not_ported("map", "greedy MAP with greedy_map_update")
 
     def fit(self, batch: SubsetBatch, algorithm=None, **fit_kwargs):
         _not_ported("fit of a Dense model (EM)", "learning: EM")

@@ -1,2 +1,13 @@
 """Kernels of the port: hand-written Hopper kernels (``csrc/``), their
-plain PyTorch versions, and the ``ops`` dispatch seam."""
+plain PyTorch versions, and the ``ops`` dispatch seam.
+
+phase2_select.py   fused phase-2 projection-DPP selection (sampling)
+partial_trace.py   Appendix-B contractions A and C of the dense Θ (KrK)
+greedy_map.py      one fast-greedy k-DPP MAP update step (``map``)
+kron_matvec.py     batched (A ⊗ B) x by the vec-trick (explicit
+                   eigenvectors)
+
+``ops.py`` holds the dispatchers: a CUDA tensor goes to the kernel, a CPU
+tensor to the plain version. ``_build.py`` compiles a kernel with nvcc at
+its first launch.
+"""

@@ -1,0 +1,110 @@
+"""Batched Kronecker matrix-vector product: the plain PyTorch version and
+the wrapper of its hand-written Hopper kernel.
+
+Port of ``repro/kernels/kron_matvec.py`` (the Pallas kernel
+``kron_matvec_pallas``) and of its oracle ``ref.kron_matvec_ref``. With
+A (N1, N1), B (N2, N2) and X (batch, N1·N2), row-major vec as everywhere
+in the package:
+
+    Y[b] = (A ⊗ B) X[b] = vec(A · mat(X[b]) · Bᵀ)
+
+accumulated in float32, output in X's dtype (float32 or bfloat16).
+``kron_matvec_plain`` is the einsum of the oracle and serves any device;
+``kron_matvec_cuda`` launches ``csrc/kron_matvec.cu`` on CUDA tensors and
+raises on anything else. The kernel takes any N1, N2 and batch (the JAX
+wrapper padded to 128 for the TPU's matrix unit).
+
+The wrapper counts its launches in ``kron_matvec_cuda.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def kron_matvec_plain(A: torch.Tensor, B: torch.Tensor,
+                      X: torch.Tensor) -> torch.Tensor:
+    """Y[b] = (A ⊗ B) X[b]; A (N1, N1), B (N2, N2), X (batch, N1·N2)."""
+    N1, N2 = int(A.shape[0]), int(B.shape[0])
+    X3 = X.reshape(X.shape[0], N1, N2)
+    Y = torch.einsum("ki,biu,vu->bkv", A.float(), X3.float(), B.float())
+    return Y.reshape(X.shape[0], N1 * N2).to(X.dtype)
+
+
+def _check_cuda_inputs(A, B, X):
+    for name, x in (("A", A), ("B", B), ("X", X)):
+        if not isinstance(x, torch.Tensor) or not x.is_cuda:
+            raise ValueError(f"kron_matvec_cuda: {name} must be a CUDA "
+                             f"tensor, got {getattr(x, 'device', type(x))}")
+        if x.device != X.device:
+            raise ValueError(f"kron_matvec_cuda: {name} is on {x.device}, "
+                             f"X on {X.device}")
+        if x.dtype != X.dtype:
+            raise ValueError(f"kron_matvec_cuda: A, B and X must share a "
+                             f"dtype, got {name} {x.dtype}, X {X.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"kron_matvec_cuda: {name} must be contiguous")
+    if X.dtype not in _DTYPE_CODES:
+        raise ValueError(f"kron_matvec_cuda takes float32 or bfloat16, got "
+                         f"{X.dtype}")
+    if A.dim() != 2 or A.shape[0] != A.shape[1] or B.dim() != 2 \
+            or B.shape[0] != B.shape[1]:
+        raise ValueError(f"kron_matvec_cuda: A and B must be square, got "
+                         f"{tuple(A.shape)} and {tuple(B.shape)}")
+    N1, N2 = int(A.shape[0]), int(B.shape[0])
+    if X.dim() != 2 or X.shape[1] != N1 * N2:
+        raise ValueError(f"kron_matvec_cuda: X must be (batch, {N1 * N2}), "
+                         f"got {tuple(X.shape)}")
+    if N1 < 1 or N2 < 1 or N1 * N2 >= 2 ** 31 or N1 > 65535 * 64 \
+            or X.shape[0] >= 2 ** 31:
+        raise ValueError(f"kron_matvec_cuda: N1 = {N1}, N2 = {N2}, batch "
+                         f"{X.shape[0]} out of range")
+    return N1, N2, int(X.shape[0])
+
+
+def kron_matvec_cuda(A: torch.Tensor, B: torch.Tensor,
+                     X: torch.Tensor) -> torch.Tensor:
+    """Launch the Hopper kernel (``csrc/kron_matvec.cu``): two batched
+    tiled products on PyTorch's current stream, through a (batch, N1, N2)
+    float32 scratch. Same contract as ``kron_matvec_plain``. Raises on CPU
+    tensors, mixed or other dtypes, non-contiguous inputs, bad shapes, and
+    a refused launch."""
+    N1, N2, batch = _check_cuda_inputs(A, B, X)
+    Y = torch.empty_like(X)
+    if batch == 0:
+        return Y
+    from ._build import load_library
+    lib = load_library("kron_matvec", bind)
+    tmp = torch.empty((batch, N1, N2), dtype=torch.float32, device=X.device)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    with torch.cuda.device(X.device):
+        rc = lib.kron_matvec_launch(A.data_ptr(), B.data_ptr(), X.data_ptr(),
+                                    tmp.data_ptr(), Y.data_ptr(), N1, N2,
+                                    batch, _DTYPE_CODES[X.dtype], stream)
+    if rc != 0:
+        msg = lib.kron_matvec_error_string(rc).decode()
+        raise RuntimeError(f"kron_matvec kernel launch failed: CUDA error "
+                           f"{rc} ({msg})")
+    with _LAUNCH_LOCK:
+        kron_matvec_cuda.launches += 1
+    return Y
+
+
+#: Kernel launches since import (or since a caller reset it to 0).
+kron_matvec_cuda.launches = 0
+
+
+def bind(lib: ctypes.CDLL) -> None:
+    """Declare the C interface of ``csrc/kron_matvec.cu``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.kron_matvec_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.kron_matvec_launch.restype = ctypes.c_int
+    lib.kron_matvec_error_string.argtypes = [ctypes.c_int]
+    lib.kron_matvec_error_string.restype = ctypes.c_char_p

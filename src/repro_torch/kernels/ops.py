@@ -15,6 +15,9 @@ from typing import Optional, Sequence
 import torch
 
 from .. import obs
+from .greedy_map import (degeneracy_eps, greedy_map_update_cuda,
+                         greedy_map_update_plain)
+from .kron_matvec import kron_matvec_cuda, kron_matvec_plain
 from .partial_trace import (partial_trace_A_cuda, partial_trace_A_plain,
                             partial_trace_C_cuda, partial_trace_C_plain)
 from .phase2_select import (canonical_pair, phase2_select_cuda,
@@ -40,6 +43,38 @@ def _resolve_backend(op: str, x: torch.Tensor, name: str,
                          f"{name} on {x.device}")
     _count_dispatch(op, backend)
     return backend
+
+
+# ---------------------------------------------------------------------------
+# kron_matvec (explicit Kronecker eigenvectors)
+# ---------------------------------------------------------------------------
+
+def kron_matvec(A: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
+                backend: Optional[str] = None) -> torch.Tensor:
+    """Batched (A ⊗ B) X[b]; X (batch, N1·N2) float32 or bfloat16, output
+    in X's dtype. ``backend`` as for ``phase2_select``."""
+    if _resolve_backend("kron_matvec", X, "X", backend) == "reference":
+        return kron_matvec_plain(A, B, X)
+    return kron_matvec_cuda(A.contiguous(), B.contiguous(), X.contiguous())
+
+
+def kron_eigvec_batch(P1: torch.Tensor, P2: torch.Tensor, i: torch.Tensor,
+                      j: torch.Tensor,
+                      backend: Optional[str] = None) -> torch.Tensor:
+    """Columns of P1 ⊗ P2 at the index pairs (i, j), (k,) each -> (N, k).
+
+    (P1 ⊗ P2) vec(e_i e_jᵀ) = vec(P1[:, i] P2[:, j]ᵀ): on a CUDA tensor
+    (or with an explicit ``backend``) the one-hot batch goes through
+    ``kron_matvec``, as the JAX package does on the TPU; on a CPU tensor
+    the gather and outer product, O(N k) instead of O(N (N1+N2) k)."""
+    N1, N2 = int(P1.shape[0]), int(P2.shape[0])
+    k = int(i.shape[0])
+    if P1.is_cuda or backend is not None:
+        E = torch.zeros((k, N1 * N2), dtype=P1.dtype, device=P1.device)
+        E[torch.arange(k, device=P1.device), i.long() * N2 + j.long()] = 1.0
+        return kron_matvec(P1, P2, E, backend=backend).T
+    return (P1[:, i.long()][:, None, :] * P2[:, j.long()][None, :, :]
+            ).reshape(N1 * N2, k)
 
 
 def phase2_select(us: torch.Tensor, Gs: Sequence[torch.Tensor],
@@ -100,3 +135,57 @@ def partial_trace_C(theta: torch.Tensor, L1: torch.Tensor, N1: int, N2: int,
                         backend) == "reference":
         return partial_trace_C_plain(theta4, L1)
     return partial_trace_C_cuda(theta4.contiguous(), L1.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# greedy MAP (k-DPP) built on the step kernel
+# ---------------------------------------------------------------------------
+
+def greedy_map_update(lcol: torch.Tensor, C: torch.Tensor, cj: torch.Tensor,
+                      dj: torch.Tensor, d: torch.Tensor,
+                      backend: Optional[str] = None):
+    """One fast-greedy MAP step -> (e, d_new): lcol (N,), C (N, k) (any
+    strides), cj (k,), dj (1,), d (N,). ``backend`` as for
+    ``phase2_select``."""
+    if _resolve_backend("greedy_map_update", d, "d", backend) == "reference":
+        return greedy_map_update_plain(lcol, C, cj, dj, d)
+    return greedy_map_update_cuda(lcol.contiguous(), C, cj.contiguous(),
+                                  dj.contiguous(), d.contiguous())
+
+
+def greedy_map_kdpp(L: torch.Tensor, k: int,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """Greedy MAP selection of k items (Chen et al. 2018 fast greedy), the
+    O(N k) update of each step through ``greedy_map_update``. Returns (k,)
+    int32 picks on L's device.
+
+    Port of the JAX ``ops.greedy_map_kdpp``: the ``scan`` is a Python loop
+    of k steps that never waits for the device (the pick j stays a device
+    tensor). ``torch.argmax`` takes the first maximum, as ``jnp.argmax``
+    does. A degenerate pick (conditional variance at or below
+    ``degeneracy_eps(L)``, k beyond numerical rank) clamps the divisor,
+    zeroes its update and leaves d as it was. The Cholesky buffer is kept
+    transposed, Cᵀ (k, N): step t writes row t, and the kernel reads the
+    (N, k) view of it with coalesced loads."""
+    k = int(k)
+    N = int(L.shape[0])
+    dev = L.device
+    eps = degeneracy_eps(L)
+    d = torch.diagonal(L).to(torch.float32)
+    CT = torch.zeros((k, N), dtype=torch.float32, device=dev)
+    chosen = torch.zeros((N,), dtype=torch.bool, device=dev)
+    picks = torch.empty((k,), dtype=torch.int64, device=dev)
+    for t in range(k):
+        j = torch.argmax(torch.where(chosen, float("-inf"), d)).view(1)
+        dj = d.index_select(0, j)
+        ok = dj > eps
+        e, d_upd = greedy_map_update(
+            L.index_select(1, j).view(N), CT.t(),
+            CT.index_select(1, j).view(k), torch.maximum(dj, eps), d,
+            backend=backend)
+        e = torch.where(ok, e, 0.0)
+        d = torch.where(ok, torch.clamp_min(d_upd, 0.0), d)
+        CT[t] = e
+        chosen.index_fill_(0, j, True)
+        picks[t:t + 1] = j
+    return picks.to(torch.int32)

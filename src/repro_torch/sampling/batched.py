@@ -10,6 +10,10 @@ phase 2  The projection-DPP chain rule, the whole batch in one call to
          ``kernels.ops.phase2_select``: the hand-written CUDA kernel for
          tensors on the card, its plain PyTorch version on the CPU.
 
+``assemble_eigvecs`` materializes selected Kronecker eigenvectors for
+callers that want them explicitly (through the ``kron_matvec`` kernel on
+the card); the sampler never does.
+
 The batch dimension is written out (the JAX package vmaps one sample).
 ``sample_krondpp_from_uniforms`` takes every uniform as a tensor, so a
 test can feed it the numbers JAX drew; ``sample_krondpp_batched`` draws
@@ -49,6 +53,10 @@ def compact_selection(mask: torch.Tensor, k_max: int
     return sel.clamp_max(N - 1).to(torch.int32), valid, truncated
 
 
+# global eigen-indices -> per-factor column indices, under the JAX name
+split_mixed_radix = split_indices_multi
+
+
 def gather_factor_columns(spectrum_vecs: Sequence[torch.Tensor],
                           sizes: Sequence[int], sel: torch.Tensor,
                           valid: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -65,6 +73,31 @@ def gather_factor_columns(spectrum_vecs: Sequence[torch.Tensor],
         Gs.append(G)
     Gs[0] = Gs[0] * valid.unsqueeze(-2).to(Gs[0].dtype)
     return tuple(Gs)
+
+
+def assemble_eigvecs(spectrum_vecs: Sequence[torch.Tensor],
+                     sizes: Sequence[int], sel: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """The selected Kronecker eigenvectors, materialized: (N, k_max) for
+    one row of ``sel``/``valid`` (k_max,). Invalid slots are zero columns.
+
+    For m = 2 this is ``kernels.ops.kron_eigvec_batch``: the one-hot
+    ``kron_matvec`` kernel on the card, gather and outer product on the
+    CPU. For m >= 3 (and m = 1) the factor columns are folded by outer
+    products. The sampler itself stays in factored form
+    (``gather_factor_columns``) and never builds this matrix; this is for
+    callers that want explicit eigenvectors.
+    """
+    parts = split_indices_multi(sel.to(torch.int64), sizes)
+    if len(sizes) == 2:
+        V = kernel_ops.kron_eigvec_batch(spectrum_vecs[0], spectrum_vecs[1],
+                                         parts[0], parts[1])
+    else:
+        V = spectrum_vecs[0][:, parts[0]]
+        for P, p in zip(spectrum_vecs[1:], parts[1:]):
+            G = P[:, p]
+            V = (V[:, None, :] * G[None, :, :]).reshape(-1, sel.shape[0])
+    return V * valid[None, :].to(V.dtype)
 
 
 def _phase1_from_uniforms(u: torch.Tensor, us: torch.Tensor,

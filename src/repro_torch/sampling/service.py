@@ -20,8 +20,9 @@ Thread-safety: one re-entrant lock guards the pending queue, the
 generator and every flush; any number of threads may
 ``submit()``/``flush()``/``result()`` concurrently.
 
-Not ported yet: ``sample_kdpp`` (exactly-k draws) and ``draw_keyed``
-(per-row keys for the async tier), see ROADMAP.md.
+``sample_kdpp`` draws exactly-k subsets immediately (not queued). Not
+ported yet: ``draw_keyed`` (per-row keys for the async tier), see
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from .. import obs
 from .._device import DeviceLike
 from ..core.krondpp import KronDPP
 from .batched import picks_to_lists, sample_krondpp_batched
+from .kdpp import sample_kdpp_batched
 from .spectral import SpectralCache, default_cache
 
 
@@ -195,10 +197,25 @@ class SamplingService:
         """submit + flush: ``num_samples`` subsets as index lists."""
         return self.submit(num_samples).result()
 
-    def sample_kdpp(self, k: int, num_samples: int = 1):
-        raise NotImplementedError(
-            "SamplingService.sample_kdpp: the k-DPP sampler is not ported "
-            "yet (ROADMAP.md, queue 1: k-DPP)")
+    def sample_kdpp(self, k: int, num_samples: int = 1) -> List[List[int]]:
+        """Exactly-k subsets (conditional ESP draw); immediate, not queued.
+        Device calls are chunked at max_batch like ``flush``, each drawn
+        from the service generator under the lock."""
+        drawn: List[List[int]] = []
+        remaining = self._round_up(num_samples)
+        tr = self.tracker
+        with self._lock:
+            while len(drawn) < num_samples:
+                batch = min(remaining, self.max_batch)
+                with tr.timer("service.device_call_s", kind="kdpp"):
+                    picks = sample_kdpp_batched(self._generator,
+                                                self.spectrum, int(k), batch)
+                    rows = picks_to_lists(picks)   # synchronizes the card
+                tr.counter("service.device_calls")
+                tr.counter("service.samples_drawn", batch)
+                drawn.extend(rows)
+                remaining -= batch
+        return drawn[:num_samples]
 
     def draw_keyed(self, row_keys):
         raise NotImplementedError(

@@ -33,7 +33,10 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
             "repro_torch.sampling.service, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.kernels._build, "
             "repro_torch.kernels.partial_trace, repro_torch.core.krk_picard, "
-            "repro_torch.learning, repro_torch.learning.api\n"
+            "repro_torch.learning, repro_torch.learning.api, "
+            "repro_torch.dpp.functional, repro_torch.sampling.kdpp, "
+            "repro_torch.core.sampling, repro_torch.kernels.greedy_map, "
+            "repro_torch.kernels.kron_matvec\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -83,6 +86,11 @@ def test_no_jax_or_jax_package_import_in_port_sources(path):
                 SubsetBatch.from_lists([[0, 1]], device="cpu")),
     lambda: dpp.Kron((np.eye(2), np.eye(3)), device="cpu").fit(
         SubsetBatch.from_lists([[0, 1]], device="cpu")),
+    lambda: dpp.Kron((np.eye(3),), device="cpu").sample(torch.Generator(),
+                                                        2, k=2),
+    lambda: dpp.Kron((np.eye(2), np.eye(3))).map(2),
+    lambda: SamplingService(dpp.Kron((np.eye(3),), device="cpu")
+                            ).sample_kdpp(2),
 ])
 def test_entry_points_without_a_card_raise(call):
     """Every entry point defaults to device="cuda"; with no card it
@@ -110,5 +118,5 @@ def test_kernel_build_is_deferred_to_first_launch():
     assert _build._LIBS == {}
     assert _build.source_path("phase2_select").is_file()
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == \
-        ["partial_trace", "phase2_select"]
+        ["greedy_map", "kron_matvec", "partial_trace", "phase2_select"]
     assert _build.library_path("phase2_select").parent == _build.BUILD_DIR

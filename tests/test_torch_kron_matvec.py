@@ -1,0 +1,215 @@
+"""The Kronecker matvec and the explicit eigenvector assembly of the
+PyTorch port against the JAX package.
+
+The same inputs, made with numpy from a seed, go through the JAX Pallas
+kernel (interpret mode, ``force_pallas=True``), the JAX einsum oracle
+``ref.kron_matvec_ref`` and the port's plain version (through
+``kernels.ops``), at the shapes and tolerances of
+``tests/test_kernels.py::test_kron_matvec_kernel``: rtol = atol = 2e-4 in
+float32 (sums of N1 or N2 terms in other orders) and 3e-2 in bfloat16
+(one bfloat16 rounding of the output, 2^-8 relative). bfloat16 inputs are
+the JAX arrays' values, carried across through float32.
+
+Eigenvectors come from one JAX spectrum carried across with
+``convert.spectrum_from_numpy``, so both packages assemble the same
+columns (eigh sign choices differ between libraries).
+"""
+
+import os
+
+# the JAX reference runs on the CPU, never on the card
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import random_krondpp
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
+from repro.sampling import SpectralCache
+from repro.sampling.batched import assemble_eigvecs as jax_assemble
+import repro_torch.obs as obs
+from repro_torch.convert import spectrum_from_numpy
+from repro_torch.kernels import ops
+from repro_torch.kernels.kron_matvec import (kron_matvec_cuda,
+                                             kron_matvec_plain)
+from repro_torch.kernels.phase2_select import canonical_pair
+from repro_torch.sampling.batched import (assemble_eigvecs,
+                                          gather_factor_columns,
+                                          split_mixed_radix)
+
+SHAPES = [(3, 4, 2), (8, 8, 5), (16, 12, 3), (128, 128, 4), (64, 96, 7)]
+TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+def jax_inputs(n1, n2, batch, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return (jnp.asarray(rng.standard_normal((n1, n1)), dtype),
+            jnp.asarray(rng.standard_normal((n2, n2)), dtype),
+            jnp.asarray(rng.standard_normal((batch, n1 * n2)), dtype))
+
+
+def to_torch(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(TORCH[x.dtype.type])
+
+
+@pytest.mark.parametrize("n1,n2,batch", SHAPES)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_plain_matches_jax_pallas_and_oracle(n1, n2, batch, dtype):
+    A, B, X = jax_inputs(n1, n2, batch, dtype, seed=n1 * n2 + batch)
+    want_pl = jax_ops.kron_matvec(A, B, X, force_pallas=True)
+    want_rf = jax_ref.kron_matvec_ref(A, B, X)
+    got = ops.kron_matvec(to_torch(A), to_torch(B), to_torch(X))
+    assert got.dtype == TORCH[dtype] and got.shape == (batch, n1 * n2)
+    tol = 2e-4 if dtype == jnp.float32 else 3e-2
+    for want in (want_pl, want_rf):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+def test_plain_is_the_kronecker_product():
+    """The einsum index string against an explicit Kronecker product in
+    float64 (a transposed index would show). The plain version computes
+    in float32, hence rtol = atol = 1e-5."""
+    rng = np.random.default_rng(3)
+    A, B = rng.standard_normal((3, 3)), rng.standard_normal((5, 5))
+    X = rng.standard_normal((4, 15))
+    got = kron_matvec_plain(*(torch.from_numpy(a) for a in (A, B, X)))
+    assert got.dtype == torch.float64      # output in X's dtype
+    np.testing.assert_allclose(got.numpy(), X @ np.kron(A, B).T, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_dispatch_counters_and_backend_choices():
+    """Mirror of tests/test_obs.py::test_kernels_ops_dispatch_counters."""
+    A = torch.eye(3)
+    B = torch.eye(2)
+    X = torch.ones((1, 6))
+    with obs.use(obs.InMemoryTracker()) as t:
+        ops.kron_matvec(A, B, X)
+    assert t.counter_value("kernels.kron_matvec.reference") == 1
+    assert t.counter_value("kernels.kron_matvec.cuda") == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.kron_matvec(A, B, X, backend="cuda")
+    with pytest.raises(ValueError, match="backend"):
+        ops.kron_matvec(A, B, X, backend="pallas")
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kron_matvec_cuda(torch.eye(3), torch.eye(2), torch.ones((1, 6)))
+    assert kron_matvec_cuda.launches == 0
+
+
+@pytest.fixture(scope="module")
+def spec34():
+    """The JAX spectrum of a (3, 4) KronDPP and its carried copy."""
+    spec = SpectralCache().spectrum(random_krondpp(jax.random.PRNGKey(8),
+                                                   (3, 4)))
+    tspec = spectrum_from_numpy([np.asarray(x) for x in spec.lams],
+                                [np.asarray(x) for x in spec.vecs],
+                                device="cpu")
+    return spec, tspec
+
+
+@pytest.mark.parametrize("route", ["gather", "matvec"])
+def test_kron_eigvec_batch_matches_jax(spec34, route):
+    """The CPU gather route (no ``backend``) and the one-hot matvec route
+    (``backend="reference"``, the kernel's plain version) against the JAX
+    package's two routes."""
+    spec, tspec = spec34
+    i = np.asarray([0, 2, 1, 2], np.int32)
+    j = np.asarray([3, 0, 1, 1], np.int32)
+    want = np.asarray(jax_ops.kron_eigvec_batch(
+        *spec.vecs, jnp.asarray(i), jnp.asarray(j),
+        force_pallas=route == "matvec"))
+    backend = "reference" if route == "matvec" else None
+    with obs.use(obs.InMemoryTracker()) as t:
+        got = ops.kron_eigvec_batch(*tspec.vecs, torch.from_numpy(i),
+                                    torch.from_numpy(j), backend=backend)
+    assert got.shape == (12, 4)
+    assert t.counter_value("kernels.kron_matvec.reference") == \
+        (1 if route == "matvec" else 0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("sizes,seed", [((3, 4), 8), ((2, 3, 2), 9),
+                                        ((7,), 10)])
+def test_assemble_eigvecs_matches_jax(sizes, seed):
+    """m = 2 (through kron_eigvec_batch), m = 3 and m = 1 (outer-product
+    fold); an invalid slot is a zero column."""
+    spec = SpectralCache().spectrum(random_krondpp(jax.random.PRNGKey(seed),
+                                                   sizes))
+    tspec = spectrum_from_numpy([np.asarray(x) for x in spec.lams],
+                                [np.asarray(x) for x in spec.vecs],
+                                device="cpu")
+    N = spec.N
+    sel = np.asarray([0, N - 1, 5 % N, 3 % N], np.int32)
+    valid = np.asarray([True, True, True, False])
+    want = np.asarray(jax_assemble(spec.vecs, sizes, jnp.asarray(sel),
+                                   jnp.asarray(valid)))
+    got = assemble_eigvecs(tspec.vecs, sizes, torch.from_numpy(sel),
+                           torch.from_numpy(valid))
+    assert got.shape == (N, 4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    assert (got[:, 3] == 0).all()
+    V = got[:, :3].double()
+    np.testing.assert_allclose((V.T @ V).numpy(), np.eye(3), atol=1e-5)
+    for part, want_p in zip(split_mixed_radix(torch.from_numpy(sel), sizes),
+                            np.unravel_index(sel, sizes)):
+        np.testing.assert_array_equal(part.numpy(), want_p)
+
+
+def test_factored_columns_match_materialized_eigvecs(spec34):
+    """Mirror of tests/test_sampling_batched.py: phase 2 runs on factored
+    columns, which must reproduce the materialized eigenvectors — the
+    colspace product V q is G1 diag(q) Grᵀ flattened and a row of V is the
+    product of the factor rows."""
+    _, tspec = spec34
+    sizes = (3, 4)
+    sel = torch.tensor([0, 5, 11, 7], dtype=torch.int32)
+    valid = torch.tensor([True, True, True, False])
+    V = assemble_eigvecs(tspec.vecs, sizes, sel, valid)
+    G1, Gr = canonical_pair(gather_factor_columns(tspec.vecs, sizes, sel,
+                                                  valid))
+    q = torch.tensor([0.3, -1.2, 0.5, 2.0])
+    torch.testing.assert_close(((G1 * q) @ Gr.T).reshape(-1), V @ q,
+                               rtol=1e-5, atol=1e-6)
+    for i in (0, 7, 11):
+        torch.testing.assert_close(G1[i // 4] * Gr[i % 4], V[i], rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card(spec34):
+    """On a card: the kernel against the plain version at ragged shapes,
+    in float32 (rtol = atol = 2e-4) and bfloat16 (3e-2); the eigenvector
+    assembly through the kernel against the gather route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    for n1, n2, batch in ((1, 1, 1), (3, 4, 2), (64, 96, 7), (130, 70, 3)):
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
+            gen = torch.Generator(device="cuda").manual_seed(n1 + n2)
+            A, B = (torch.randn((n, n), generator=gen, device="cuda")
+                    .to(dtype) for n in (n1, n2))
+            X = torch.randn((batch, n1 * n2), generator=gen,
+                            device="cuda").to(dtype)
+            n0 = kron_matvec_cuda.launches
+            got = kron_matvec_cuda(A, B, X)
+            torch.cuda.synchronize()
+            assert kron_matvec_cuda.launches == n0 + 1
+            torch.testing.assert_close(got.float(),
+                                       kron_matvec_plain(A, B, X).float(),
+                                       rtol=tol, atol=tol)
+    _, tspec = spec34
+    vecs = [v.cuda() for v in tspec.vecs]
+    i = torch.tensor([0, 2, 1, 2], device="cuda")
+    j = torch.tensor([3, 0, 1, 1], device="cuda")
+    got = ops.kron_eigvec_batch(*vecs, i, j)
+    want = (vecs[0][:, i][:, None, :] * vecs[1][:, j][None, :, :]).reshape(
+        12, 4)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-7)

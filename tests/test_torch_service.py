@@ -166,14 +166,14 @@ def test_facade_sample_returns_subset_batch_with_provenance():
 
 
 @pytest.mark.parametrize("call", [
-    lambda m, g: m.sample(g, 2, k=2, device="cpu"),
+    lambda m, g: m.log_likelihood(None),
     lambda m, g: m.log_prob(None),
     lambda m, g: m.marginal(0),
     lambda m, g: m.condition([0]),
-    lambda m, g: m.map(2),
+    lambda m, g: dpp.from_kernel(m.dense_kernel(), device="cpu").fit(None),
     lambda m, g: m.fit(None, algorithm="em", device="cpu"),
     lambda m, g: m.serving(),
-    lambda m, g: m.service(device="cpu").sample_kdpp(2),
+    lambda m, g: m.fit(None, checkpoint_dir="ckpt", device="cpu"),
     lambda m, g: m.service(device="cpu").draw_keyed(None),
 ])
 def test_operations_not_ported_raise(call):
