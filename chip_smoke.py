@@ -55,9 +55,17 @@ non-zero and prints no result line.
 12. the greedy-MAP step kernel (``csrc/greedy_map.cu``) against its plain
    version at N in {1, 33, 4097, 10^4} x k in {1, 20, 200}, with C
    row-major and as the transposed (k, N) buffer the MAP loop keeps; the
-   Kronecker matvec kernel (``csrc/kron_matvec.cu``) at (N1, N2, batch) =
-   (3, 4, 2), (64, 96, 7), (1, 1, 1), (100, 100, 64) in float32 and
-   bfloat16;
+   Kronecker matvec kernel (``csrc/kron_matvec.cu``) in float32 and
+   bfloat16 at (N1, N2, batch) = (3, 4, 2), (64, 96, 7), (1, 1, 1),
+   (100, 100, 64), on inputs with all-zero rows of mat(X[b]) (a one-hot
+   batch of 46 and of 3, half the rows zero, an all-zero X[b]), at N1 = 1
+   and N2 = 1, at 130 x 70, 300 x 8, 150 x 150, 160 x 160 and 256 x 256:
+   the route of each case (``kron_matvec_route``; 300 x 8 and 256 x 256
+   must take the two-pass route, 160 x 160 in float32 too, the rest the
+   one-launch route), one counted launch a call, and
+   the caching allocator's allocations of a call (1 on the one-launch
+   route: no scratch; 2 on the two-pass route); the HMMA (tensor-core)
+   instructions of its bfloat16 one-launch kernel (``cuobjdump -sass``);
 13. the MAP path at full width: ``main.map(k, max_dense=10_000)`` on the
    phase-5 model (N = 10^4, the dense L is 400 MB) for k = 20 and 200,
    launch count and ``kernels.greedy_map_update.cuda`` reset before and
@@ -77,7 +85,10 @@ non-zero and prints no result line.
    frequencies of 3000 k = 2 draws of a (2, 3) kernel through the kernel
    against the exact k-DPP marginals by enumeration;
 16. times: ``kernel_times`` of each new kernel, its plain version and its
-   library yardstick, beside its bound; with CUDA events around a loop,
+   library yardstick, beside its bound (``kron_matvec``: at 100 x 100,
+   batch 64, float32 and bfloat16, and the one-hot batch of 46, each call
+   one ``kron_matvec_fused_kernel`` and nothing else on the profiler, the
+   route beside them as ``kernel_route``); with CUDA events around a loop,
    one ``map(20)`` and one ``map(200)``, ``assemble_eigvecs``, the k-DPP
    call and its phase 1 (ESP table, backward draw, compaction, gather);
    ``kernel_times`` of its phase 2; ``svc.sample_kdpp(20, 16)`` on the
@@ -113,10 +124,14 @@ order; a first difference is accepted only as a tie, where the exact
 prefix differ by at most 1e-4 · max diag L (float32 roundoff of a t-step
 update chain is about t · 2^-24 ≈ 1.2e-5 of max diag L at t = 200, and the
 margin is 8), and the two pick sets' log det L_Y then agree to 1e-3
-relative. Kronecker matvec: rtol = atol = 2e-4 in float32 and 3e-2 in
-bfloat16 (tests/test_kernels.py). Eigenvectors: |VᵀV - I| <= 1e-4 (a
-float32 eigh is orthonormal to about N_f · 2^-24 ≈ 6e-6 per factor); the
-kernel route against the gather route within 1e-6 (each output is a sum
+relative. Kronecker matvec, on both routes: rtol = atol = 2e-4 in float32
+and 3e-2 in bfloat16 (tests/test_kernels.py); past 10^4 products per output
+(150 x 150 and up) the float32 atol is 2e-4 · max |Y|, because two
+association orders of a float32 sum of N1·N2 products differ by roundoff
+that grows with the sum (up to 4e-4 on outputs of std 256 at 256 x 256),
+which a fixed atol does not hold near Y = 0. Eigenvectors: |VᵀV - I| <=
+1e-4 (a float32 eigh is orthonormal to about N_f · 2^-24 ≈ 6e-6 per
+factor); the kernel route against the gather route within 1e-6 (each output is a sum
 with one non-zero term, so both round the same product once). k-DPP
 marginals: atol 0.04 at 3000 draws (4.4 standard errors at p = 0.5).
 
@@ -156,6 +171,7 @@ ROOT = Path(__file__).resolve().parent
 FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12      # H100 SXM bf16 tensor cores, dense
 HBM_BYTES_S = 3.35e12    # H100 SXM HBM3
+PROFILER_MARGIN_S = 0.02  # host sleep at each edge of a profiler window
 
 
 def fail(msg: str) -> None:
@@ -288,13 +304,20 @@ def cuda_ms(fn, reps: int, warmup: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps: int, warmup: int = 3, expect: str = "") -> float:
+def device_ms(fn, reps: int, warmup: int = 3, expect: str = "",
+              sole: bool = False) -> float:
     """Device time of one call: the summed durations of every kernel, copy
     and fill that ``reps`` calls ran on the card, as ``torch.profiler``
     (CUPTI) records them, over ``reps``. Host launch cost, gaps and host
     syncs stay out of it, so it reads the same way for one hand-written
     kernel and for a plain version of many launches. ``expect``: a kernel
-    name that must be among the recorded ones."""
+    name that must be among the recorded ones; with ``sole``, every
+    recorded event must be that kernel, one per call.
+
+    The profiler's window opens a few milliseconds after ``profile`` is
+    entered: calls launched at once may lose their device events, so the
+    calls start ``PROFILER_MARGIN_S`` into the window and it closes as
+    long after the last sync (``tools/profiler_window.py``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -302,14 +325,20 @@ def device_ms(fn, reps: int, warmup: int = 3, expect: str = "") -> float:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_MARGIN_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILER_MARGIN_S)
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     us = sum(e.time_range.elapsed_us() for e in dev)
     check(us > 0, "torch.profiler recorded no device time")
     check(not expect or any(expect in e.name for e in dev),
           f"torch.profiler recorded no {expect} launch")
+    check(not sole or (len(dev) == reps and all(expect in e.name
+                                                 for e in dev)),
+          f"not one {expect} a call: {reps} calls ran "
+          f"{sorted(e.name for e in dev)[:8]} ({len(dev)} events)")
     return us / 1e3 / reps
 
 
@@ -317,7 +346,7 @@ DEVICE_TIMES = []        # kernel_times rows whose device times are owed
 
 
 def kernel_times(kern, plain, library, reps: int, plain_reps: int,
-                 expect: str, **keys) -> dict:
+                 expect: str, sole: bool = False, **keys) -> dict:
     """The timing keys of a ``kernels`` row, every row measured the same
     way. Now, ``ms_loop``, ``plain_ms_loop`` and ``library_ms_loop``
     (``cuda_ms``). Later, in ``fill_device_times``, once every host-clock
@@ -325,23 +354,26 @@ def kernel_times(kern, plain, library, reps: int, plain_reps: int,
     host's launches under them): ``ms``, ``plain_ms`` and ``library_ms``,
     device times (``device_ms``), the plain version and the library call
     measured before and after the kernel and the lesser kept, both
-    readings in ``*_runs_ms``. ``keys`` (bound, shapes) go into the same dict."""
+    readings in ``*_runs_ms``. ``sole``: the kernel's calls must each run
+    one ``expect`` kernel and nothing else (``device_ms``). ``keys``
+    (bound, shapes) go into the same dict."""
     out = {"ms_loop": cuda_ms(kern, reps, 3), "library_ms": None, **keys}
     for name, fn in (("plain", plain), ("library", library)):
         if fn is not None:
             out[f"{name}_ms_loop"] = cuda_ms(fn, plain_reps, 1)
     DEVICE_TIMES.append((out, kern, plain, library, reps, plain_reps,
-                         expect))
+                         expect, sole))
     return out
 
 
 def fill_device_times() -> None:
     """The device times owed to every ``kernel_times`` row."""
-    for out, kern, plain, library, reps, plain_reps, expect in DEVICE_TIMES:
+    for out, kern, plain, library, reps, plain_reps, expect, sole in \
+            DEVICE_TIMES:
         others = {k: f for k, f in (("plain", plain), ("library", library))
                   if f is not None}
         before = {k: device_ms(f, plain_reps, 1) for k, f in others.items()}
-        out["ms"] = device_ms(kern, reps, 3, expect=expect)
+        out["ms"] = device_ms(kern, reps, 3, expect=expect, sole=sole)
         for k, f in others.items():
             after = device_ms(f, plain_reps, 0)
             out[f"{k}_ms"] = min(before[k], after)
@@ -458,6 +490,25 @@ def max_rel(got, want) -> float:
 GREEDY_NS = (1, 33, 4097, 10_000)
 GREEDY_KS = (1, 20, 200)
 KM_SHAPES = ((3, 4, 2), (64, 96, 7), (1, 1, 1), (100, 100, 64))
+# inputs with all-zero rows of mat(X[b]) (which the kernel skips), the
+# degenerate factor sizes, a ragged tile (N2 = 70: 3 tiles of 24 columns),
+# and shapes near and past the one-launch route's shared-memory limit (227 KB
+# a block on the H100: N1 = N2 up to 153 in float32, 200 in bfloat16; at
+# N1 = 300, N2 = 8 mat(X[b]) and A's rows pass it)
+KM_CASES = (*((*s, "dense") for s in KM_SHAPES),
+            (100, 100, 46, "onehot"), (100, 100, 64, "zero_rows"),
+            (64, 96, 7, "zero_entry"), (1, 100, 4, "dense"),
+            (100, 1, 4, "dense"), (1, 100, 3, "onehot"),
+            (130, 70, 3, "dense"), (300, 8, 3, "dense"),
+            (300, 8, 5, "zero_rows"), (150, 150, 4, "dense"),
+            (160, 160, 4, "dense"), (256, 256, 4, "dense"),
+            (256, 256, 4, "zero_rows"))
+# the dtypes whose route is two passes, by (N1, N2); every other case takes
+# the one-launch route
+KM_TWO_PASS = {(300, 8): ("float32", "bfloat16"), (160, 160): ("float32",),
+               (256, 256): ("float32", "bfloat16")}
+# past this many products per output the float32 atol is 2e-4 of max |Y|
+KM_LONG_SUM = 10_000
 GREEDY_TIE_TOL = 1e-4      # of max diag L, on the float64 chain
 
 
@@ -530,31 +581,92 @@ def check_greedy_update(gen, dev) -> float:
     return worst
 
 
+def km_inputs(N1: int, N2: int, batch: int, pattern: str, dtype, gen,
+              dev):
+    """A, B, X of one Kronecker matvec case. ``pattern``: "dense"; "onehot"
+    (one 1 per X[b], the eigenvector path's input); "zero_rows" (about half
+    the rows of each mat(X[b]) zero); "zero_entry" (X[1] all zero)."""
+    A = torch.randn((N1, N1), generator=gen, device=dev)
+    B = torch.randn((N2, N2), generator=gen, device=dev)
+    X = torch.randn((batch, N1, N2), generator=gen, device=dev)
+    if pattern == "onehot":
+        X = torch.zeros((batch, N1 * N2), device=dev)
+        X[torch.arange(batch, device=dev),
+          torch.randint(0, N1 * N2, (batch,), generator=gen,
+                        device=dev)] = 1.0
+    elif pattern == "zero_rows":
+        X[torch.rand((batch, N1), generator=gen, device=dev) < 0.5] = 0.0
+    elif pattern == "zero_entry":
+        X[1] = 0.0
+    else:
+        check(pattern == "dense", f"unknown pattern {pattern}")
+    return (A.to(dtype), B.to(dtype),
+            X.reshape(batch, N1 * N2).contiguous().to(dtype))
+
+
+def sass_of(lib: Path, kernel: str, opcode: str) -> list:
+    """The ``opcode`` instructions of the function whose mangled name holds
+    ``kernel`` in the built library ``lib`` (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    found, inside = [], False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and opcode in line:
+            found.append(" ".join(line.split("/*")[1].split("*/")[1].split()))
+    return found
+
+
 def check_kron_matvec(gen, dev) -> dict:
-    """Phase 12b: the Kronecker matvec kernel against its plain version;
-    returns the largest |kernel - plain| per dtype."""
+    """Phase 12b: the Kronecker matvec kernel against its plain version on
+    both routes; one counted launch and (allocations counted by the caching
+    allocator) no scratch on the one-launch route, one on the two-pass
+    route. Returns the largest |kernel - plain| per dtype and per route."""
     from repro_torch.kernels import kron_matvec as km
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for N1, N2, batch in KM_SHAPES:
+    by_route = {"one_launch": 0.0, "two_pass": 0.0}
+    cases = {"one_launch": 0, "two_pass": 0}
+    for N1, N2, batch, pattern in KM_CASES:
         for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
-            A = torch.randn((N1, N1), generator=gen, device=dev).to(dtype)
-            B = torch.randn((N2, N2), generator=gen, device=dev).to(dtype)
-            X = torch.randn((batch, N1 * N2), generator=gen,
-                            device=dev).to(dtype)
-            got = km.kron_matvec_cuda(A, B, X)
+            name = str(dtype).split(".")[-1]
+            label = f"kron_matvec {N1}x{N2} batch {batch} {pattern} {name}"
+            A, B, X = km_inputs(N1, N2, batch, pattern, dtype, gen, dev)
+            route = km.kron_matvec_route(A, B, X)
+            check(route == ("two_pass" if name in KM_TWO_PASS.get((N1, N2), ())
+                            else "one_launch"), f"{label}: route {route}")
             torch.cuda.synchronize()
+            n0 = km.kron_matvec_cuda.launches
+            a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+            got = km.kron_matvec_cuda(A, B, X)
+            allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - a0
+            torch.cuda.synchronize()
+            check(km.kron_matvec_cuda.launches == n0 + 1,
+                  f"{label}: {km.kron_matvec_cuda.launches - n0} launches")
+            check(allocs == (1 if route == "one_launch" else 2),
+                  f"{label}: {allocs} allocations on the {route} route")
             check(got.dtype == dtype, f"kron_matvec returned {got.dtype}")
             want = km.kron_matvec_plain(A, B, X).float()
             err = (got.float() - want).abs()
-            bad = int((err > tol + tol * want.abs()).sum())
-            name = str(dtype).split(".")[-1]
-            check(bad == 0, f"kron_matvec {N1}x{N2} batch {batch} {name}: "
-                  f"{bad} entries beyond tolerance, max |Δ| "
-                  f"{float(err.max())!r}")
+            atol = tol
+            if dtype == torch.float32 and N1 * N2 > KM_LONG_SUM:
+                atol = tol * float(want.abs().max())
+            bad = int((err > atol + tol * want.abs()).sum())
+            check(bad == 0, f"{label} ({route}): {bad} entries beyond "
+                  f"tolerance, max |Δ| {float(err.max())!r}")
+            if pattern == "zero_entry":
+                check(bool((got[1] == 0).all()), f"{label}: Y[1] not zero")
             worst[name] = max(worst[name], float(err.max()))
-    print(f"kron_matvec: {len(KM_SHAPES) * 2} cases within tolerance, max "
-          f"|kernel - plain| {json.dumps(worst)}")
-    return worst
+            by_route[route] = max(by_route[route], float(err.max()))
+            cases[route] += 1
+    check(cases["two_pass"] > 0 and cases["one_launch"] > 0,
+          f"kron_matvec cases per route {cases}")
+    print(f"kron_matvec: {sum(cases.values())} cases within tolerance "
+          f"({json.dumps(cases)}), max |kernel - plain| {json.dumps(worst)}, "
+          f"by route {json.dumps(by_route)}")
+    return {**worst, "by_route": by_route, "cases": cases}
 
 
 def conditional_variances(L, prefix) -> torch.Tensor:
@@ -926,6 +1038,12 @@ def main() -> None:
                                               split_mixed_radix)
     gm_err = check_greedy_update(gen, dev)
     km_err = check_kron_matvec(gen, dev)
+    hmma = sass_of(_build.library_path("kron_matvec"),
+                   "kron_matvec_fused_kernelI13__nv_bfloat16", "HMMA")
+    print(f"kron_matvec bfloat16 one-launch kernel, SASS: {len(hmma)} HMMA "
+          f"instructions, e.g. {hmma[:1]}")
+    check(len(hmma) > 0, "the bfloat16 kron_matvec kernel has no HMMA "
+          "(tensor-core) instruction")
 
     # -- 13. the MAP path ----------------------------------------------------
     L_main = main.dense_kernel(10_000)
@@ -1076,8 +1194,9 @@ def main() -> None:
             partial(km.kron_matvec_cuda, A, B, X),
             partial(km.kron_matvec_plain, A, B, X),
             partial(torch.einsum, "ki,biu,vu->bkv", A, X3, B),
-            reps=100, plain_reps=50, expect="batched_gemm_kernel",
-            bound_ms=b_ms, bound_by=b_by)
+            reps=100, plain_reps=50, expect="kron_matvec_fused_kernel",
+            sole=True, bound_ms=b_ms, bound_by=b_by,
+            kernel_route=km.kron_matvec_route(A, B, X))
         print(f"  kron_matvec 100x100 batch 64 {name}: "
               f"{json.dumps(km_times[name])}")
     # the eigenvector path's own shape: a one-hot batch of k_max columns
@@ -1091,8 +1210,9 @@ def main() -> None:
         partial(km.kron_matvec_cuda, P1c, P2c, E),
         partial(km.kron_matvec_plain, P1c, P2c, E),
         partial(torch.einsum, "ki,biu,vu->bkv", P1c, E3, P2c),
-        reps=100, plain_reps=50, expect="batched_gemm_kernel",
-        batch=svc.k_max, bound_ms=b_ms, bound_by=b_by)
+        reps=100, plain_reps=50, expect="kron_matvec_fused_kernel",
+        sole=True, batch=svc.k_max, bound_ms=b_ms, bound_by=b_by,
+        kernel_route=km.kron_matvec_route(P1c, P2c, E))
     sel_times["assemble_eigvecs_ms"] = cuda_ms(
         lambda: assemble_eigvecs(spec_m.vecs, spec_m.sizes, sel, valid),
         reps=20, warmup=2)
@@ -1166,6 +1286,9 @@ def main() -> None:
               "replaces": "src/repro/kernels/kron_matvec.py:41",
               "launches": eig_launches, "max_abs_err": km_err["float32"],
               "max_abs_err_bf16": km_err["bfloat16"],
+              "max_abs_err_by_route": km_err["by_route"],
+              "bf16_sass_hmma": len(hmma),
+              "cases_by_route": km_err["cases"],
               **km_times["float32"],
               "shapes": {"N1": 100, "N2": 100, "batch": 64,
                          "dtype": "float32"},

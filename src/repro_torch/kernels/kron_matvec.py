@@ -12,7 +12,13 @@ accumulated in float32, output in X's dtype (float32 or bfloat16).
 ``kron_matvec_plain`` is the einsum of the oracle and serves any device;
 ``kron_matvec_cuda`` launches ``csrc/kron_matvec.cu`` on CUDA tensors and
 raises on anything else. The kernel takes any N1, N2 and batch (the JAX
-wrapper padded to 128 for the TPU's matrix unit).
+wrapper padded to 128 for the TPU's matrix unit) by one of two routes
+(``kron_matvec_route``): "one_launch" keeps T = mat(X[b])·Bᵀ in shared
+memory and skips the all-zero rows of mat(X[b]); "two_pass", for factors
+too large for a block's shared memory, sends T through a float32 scratch
+in device memory. The kernel assumes A and B finite: where a row of
+mat(X[b]) is zero it skips the row, so a NaN or Inf in A or B, which the
+plain version spreads to Y (0 · Inf is NaN), need not reach Y.
 
 The wrapper counts its launches in ``kron_matvec_cuda.launches``.
 """
@@ -20,11 +26,13 @@ The wrapper counts its launches in ``kron_matvec_cuda.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = ("one_launch", "two_pass")
 
 _LAUNCH_LOCK = threading.Lock()
 
@@ -69,25 +77,58 @@ def _check_cuda_inputs(A, B, X):
     return N1, N2, int(X.shape[0])
 
 
+@functools.lru_cache(maxsize=None)
+def _route(N1: int, N2: int, dtype_code: int, device_index: int) -> int:
+    """The kernel's route for these sizes on this device (it depends on
+    the device's shared memory per block): 0 one launch, 1 two passes.
+    Asked once per key; the query also readies the device for route 0."""
+    from ._build import load_library
+    lib = load_library("kron_matvec", bind)
+    route = ctypes.c_int(-1)
+    with torch.cuda.device(device_index):
+        rc = lib.kron_matvec_route(N1, N2, dtype_code, ctypes.byref(route))
+    if rc != 0:
+        msg = lib.kron_matvec_error_string(rc).decode()
+        raise RuntimeError(f"kron_matvec route query failed: CUDA error "
+                           f"{rc} ({msg})")
+    return route.value
+
+
+def kron_matvec_route(A: torch.Tensor, B: torch.Tensor,
+                      X: torch.Tensor) -> str:
+    """"one_launch" or "two_pass": the route ``kron_matvec_cuda`` takes for
+    these CUDA tensors. Raises as ``kron_matvec_cuda`` does."""
+    N1, N2, _ = _check_cuda_inputs(A, B, X)
+    return _ROUTES[_route(N1, N2, _DTYPE_CODES[X.dtype], X.device.index)]
+
+
 def kron_matvec_cuda(A: torch.Tensor, B: torch.Tensor,
                      X: torch.Tensor) -> torch.Tensor:
-    """Launch the Hopper kernel (``csrc/kron_matvec.cu``): two batched
-    tiled products on PyTorch's current stream, through a (batch, N1, N2)
-    float32 scratch. Same contract as ``kron_matvec_plain``. Raises on CPU
-    tensors, mixed or other dtypes, non-contiguous inputs, bad shapes, and
-    a refused launch."""
+    """Launch the Hopper kernel (``csrc/kron_matvec.cu``) on PyTorch's
+    current stream: one launch with T on chip, or, on the "two_pass" route,
+    two through a (batch, N1, N2) float32 scratch allocated here. Same
+    contract as ``kron_matvec_plain`` for finite A and B (a NaN or Inf in
+    them may not reach the rows of Y where mat(X[b]) has zero rows). Raises
+    on CPU tensors, mixed or other dtypes, non-contiguous inputs, bad
+    shapes, and a refused launch."""
     N1, N2, batch = _check_cuda_inputs(A, B, X)
     Y = torch.empty_like(X)
     if batch == 0:
         return Y
     from ._build import load_library
     lib = load_library("kron_matvec", bind)
-    tmp = torch.empty((batch, N1, N2), dtype=torch.float32, device=X.device)
+    code = _DTYPE_CODES[X.dtype]
+    route = _route(N1, N2, code, X.device.index)
+    tmp = None
+    if route == 1:
+        tmp = torch.empty((batch, N1, N2), dtype=torch.float32,
+                          device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
     with torch.cuda.device(X.device):
         rc = lib.kron_matvec_launch(A.data_ptr(), B.data_ptr(), X.data_ptr(),
-                                    tmp.data_ptr(), Y.data_ptr(), N1, N2,
-                                    batch, _DTYPE_CODES[X.dtype], stream)
+                                    None if tmp is None else tmp.data_ptr(),
+                                    Y.data_ptr(), N1, N2, batch, code,
+                                    route, stream)
     if rc != 0:
         msg = lib.kron_matvec_error_string(rc).decode()
         raise RuntimeError(f"kron_matvec kernel launch failed: CUDA error "
@@ -104,7 +145,9 @@ kron_matvec_cuda.launches = 0
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C interface of ``csrc/kron_matvec.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.kron_matvec_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.kron_matvec_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.kron_matvec_launch.restype = ctypes.c_int
+    lib.kron_matvec_route.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.kron_matvec_route.restype = ctypes.c_int
     lib.kron_matvec_error_string.argtypes = [ctypes.c_int]
     lib.kron_matvec_error_string.restype = ctypes.c_char_p

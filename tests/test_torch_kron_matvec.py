@@ -42,24 +42,52 @@ from repro_torch.sampling.batched import (assemble_eigvecs,
                                           split_mixed_radix)
 
 SHAPES = [(3, 4, 2), (8, 8, 5), (16, 12, 3), (128, 128, 4), (64, 96, 7)]
+# Inputs with all-zero rows of mat(X[b]), whose rows the kernel skips: a
+# one-hot batch (the eigenvector path's), some zero rows, an all-zero X[b];
+# and the degenerate factor sizes N1 = 1 and N2 = 1.
+SPARSE = [(8, 8, 5, "onehot"), (16, 12, 3, "onehot"), (16, 12, 3, "zero_rows"),
+          (64, 96, 7, "zero_rows"), (8, 8, 5, "zero_entry"),
+          (1, 7, 3, "dense"), (6, 1, 4, "dense"), (1, 1, 2, "dense"),
+          (1, 7, 3, "onehot")]
+CASES = ([pytest.param(*s, "dense", id="-".join(map(str, s))) for s in SHAPES]
+         + [pytest.param(*s, id="-".join(map(str, s))) for s in SPARSE])
 TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
-def jax_inputs(n1, n2, batch, dtype, seed):
+def np_inputs(n1, n2, batch, pattern, seed):
+    """A (n1, n1), B (n2, n2) and X (batch, n1·n2) in float64, from a seed.
+    ``pattern``: "dense"; "onehot" (one 1 per X[b]); "zero_rows" (about
+    half the rows of each mat(X[b]) zero); "zero_entry" (X[1] all zero)."""
     rng = np.random.default_rng(seed)
-    return (jnp.asarray(rng.standard_normal((n1, n1)), dtype),
-            jnp.asarray(rng.standard_normal((n2, n2)), dtype),
-            jnp.asarray(rng.standard_normal((batch, n1 * n2)), dtype))
+    A = rng.standard_normal((n1, n1))
+    B = rng.standard_normal((n2, n2))
+    X = rng.standard_normal((batch, n1, n2))
+    if pattern == "onehot":
+        X = np.zeros_like(X).reshape(batch, n1 * n2)
+        X[np.arange(batch), rng.integers(0, n1 * n2, batch)] = 1.0
+    elif pattern == "zero_rows":
+        X[rng.random((batch, n1)) < 0.5] = 0.0
+    elif pattern == "zero_entry":
+        X[1] = 0.0
+    else:
+        assert pattern == "dense", pattern
+    return A, B, X.reshape(batch, n1 * n2)
+
+
+def jax_inputs(n1, n2, batch, dtype, seed, pattern="dense"):
+    return tuple(jnp.asarray(x, dtype)
+                 for x in np_inputs(n1, n2, batch, pattern, seed))
 
 
 def to_torch(x):
     return torch.from_numpy(np.asarray(x, np.float32)).to(TORCH[x.dtype.type])
 
 
-@pytest.mark.parametrize("n1,n2,batch", SHAPES)
+@pytest.mark.parametrize("n1,n2,batch,pattern", CASES)
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_plain_matches_jax_pallas_and_oracle(n1, n2, batch, dtype):
-    A, B, X = jax_inputs(n1, n2, batch, dtype, seed=n1 * n2 + batch)
+def test_plain_matches_jax_pallas_and_oracle(n1, n2, batch, pattern, dtype):
+    A, B, X = jax_inputs(n1, n2, batch, dtype, seed=n1 * n2 + batch,
+                         pattern=pattern)
     want_pl = jax_ops.kron_matvec(A, B, X, force_pallas=True)
     want_rf = jax_ref.kron_matvec_ref(A, B, X)
     got = ops.kron_matvec(to_torch(A), to_torch(B), to_torch(X))
@@ -69,6 +97,8 @@ def test_plain_matches_jax_pallas_and_oracle(n1, n2, batch, dtype):
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32),
                                    rtol=tol, atol=tol)
+    if pattern == "zero_entry":
+        assert (got[1] == 0).all()
 
 
 def test_plain_is_the_kronecker_product():
@@ -184,27 +214,51 @@ def test_factored_columns_match_materialized_eigvecs(spec34):
                                    atol=1e-6)
 
 
+# Cases on the card past SPARSE: a ragged tile, and shapes near and past
+# the one-launch route's shared-memory limit (N1 = N2 up to 153 in float32,
+# 200 in bfloat16, on the H100), with the dtypes whose route is two passes.
+ON_CARD = [(1, 1, 1, "dense"), (3, 4, 2, "dense"), (64, 96, 7, "dense"),
+           (130, 70, 3, "dense"), (300, 8, 3, "dense"),
+           (150, 150, 4, "dense"), (160, 160, 4, "dense"),
+           (256, 256, 4, "dense"), (256, 256, 4, "zero_rows"), *SPARSE]
+TWO_PASS = {(300, 8): (torch.float32, torch.bfloat16),
+            (160, 160): (torch.float32,),
+            (256, 256): (torch.float32, torch.bfloat16)}
+# Past 10^4 products per output the float32 comparison's atol is 2e-4 of
+# max |Y|: two association orders of an N1·N2-term float32 sum differ by
+# roundoff that grows with the sum (at 256 x 256, outputs of std 256 differ
+# by up to 4e-4), which a fixed atol of 2e-4 does not hold near Y = 0.
+LONG_SUM = 10_000
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(spec34):
     """On a card: the kernel against the plain version at ragged shapes,
-    in float32 (rtol = atol = 2e-4) and bfloat16 (3e-2); the eigenvector
-    assembly through the kernel against the gather route."""
+    at the sparse inputs above and on both routes, in float32 (rtol = atol
+    = 2e-4, the atol scaled by max |Y| past LONG_SUM) and bfloat16 (3e-2),
+    one counted launch a call and each case's route asserted. The
+    eigenvector assembly through the kernel against the gather route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
-    for n1, n2, batch in ((1, 1, 1), (3, 4, 2), (64, 96, 7), (130, 70, 3)):
+    from repro_torch.kernels.kron_matvec import kron_matvec_route
+    for n1, n2, batch, pattern in ON_CARD:
         for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
-            gen = torch.Generator(device="cuda").manual_seed(n1 + n2)
-            A, B = (torch.randn((n, n), generator=gen, device="cuda")
-                    .to(dtype) for n in (n1, n2))
-            X = torch.randn((batch, n1 * n2), generator=gen,
-                            device="cuda").to(dtype)
+            A, B, X = (torch.from_numpy(x).float().to("cuda", dtype)
+                       for x in np_inputs(n1, n2, batch, pattern,
+                                          seed=n1 + n2))
+            route = kron_matvec_route(A, B, X)
+            assert route == ("two_pass" if dtype in TWO_PASS.get((n1, n2), ())
+                             else "one_launch"), (n1, n2, dtype, route)
             n0 = kron_matvec_cuda.launches
             got = kron_matvec_cuda(A, B, X)
             torch.cuda.synchronize()
             assert kron_matvec_cuda.launches == n0 + 1
-            torch.testing.assert_close(got.float(),
-                                       kron_matvec_plain(A, B, X).float(),
-                                       rtol=tol, atol=tol)
+            want = kron_matvec_plain(A, B, X).float()
+            atol = tol
+            if dtype == torch.float32 and n1 * n2 > LONG_SUM:
+                atol = tol * float(want.abs().max())
+            torch.testing.assert_close(got.float(), want, rtol=tol,
+                                       atol=atol)
     _, tspec = spec34
     vecs = [v.cuda() for v in tspec.vecs]
     i = torch.tensor([0, 2, 1, 2], device="cuda")
