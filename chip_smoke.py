@@ -13,7 +13,10 @@ non-zero and prints no result line.
    memory;
 3. the phase-2 kernel against its plain PyTorch version on the card, at
    the main path's shapes (N = 100 x 100, E|Y| = 20, B = 1 and 64) and at
-   the edges (m = 1, m = 3, degenerate columns), on the same uniforms;
+   the edges (m = 1, m = 3, degenerate columns), on the same uniforms, all
+   on the "on_chip" route; at 300 x 300, B = 8 on the "global" route
+   (``phase2_select_route`` asserted for each case); the on-chip layout's
+   bytes from the C side equal ``onchip_geometry``'s;
 4. statistics on the kernel path: singleton marginals of a (2, 3) kernel
    from 3000 draws against diag K;
 5. the main path: ``dpp.random_kron(gen, (100, 100)).rescale(20.0)``,
@@ -24,8 +27,12 @@ non-zero and prints no result line.
    B = 512) is then held against the plain version: the flush's uniforms
    are replayed from the service generator's saved state;
 6. times of the phase-2 kernel and its plain version (``kernel_times``:
-   device time from ``torch.profiler`` and CUDA events around a loop),
-   the bound, and one ``svc.sample(16)`` request on the host clock;
+   device time from ``torch.profiler`` and CUDA events around a loop;
+   each call one ``phase2_select_kernel_onchip`` and nothing else), the
+   bound on the whole card and the longest row's on one SM, the time per
+   step of the longest row; the global route's time at 300 x 300; the
+   DPP's phase 1 alone (uniforms, phase 1 and the column gather) at B = 16
+   and 64; one ``svc.sample(16)`` request on the host clock;
 7. the partial-trace kernels (``csrc/partial_trace.cu``) against their
    plain versions on random non-symmetric Θ, L1, L2 at N1 x N2 = 100 x 100
    (the main shape), 64 x 150 and 7 x 13;
@@ -64,7 +71,9 @@ non-zero and prints no result line.
    must take the two-pass route, 160 x 160 in float32 too, the rest the
    one-launch route), one counted launch a call, and
    the caching allocator's allocations of a call (1 on the one-launch
-   route: no scratch; 2 on the two-pass route); the HMMA (tensor-core)
+   route: no scratch; 2 on the two-pass route); a NaN in A and an Inf in
+   B with zero rows of mat(X[b]) (one-hot and half-zero batches) on both
+   routes, whose NaN must be the plain version's exactly; the HMMA (tensor-core)
    instructions of its bfloat16 one-launch kernel (``cuobjdump -sass``);
 13. the MAP path at full width: ``main.map(k, max_dense=10_000)`` on the
    phase-5 model (N = 10^4, the dense L is 400 MB) for k = 20 and 200,
@@ -124,7 +133,9 @@ order; a first difference is accepted only as a tie, where the exact
 prefix differ by at most 1e-4 · max diag L (float32 roundoff of a t-step
 update chain is about t · 2^-24 ≈ 1.2e-5 of max diag L at t = 200, and the
 margin is 8), and the two pick sets' log det L_Y then agree to 1e-3
-relative. Kronecker matvec, on both routes: rtol = atol = 2e-4 in float32
+relative. Kronecker matvec, on both routes: NaN where the plain version has NaN
+and nowhere else, the same infinities, and on the finite entries rtol =
+atol = 2e-4 in float32
 and 3e-2 in bfloat16 (tests/test_kernels.py); past 10^4 products per output
 (150 x 150 and up) the float32 atol is 2e-4 · max |Y|, because two
 association orders of a float32 sum of N1·N2 products differ by roundoff
@@ -155,6 +166,7 @@ each with the card's name and power limit.
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 import json
 import subprocess
@@ -171,7 +183,15 @@ ROOT = Path(__file__).resolve().parent
 FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12      # H100 SXM bf16 tensor cores, dense
 HBM_BYTES_S = 3.35e12    # H100 SXM HBM3
+SMS = 132                # H100 SXM streaming multiprocessors
 PROFILER_MARGIN_S = 0.02  # host sleep at each edge of a profiler window
+WINDOW_MARK = "spin_kernel"  # torch.cuda._sleep's kernel: a window's edges
+MARK_CYCLES = 100_000    # clock cycles of one lead mark, ~50 µs
+LEAD_MARKS = 16          # lead marks of a first window (~0.8 ms of them)
+MAX_LEAD_MARKS = 1024    # the most they are doubled to (~50 ms)
+WINDOW_TRIES = 8         # windows taken until one holds its marks
+WINDOWS = {"lead_marks": LEAD_MARKS, "taken": 0, "retaken": [],
+           "lead_lost": []}     # lead marks unrecorded in a counted window
 
 
 def fail(msg: str) -> None:
@@ -221,16 +241,24 @@ def check_span(picks: np.ndarray, us, G1, Gr, span: int, label: str) -> int:
     return over
 
 
-def compare(us, k_eff, G1, Gr, label: str, span=None) -> dict:
+def compare(us, k_eff, G1, Gr, label: str, span=None,
+            route: str = "on_chip") -> dict:
     """Run the kernel and the plain version on the same inputs and hold
-    them against each other (``compare_picks``)."""
+    them against each other (``compare_picks``); the kernel's route must
+    be ``route``."""
     from repro_torch.kernels.phase2_select import (phase2_select_cuda,
-                                                   phase2_select_plain)
+                                                   phase2_select_plain,
+                                                   phase2_select_route)
+    got = phase2_select_route(int(G1.shape[1]), int(Gr.shape[1]),
+                              int(us.shape[1]))
+    check(got == route, f"{label}: route {got}, not {route}")
     pk = phase2_select_cuda(us, k_eff, G1, Gr)
     pp = phase2_select_plain(us, k_eff, G1, Gr)
     torch.cuda.synchronize()
-    return compare_picks(pk.cpu().numpy(), pp.cpu().numpy(), us, k_eff, G1,
-                         Gr, label, span)
+    out = compare_picks(pk.cpu().numpy(), pp.cpu().numpy(), us, k_eff, G1,
+                        Gr, label, span)
+    out["route"] = route
+    return out
 
 
 def compare_picks(pk_np, pp_np, us, k_eff, G1, Gr, label: str,
@@ -314,23 +342,59 @@ def device_ms(fn, reps: int, warmup: int = 3, expect: str = "",
     name that must be among the recorded ones; with ``sole``, every
     recorded event must be that kernel, one per call.
 
-    The profiler's window opens a few milliseconds after ``profile`` is
-    entered: calls launched at once may lose their device events, so the
-    calls start ``PROFILER_MARGIN_S`` into the window and it closes as
-    long after the last sync (``tools/profiler_window.py``)."""
+    The profiler now and then records no device side for the first
+    launches after the card has been idle: the first millisecond's worth
+    or more, while the host is busy (``window_report`` tells them by their
+    correlation ids). So, ``PROFILER_MARGIN_S`` into the window, a train
+    of short ``torch.cuda._sleep`` kernels (``WINDOW_MARK``) keeps the
+    card busy for a while before the first call, and one more runs after
+    the last. A window counts only when its first and last recorded
+    events are marks: it was recording before the first call and after
+    the last. One that is not is printed and taken again with twice the
+    train (at most ``MAX_LEAD_MARKS``, and kept for later windows), up to
+    ``WINDOW_TRIES`` windows; the checks above hold on the events between
+    the marks."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILER_MARGIN_S)
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(PROFILER_MARGIN_S)
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(WINDOW_TRIES):
+        lead = WINDOWS["lead_marks"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_MARGIN_S)
+            for _ in range(lead):
+                torch.cuda._sleep(MARK_CYCLES)
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(PROFILER_MARGIN_S)
+        WINDOWS["taken"] += 1
+        events = prof.events()
+        dev = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if len(dev) >= 2 and WINDOW_MARK in dev[0].name \
+                and WINDOW_MARK in dev[-1].name:
+            first = 0
+            while first < len(dev) - 1 and WINDOW_MARK in dev[first].name:
+                first += 1
+            if first < lead:
+                WINDOWS["lead_lost"].append(lead - first)
+            dev = dev[first:-1]
+            break
+        report = window_report(events, dev, lead, reps, fn)
+        WINDOWS["retaken"].append(report)
+        print(f"  profiler window retaken: {json.dumps(report)}")
+        print(f"chip_smoke: profiler window retaken: {json.dumps(report)}",
+              file=sys.stderr)
+        WINDOWS["lead_marks"] = min(2 * lead, MAX_LEAD_MARKS)
+    else:
+        fail(f"none of {WINDOW_TRIES} profiler windows recorded its marks "
+             f"(up to {lead} lead marks; the last: {json.dumps(report)})")
+    check(not any(WINDOW_MARK in e.name for e in dev),
+          "a window mark between the calls")
     us = sum(e.time_range.elapsed_us() for e in dev)
     check(us > 0, "torch.profiler recorded no device time")
     check(not expect or any(expect in e.name for e in dev),
@@ -340,6 +404,27 @@ def device_ms(fn, reps: int, warmup: int = 3, expect: str = "",
           f"not one {expect} a call: {reps} calls ran "
           f"{sorted(e.name for e in dev)[:8]} ({len(dev)} events)")
     return us / 1e3 / reps
+
+
+def window_report(events, dev, lead: int, reps: int, fn) -> dict:
+    """What a profiler window that lost a mark recorded: the function, the
+    lead marks launched, the device events and the marks among them, the
+    first and the last one's name, and the kernel launches that the host
+    side recorded with no device side (matched by correlation id): their
+    count and the first few starts in ms after the window opened."""
+    from torch.autograd import DeviceType
+    seen = {e.id for e in dev}
+    launches = sorted((e for e in events if e.device_type != DeviceType.CUDA
+                       and "LaunchKernel" in e.name),
+                      key=lambda e: e.time_range.start)
+    lost = [e.time_range.start / 1e3 for e in launches if e.id not in seen]
+    return {"fn": getattr(getattr(fn, "func", fn), "__name__", repr(fn)),
+            "reps": reps, "lead_marks": lead, "events": len(dev),
+            "marks": sum(WINDOW_MARK in e.name for e in dev),
+            "first": dev[0].name[:48] if dev else None,
+            "last": dev[-1].name[:48] if dev else None,
+            "launches": len(launches), "unrecorded": len(lost),
+            "unrecorded_ms": lost[:4]}
 
 
 DEVICE_TIMES = []        # kernel_times rows whose device times are owed
@@ -417,6 +502,17 @@ def bound(picks: np.ndarray, N1: int, Nr: int, k: int):
     t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_row(picks: np.ndarray, N1: int, Nr: int, k: int) -> float:
+    """Least time (ms) of the longest row alone: its operations (as in
+    ``bound``) on one SM, at FP32_FLOPS / 132. The steps of a sample are
+    sequential and one block runs it, so no batch runs faster."""
+    N = N1 * Nr
+    s = int((picks >= 0).sum(axis=1).max())
+    flops = 2.0 * N * k + s * (2.0 * N + 8.0 * k * k) \
+        + max(s - 1, 0) * (2.0 * N * k + 3.0 * N)
+    return flops / (FP32_FLOPS / SMS) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -507,6 +603,9 @@ KM_CASES = (*((*s, "dense") for s in KM_SHAPES),
 # the one-launch route
 KM_TWO_PASS = {(300, 8): ("float32", "bfloat16"), (160, 160): ("float32",),
                (256, 256): ("float32", "bfloat16")}
+# a NaN in A or an Inf in B, with zero rows of mat(X[b]), on both routes
+KM_NONFINITE = ((100, 100, 46, "onehot"), (100, 100, 8, "zero_rows"),
+                (256, 256, 4, "onehot"), (256, 256, 4, "zero_rows"))
 # past this many products per output the float32 atol is 2e-4 of max |Y|
 KM_LONG_SUM = 10_000
 GREEDY_TIE_TOL = 1e-4      # of max diag L, on the float64 chain
@@ -663,10 +762,48 @@ def check_kron_matvec(gen, dev) -> dict:
             cases[route] += 1
     check(cases["two_pass"] > 0 and cases["one_launch"] > 0,
           f"kron_matvec cases per route {cases}")
+    nf_routes = {}
+    for (N1, N2, batch, pattern), kind in itertools.product(
+            KM_NONFINITE, ("nan_A", "inf_B")):
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
+            name = str(dtype).split(".")[-1]
+            label = (f"kron_matvec {N1}x{N2} batch {batch} {pattern} {kind} "
+                     f"{name}")
+            A, B, X = km_inputs(N1, N2, batch, pattern, dtype, gen, dev)
+            if kind == "nan_A":
+                A[N1 // 2, (N1 - 1) // 3] = float("nan")
+            else:
+                B[N2 // 3, N2 // 2] = float("inf")
+            route = km.kron_matvec_route(A, B, X)
+            got = km.kron_matvec_cuda(A, B, X).float()
+            want = km.kron_matvec_plain(A, B, X).float()
+            torch.cuda.synchronize()
+            nan_w, nan_g = torch.isnan(want), torch.isnan(got)
+            check(bool(nan_w.any()), f"{label}: the plain version has no NaN")
+            check(torch.equal(nan_g, nan_w), f"{label} ({route}): NaN at "
+                  f"{int((nan_g & ~nan_w).sum())} entries where the plain "
+                  f"version has none, missing at {int((nan_w & ~nan_g).sum())}")
+            fin = torch.isfinite(want)
+            inf = ~fin & ~nan_w
+            check(torch.equal(got[inf], want[inf]), f"{label}: infinities "
+                  f"differ")
+            err = (got[fin] - want[fin]).abs()
+            atol = tol
+            if dtype == torch.float32 and N1 * N2 > KM_LONG_SUM:
+                atol = tol * float(want[fin].abs().max())
+            bad = int((err > atol + tol * want[fin].abs()).sum())
+            check(bad == 0, f"{label} ({route}): {bad} finite entries beyond "
+                  f"tolerance, max |Δ| {float(err.max())!r}")
+            nf_routes[route] = nf_routes.get(route, 0) + 1
+    check(set(nf_routes) == {"one_launch", "two_pass"},
+          f"kron_matvec non-finite cases per route {nf_routes}")
+    print(f"kron_matvec: {sum(nf_routes.values())} non-finite cases spread "
+          f"NaN as the plain version does ({json.dumps(nf_routes)})")
     print(f"kron_matvec: {sum(cases.values())} cases within tolerance "
           f"({json.dumps(cases)}), max |kernel - plain| {json.dumps(worst)}, "
           f"by route {json.dumps(by_route)}")
-    return {**worst, "by_route": by_route, "cases": cases}
+    return {**worst, "by_route": by_route, "cases": cases,
+            "nonfinite_cases": nf_routes}
 
 
 def conditional_variances(L, prefix) -> torch.Tensor:
@@ -801,6 +938,24 @@ def main() -> None:
     ked = torch.full((64,), kd, dtype=torch.int32, device=dev)
     edges.append(compare(usd, ked, G1d.contiguous(), Grd.contiguous(),
                          "degenerate columns B=64", span=kd - 1))
+    # the global route: 300 x 300, whose norms alone pass a block's shared
+    # memory
+    big = dpp.random_kron(gen, (300, 300), device=dev).rescale(20.0, cache)
+    s_big = big.spectrum(cache)
+    glob_in = phase1_inputs(s_big, s_big.suggested_k_max(), 8, gen)
+    edges.append(compare(*glob_in, "kron 300x300 B=8", route="global"))
+    # the host's layout of the on-chip route against the kernel's own
+    lib = _build.load_library("phase2_select", p2.bind)
+    for n1, nr, kk in itertools.product((1, 4, 20, 30, 100, 300, 400, 1100),
+                                        (1, 40, 100, 500), (1, 20, 46, 224)):
+        nb = ctypes.c_longlong(0)
+        check(lib.phase2_select_onchip_bytes(n1, nr, kk, ctypes.byref(nb))
+              == 0 and nb.value == p2.onchip_geometry(n1, nr, kk)[3],
+              f"on-chip bytes at {n1} x {nr}, k {kk}: kernel {nb.value}, "
+              f"host {p2.onchip_geometry(n1, nr, kk)[3]}")
+    print(f"phase2_select: on-chip layout bytes agree (host and kernel) at "
+          f"128 shapes; the device's opt-in limit "
+          f"{p2._smem_optin(dev.index)} bytes")
 
     # -- 4. statistics on the kernel path -----------------------------------
     small = dpp.random_kron(gen, (2, 3), device=dev)
@@ -865,18 +1020,32 @@ def main() -> None:
 
     # -- 6. times -----------------------------------------------------------
     times = {}
-    for B, (us, ke, G1, Gr) in inputs.items():
+    for B, (us, ke, G1, Gr) in [*inputs.items(), ("global", glob_in)]:
+        N1_, Nr_, k_ = int(G1.shape[1]), int(Gr.shape[1]), int(us.shape[1])
+        route = p2.phase2_select_route(N1_, Nr_, k_)
         picks_k = p2.phase2_select_cuda(us, ke, G1, Gr).cpu().numpy()
-        b_ms, b_by = bound(picks_k, int(G1.shape[1]), int(Gr.shape[1]),
-                           k_max)
+        b_ms, b_by = bound(picks_k, N1_, Nr_, k_)
+        keys = dict(kernel_route=route, bound_ms=b_ms, bound_by=b_by,
+                    bound_row_ms=bound_row(picks_k, N1_, Nr_, k_),
+                    live_steps=int((picks_k >= 0).sum()),
+                    max_row_steps=int((picks_k >= 0).sum(axis=1).max()),
+                    shapes={"N1": N1_, "Nr": Nr_, "k_max": k_,
+                            "B": int(us.shape[0])})
+        on_chip = route == "on_chip"
         times[B] = kernel_times(
             partial(p2.phase2_select_cuda, us, ke, G1, Gr),
             partial(p2.phase2_select_plain, us, ke, G1, Gr), None,
-            reps=20, plain_reps=5, expect="phase2_select_kernel",
-            bound_ms=b_ms, bound_by=b_by,
-            live_steps=int((picks_k >= 0).sum()),
-            max_row_steps=int((picks_k >= 0).sum(axis=1).max()))
+            reps=20 if on_chip else 5, plain_reps=5 if on_chip else 2,
+            expect=("phase2_select_kernel_onchip" if on_chip
+                    else "phase2_select_kernel"), sole=True, **keys)
         print(f"  phase2_select B={B}: {json.dumps(times[B])}")
+    # the DPP's phase 1 alone: the request's uniforms, the Bernoulli draw
+    # and compaction, the factor-column gather (svc.sample(16) runs B = 16)
+    phase1_ms = {}
+    for B in (16, 64):
+        phase1_ms[B] = cuda_ms(partial(phase1_inputs, spec, k_max, B, gen),
+                               reps=20, warmup=2)
+    print(f"  DPP phase 1 (ms, CUDA events): {json.dumps(phase1_ms)}")
     svc.sample(16)                              # warm the request path
     req = []
     for _ in range(5):
@@ -1231,8 +1400,11 @@ def main() -> None:
     sel_times["kdpp_phase2"] = kernel_times(
         partial(p2.phase2_select_cuda, us_k, ke_k, G1_k, Gr_k),
         partial(p2.phase2_select_plain, us_k, ke_k, G1_k, Gr_k), None,
-        reps=20, plain_reps=5, expect="phase2_select_kernel",
-        bound_ms=b_ms, bound_by=b_by)
+        reps=20, plain_reps=5, expect="phase2_select_kernel_onchip",
+        sole=True, kernel_route=p2.phase2_select_route(*spec_m.sizes, 20),
+        bound_ms=b_ms, bound_by=b_by,
+        bound_row_ms=bound_row(picks_kd, *spec_m.sizes, 20),
+        max_row_steps=int((picks_kd >= 0).sum(axis=1).max()))
     svc.sample_kdpp(20, 16)                     # warm
     kreq = []
     for _ in range(5):
@@ -1250,7 +1422,14 @@ def main() -> None:
     launch_us.append(host_launch_us())
     print(f"device times filled for every kernels row; one small launch from "
           f"the host before and after the profiler sessions: {launch_us} µs")
+    print(f"profiler windows: {WINDOWS['taken']} taken, "
+          f"{len(WINDOWS['retaken'])} retaken, lead marks at the end "
+          f"{WINDOWS['lead_marks']}; counted windows that lost lead marks: "
+          f"{len(WINDOWS['lead_lost'])}, marks lost {WINDOWS['lead_lost']}")
 
+    for t in (times[64], times[1], times["global"],
+              sel_times["kdpp_phase2"]):
+        t["per_step_ms"] = t["ms"] / t["max_row_steps"]
     row = {"name": "phase2_select", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/phase2_select.cu",
            "replaces": "src/repro/kernels/phase2_select.py:172",
@@ -1259,8 +1438,8 @@ def main() -> None:
                               [*agree.values(), *edges, agree_main,
                                agree_kdpp]),
            **times[64], "agree_rows": agree[64]["agree_rows"],
-           "shapes": {"N1": 100, "Nr": 100, "k_max": k_max, "B": 64},
            "b1": times[1], "agree_rows_b1": agree[1]["agree_rows"],
+           "global_300x300_b8": times["global"],
            "agree_rows_main_path": agree_main["agree_rows"],
            "card": card, "power_limit": power_limit}
     pt_rows = [{"name": f"partial_trace_{k}", "route": "cuda",
@@ -1308,7 +1487,8 @@ def main() -> None:
                                  "svc_sample16_median_ms":
                                      float(np.median(req)),
                                  "phase2_select_b64": times[64],
-                                 "phase2_select_b1": times[1]},
+                                 "phase2_select_b1": times[1],
+                                 "dpp_phase1_ms": phase1_ms},
                       "card": card, "power_limit": power_limit}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

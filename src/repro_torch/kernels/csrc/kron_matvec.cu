@@ -47,8 +47,11 @@
 // so Y[:, v-tile] = A[:, i] (x B[v-tile, u]) is one rounded product per
 // output (the other terms of each sum are exact zeros), the same one the
 // gather route computes. Skipping a zero row is exact only when A and B are
-// finite (0 . Inf is NaN in a dense sum): the callers pass eigenvector
-// factors and random matrices. Row strides are padded so that the four-wide
+// finite (0 . Inf is NaN in a dense sum), so the first time a block would
+// skip a row it reads A and its B tile once and flags (__syncthreads_or) an
+// Inf or a NaN there; a flagged block lists every row of every entry and
+// does the dense product, which spreads them as the Pallas kernel's
+// X . B^T then A . T does. Row strides are padded so that the four-wide
 // and mma fragment loads meet no bank conflicts. Shared memory at 100 x 100:
 // 103 KB in float32, 70 KB in bfloat16.
 //
@@ -592,6 +595,57 @@ __device__ __forceinline__ void y_product(const T* Ac, const float* TsT,
   }
 }
 
+// Non-zero when a piece holds an Inf or a NaN (exponent bits all set).
+template <typename T>
+__device__ __forceinline__ unsigned nonfinite_bits(uint32_t w) {
+  if constexpr (sizeof(T) == 4) return (w & 0x7f800000u) == 0x7f800000u;
+  return (w & 0x7f80u) == 0x7f80u || (w & 0x7f800000u) == 0x7f800000u;
+}
+template <typename T>
+__device__ __forceinline__ unsigned nonfinite_bits(const uint4& v) {
+  return nonfinite_bits<T>(v.x) | nonfinite_bits<T>(v.y) |
+         nonfinite_bits<T>(v.z) | nonfinite_bits<T>(v.w);
+}
+
+// Non-zero when one of the n elements at p holds an Inf or a NaN: 16-byte
+// pieces, kInFlight loads a thread in flight, where p is 16-byte aligned,
+// the rest one by one. This thread's share only.
+template <typename T>
+__device__ __forceinline__ unsigned nonfinite_in(const T* __restrict__ p,
+                                                 int n) {
+  unsigned bad = 0;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(p) & 15u) == 0) {
+    const int nv = n / static_cast<int>(16 / sizeof(T));
+    const uint4* pv = reinterpret_cast<const uint4*>(p);
+    for (int base = threadIdx.x; base < nv; base += kFThreads * kInFlight) {
+      uint4 v[kInFlight];
+#pragma unroll
+      for (int j = 0; j < kInFlight; ++j) {
+        const int e = base + j * kFThreads;
+        v[j] = e < nv ? __ldg(pv + e) : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int j = 0; j < kInFlight; ++j) bad |= nonfinite_bits<T>(v[j]);
+    }
+    done = nv * static_cast<int>(16 / sizeof(T));
+  }
+  for (int e = done + threadIdx.x; e < n; e += kFThreads)
+    bad |= !isfinite(load_f(p + e));
+  return bad;
+}
+
+// 1 in every thread when A (N1 x N1) or the B tile Bt (rows x N2, rows
+// contiguous) holds an Inf or a NaN, else 0. A barrier.
+template <typename T>
+__device__ __forceinline__ int any_nonfinite(const T* __restrict__ A,
+                                             int N1,
+                                             const T* __restrict__ Bt,
+                                             int rows, int N2) {
+  const unsigned bad = nonfinite_in(A, N1 * N1) | nonfinite_in(Bt, rows * N2);
+  return __syncthreads_or(bad != 0u);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kFThreads, kFBlocksPerSM)
     kron_matvec_fused_kernel(const T* __restrict__ A,
@@ -619,6 +673,7 @@ __global__ void __launch_bounds__(kFThreads, kFBlocksPerSM)
   zero_cols(Bs, g.XS, live_c, N2, g.Kp);
   zero_cols(Bs + live_c * g.XS, g.XS, g.BR - live_c, 0, g.Kp);
   for (int i = tid; i < N1; i += kFThreads) flag[i] = 0;
+  int nonfinite = -1;     // A or the B tile holds an Inf or a NaN; -1 unread
 
   for (int b = blockIdx.y; b < g.batch; b += gridDim.y) {
     __syncthreads();      // the previous entry's reads are done
@@ -643,7 +698,18 @@ __global__ void __launch_bounds__(kFThreads, kFBlocksPerSM)
       if (lane == 0) *s_nr = n;
     }
     __syncthreads();
-    const int nr = *s_nr, nr4 = round_up(nr, 4);
+    int nr = *s_nr;
+    if (nr < N1) {          // a zero row would be skipped (block-uniform)
+      if (nonfinite < 0)
+        nonfinite = any_nonfinite(A, N1, B + static_cast<long long>(v0) * N2,
+                                  live_c, N2);
+      if (nonfinite) {      // dense, so that 0 . Inf and NaN spread
+        for (int i = tid; i < N1; i += kFThreads) list[i] = i;
+        nr = N1;
+        __syncthreads();
+      }
+    }
+    const int nr4 = round_up(nr, 4);
     // 3. A's listed columns, Ac[k][r] = A[k][list[r]], columns nr .. nr4
     //    zero: every row copied in flight while T is computed, or
     //    gathered now

@@ -18,30 +18,51 @@
 // What bounds it: per live step the norms downdate costs about 2 N k
 // floating-point operations (one k-long dot product per item) and the scan
 // and search O(N); CGS2 is O(k^2). All of it is fp32 outside the tensor
-// cores (67 TFLOP/s on an H100 SXM), so the bound is operations, not bytes:
-// the inputs are only (N1 + Nr) k floats per sample. The steps of one sample
-// are sequential; only the batch and the N items of a step are parallel.
+// cores (67 TFLOP/s on an H100 SXM, 0.51 TFLOP/s an SM), so the bound is
+// operations, not bytes: the inputs are only (N1 + Nr) k floats per sample.
+// The steps of one sample are sequential; only the batch and the N items of
+// a step are parallel, so a sample's floor is its steps on one SM.
 //
-// What the design does about it: the Pallas grid (batch, k_max, 2, n_tiles)
-// ran in order on one TPU core with state in VMEM. Here the step loop runs
-// inside one block per sample, so the batch fills the SMs and nothing
-// crosses blocks. Each thread owns one contiguous chunk of the N items for
-// the whole run: it downdates its chunk and sums it in the same pass, so the
-// next step's block-wide scan needs only one partial per thread (warp
-// shuffles, then the warp totals) and the index search is a block reduction
-// over the chunks. norms never leaves the thread that owns it, so it needs
-// no synchronisation; it lives in a (B, N) float32 scratch tensor that the
-// wrapper allocates (2.5 MB at B = 64, N = 10^4: resident in the 50 MB L2),
-// which keeps the kernel correct for any N. The basis B, the row w and the
-// scan partials live in shared memory (9 KB at k = 48). Not done yet:
-// norms in shared memory, a thread-block cluster to spread one sample over
-// several SMs (batch 1 uses one SM of 132), tensor cores for the downdate.
+// Route "on_chip" (phase2_select_kernel_onchip), taken whenever its layout
+// fits a block's shared memory (onchip_geom; 89 KB at 100 x 100, k = 46,
+// two blocks an SM). The Pallas grid (batch, k_max, 2, n_tiles) ran in
+// order on one TPU core with state in VMEM; here the step loop runs inside
+// one block per sample and everything a step reads stays in shared memory
+// for the whole run: G1^T (k, N1p) and Gr^T (k, Pr), k-major, loaded once;
+// the norms as an (N1p, Pr) grid whose padding stays zero (a zero-mass
+// item is never picked); the basis, w, q and the scan partials. A step:
+//   1. Downdate as a register-tiled product: a thread owns 4 rows of G1 by
+//      TN rows of Gr (TN in 4, 8, 12, 16, the least that gives every tile a
+//      thread: 4 x 12 at 100 x 100, 225 tiles), and per c reads one float4
+//      of G1^T and TN / 4 of Gr^T, all lanes of a quarter warp on distinct
+//      banks, for 4 TN FMAs. c runs in order and each term is
+//      fmaf(G1 q, Gr, ct), as the global route rounds it. The same pass
+//      writes max(norms - ct^2, 0) back, 0 at the pick; the init is the
+//      same product of the squares.
+//   2. Scan and search, after a barrier: a thread owns a contiguous chunk
+//      of the grid of odd length (lanes 32 banks apart, so no conflicts),
+//      sums it, a block scan gives its offset and the total, and it walks
+//      its chunk for the first item with csum > r and mass > 0.
+//   3. Gather w from the two shared factors, and CGS2 (gs_pass).
+// 256 threads: at 100 x 100 the 225 tiles take one thread each, and with
+// 128 registers and 89 KB two blocks share an SM, so the service's flush at
+// B = 512 runs in two waves of 264; 512 threads would halve the tile and
+// double the shared-memory loads per FMA. Not done yet: a thread-block
+// cluster to spread one sample over several SMs (batch 1 uses one SM of
+// 132), tensor cores for the downdate.
 //
-// Index rule: i is the first item with csum > r and norms > 0, or the last
-// item with norms > 0 when r lies past every such csum. On a monotone
-// cumsum this is the reference's min(#(csum <= r), N - 1); the mass guard
-// keeps a rounding step between two chunks' offsets from ever selecting a
-// zero-mass (already selected) item.
+// Route "global" (phase2_select_kernel), for shapes past the shared memory
+// (large N, or k up to MAX_K = 224): each thread owns one contiguous chunk
+// of the N items for the whole run, downdates it from rows of G1 and Gr in
+// device memory and sums it in the same pass; norms lives in a (B, N)
+// float32 scratch the wrapper allocates, resident in the 50 MB L2. The
+// basis, w and the scan partials live in shared memory.
+//
+// Index rule (both routes): i is the first item with csum > r and
+// norms > 0, or the last item with norms > 0 when r lies past every such
+// csum. On a monotone cumsum this is the reference's min(#(csum <= r),
+// N - 1); the mass guard keeps a rounding step between two chunks' offsets
+// from ever selecting a zero-mass (already selected) item.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -227,28 +248,324 @@ __global__ void phase2_select_kernel(const float* __restrict__ us,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Route "on_chip"
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 256;       // THREADS in phase2_select.py
+constexpr int kTileRows = 4;        // TILE_ROWS
+constexpr int kTileCols[] = {4, 8, 12, 16};   // TILE_COLS
+
+__host__ __device__ constexpr int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+// The on-chip layout (phase2_select.py onchip_geometry): floats from the
+// start of shared memory, every offset a multiple of 4.
+struct Geom {
+  int tn;        // Gr rows of a thread's tile
+  int n1p, pr;   // N1 and Nr padded to the tile
+  int tiles_j;   // tiles along Gr
+  int tiles;     // tiles in all
+  int off_grt, off_norms, off_basis;   // floats
+  long long smem;                      // bytes
+};
+
+Geom onchip_geom(int N1, int Nr, int k) {
+  Geom g;
+  const int rows = (N1 + kTileRows - 1) / kTileRows;
+  g.tn = kTileCols[3];
+  for (int t : kTileCols)
+    if (static_cast<long long>(rows) * ((Nr + t - 1) / t) <= kThreads) {
+      g.tn = t;
+      break;
+    }
+  g.n1p = rows * kTileRows;
+  g.pr = round_up(Nr, g.tn);
+  g.tiles_j = g.pr / g.tn;
+  g.tiles = rows * g.tiles_j;
+  const long long kk = k;
+  const long long floats = kk * g.n1p + kk * g.pr +
+                           static_cast<long long>(g.n1p) * g.pr + kk * kk +
+                           3 * kk + 32;
+  g.smem = 4 * floats + 4 * 64;
+  // offsets in floats, meaningful for a layout that fits a block
+  g.off_grt = static_cast<int>(kk * g.n1p);
+  g.off_norms = static_cast<int>(kk * (g.n1p + g.pr));
+  g.off_basis = static_cast<int>(kk * (g.n1p + g.pr) +
+                                 static_cast<long long>(g.n1p) * g.pr);
+  return g;
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc[i][j] = sum over c (in order) of fmaf(a_i, g_j, acc): a_i =
+// G1[i0 + i, c] q[c], g_j = Gr[j0 + j, c] (the downdate's ct), or, with
+// kSquare, a_i = G1[i0 + i, c]^2, g_j = Gr[j0 + j, c]^2 (the init).
+template <int TN, bool kSquare>
+__device__ __forceinline__ void tile_product(const float* g1t, int n1p,
+                                             const float* grt, int pr,
+                                             const float* q, int k, int i0,
+                                             int j0, float acc[4][TN]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < k; ++c) {
+    const float4 a4 = lds4(g1t + c * n1p + i0);
+    float a[4] = {a4.x, a4.y, a4.z, a4.w};
+    float g[TN];
+#pragma unroll
+    for (int v = 0; v < TN / 4; ++v) {
+      const float4 g4 = lds4(grt + c * pr + j0 + 4 * v);
+      g[4 * v] = g4.x;
+      g[4 * v + 1] = g4.y;
+      g[4 * v + 2] = g4.z;
+      g[4 * v + 3] = g4.w;
+    }
+    if constexpr (kSquare) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = a[i] * a[i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) g[j] = g[j] * g[j];
+    } else {
+      const float qc = q[c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = a[i] * qc;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], g[j], acc[i][j]);
+  }
+}
+
+// The init (kInit: norms = the product of the squares) or one downdate
+// (norms = max(norms - ct^2, 0), 0 at grid cell `pick`) over every tile.
+template <int TN, bool kInit>
+__device__ void tile_pass(const float* g1t, const float* grt, float* norms,
+                          const float* q, int k, const Geom& g, int pick) {
+  for (int tile = threadIdx.x; tile < g.tiles; tile += blockDim.x) {
+    const int ti = tile / g.tiles_j;
+    const int i0 = ti * 4, j0 = (tile - ti * g.tiles_j) * TN;
+    float acc[4][TN];
+    tile_product<TN, kInit>(g1t, g.n1p, grt, g.pr, q, k, i0, j0, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* row = norms + (i0 + i) * g.pr + j0;
+#pragma unroll
+      for (int v = 0; v < TN / 4; ++v) {
+        float4 o;
+        if constexpr (kInit) {
+          o = make_float4(acc[i][4 * v], acc[i][4 * v + 1],
+                          acc[i][4 * v + 2], acc[i][4 * v + 3]);
+        } else {
+          o = lds4(row + 4 * v);
+          o.x = fmaxf(o.x - acc[i][4 * v] * acc[i][4 * v], 0.f);
+          o.y = fmaxf(o.y - acc[i][4 * v + 1] * acc[i][4 * v + 1], 0.f);
+          o.z = fmaxf(o.z - acc[i][4 * v + 2] * acc[i][4 * v + 2], 0.f);
+          o.w = fmaxf(o.w - acc[i][4 * v + 3] * acc[i][4 * v + 3], 0.f);
+        }
+        *reinterpret_cast<float4*>(row + 4 * v) = o;
+      }
+    }
+    if constexpr (!kInit) {
+      const int di = pick / g.pr - i0, dj = pick % g.pr - j0;
+      if (di >= 0 && di < 4 && dj >= 0 && dj < TN) norms[pick] = 0.f;
+    }
+  }
+}
+
+template <int TN>
+__global__ void __launch_bounds__(kThreads, 2)
+    phase2_select_kernel_onchip(const float* __restrict__ us,
+                                const int* __restrict__ keff,
+                                const float* __restrict__ G1,
+                                const float* __restrict__ Gr,
+                                int* __restrict__ picks, int N1, int Nr,
+                                int k, const Geom g) {
+  extern __shared__ __align__(16) float smem[];
+  float* g1t = smem;                  // g1t[c * n1p + i1] = G1[i1, c]
+  float* grt = smem + g.off_grt;      // grt[c * pr + ir] = Gr[ir, c]
+  float* norms = smem + g.off_norms;  // norms[i1 * pr + ir]
+  float* basis = smem + g.off_basis;  // k x k, basis[c * k + j] = B[c, j]
+  float* w = basis + k * k;           // gathered row, then CGS2 result
+  float* coef = w + k;                // B^T x
+  float* q = coef + k;                // first CGS pass, then the new column
+  float* red = q + k;                 // 32 warp partials
+  int* redi = reinterpret_cast<int*>(red + 32);   // 64 ints
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* g1 = G1 + static_cast<size_t>(b) * N1 * k;
+  const float* gr = Gr + static_cast<size_t>(b) * Nr * k;
+  int* pk = picks + static_cast<size_t>(b) * k;
+  const float* u = us + static_cast<size_t>(b) * k;
+  const int ke = max(0, min(keff[b], k));
+
+  // the factors, transposed and zero-padded, once (coalesced reads)
+  for (int e = tid; e < g.n1p * k; e += nt) {
+    const int i1 = e / k, c = e - i1 * k;
+    g1t[c * g.n1p + i1] = i1 < N1 ? g1[e] : 0.f;
+  }
+  for (int e = tid; e < g.pr * k; e += nt) {
+    const int ir = e / k, c = e - ir * k;
+    grt[c * g.pr + ir] = ir < Nr ? gr[e] : 0.f;
+  }
+  for (int j = tid; j < k; j += nt) pk[j] = -1;
+  for (int j = tid; j < k * k; j += nt) basis[j] = 0.f;
+  __syncthreads();
+  tile_pass<TN, true>(g1t, grt, norms, q, k, g, -1);
+
+  // scan ownership: a contiguous chunk of odd length a thread
+  const int n = g.n1p * g.pr;
+  const int chunk = ((n + nt - 1) / nt) | 1;
+  const int lo = min(tid * chunk, n);
+  const int hi = min(lo + chunk, n);
+
+  for (int t = 0; t < ke; ++t) {
+    __syncthreads();                  // the norms of this step are written
+    float part = 0.f;
+    int lastpos = -1;
+    for (int x = lo; x < hi; ++x) {
+      const float v = norms[x];
+      part += v;
+      if (v > 0.f) lastpos = x;
+    }
+    float total;
+    const float off = block_exclusive_scan(part, red, &total);
+    if (!(total > kMassEps)) break;   // collapsed: this slot and later stay -1
+    const float r = u[t] * total;
+    int cand = INT_MAX;
+    float run = off;
+    for (int x = lo; x < hi; ++x) {
+      const float v = norms[x];
+      run += v;
+      if (v > 0.f && run > r) {
+        cand = x;
+        break;
+      }
+    }
+    const int pick = block_pick(cand, lastpos, redi);   // a grid cell
+    const int p1 = pick / g.pr, pr = pick - p1 * g.pr;
+    for (int c = tid; c < k; c += nt)
+      w[c] = g1t[c * g.n1p + p1] * grt[c * g.pr + pr];
+    __syncthreads();
+    gs_pass(basis, w, coef, q, k);    // q = w - B (B^T w)
+    gs_pass(basis, q, coef, w, k);    // w = q - B (B^T q): CGS2
+    float sq = 0.f;
+    for (int c = tid; c < k; c += nt) sq = fmaf(w[c], w[c], sq);
+    const float qn2 = block_sum(sq, red);
+    const float inv = qn2 > kEps ? 1.f / sqrtf(fmaxf(qn2, kEps)) : 0.f;
+    for (int c = tid; c < k; c += nt) {
+      const float v = qn2 > kEps ? w[c] * inv : 0.f;
+      q[c] = v;
+      basis[c * k + t] = v;
+    }
+    if (tid == 0) pk[t] = p1 * Nr + pr;
+    __syncthreads();
+    if (t + 1 >= ke) break;           // no later step reads the downdate
+    tile_pass<TN, false>(g1t, grt, norms, q, k, g, pick);
+  }
+}
+
+template <int TN>
+cudaError_t launch_onchip(const float* us, const int* keff, const float* G1,
+                          const float* Gr, int* picks, int B, int N1, int Nr,
+                          int k, const Geom& g, cudaStream_t s) {
+  phase2_select_kernel_onchip<TN><<<B, kThreads, g.smem, s>>>(
+      us, keff, G1, Gr, picks, N1, Nr, k, g);
+  return cudaGetLastError();
+}
+
+size_t global_smem(int k) {
+  return (static_cast<size_t>(k) * k + 4 * static_cast<size_t>(k) + 32) *
+             sizeof(float) + 64 * sizeof(int);
+}
+
 }  // namespace
 
+// The opt-in shared memory a block of the current device may use, in
+// *limit; both kernels' dynamic shared-memory caps become that limit, so
+// that a launch configures nothing. Ask once per device before launching.
+// Returns a CUDA error code.
+extern "C" int phase2_select_prepare(int* limit) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(phase2_select_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *limit);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(phase2_select_kernel_onchip<4>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *limit);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(phase2_select_kernel_onchip<8>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *limit);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(phase2_select_kernel_onchip<12>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *limit);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(phase2_select_kernel_onchip<16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *limit);
+  return static_cast<int>(e);
+}
+
+// The on-chip route's shared memory in bytes for these sizes, in *bytes
+// (the host's route decision must agree with it).
+extern "C" int phase2_select_onchip_bytes(int N1, int Nr, int k,
+                                          long long* bytes) {
+  if (N1 < 1 || Nr < 1 || k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *bytes = onchip_geom(N1, Nr, k).smem;
+  return 0;
+}
+
+// route: 0 on_chip, 1 global (what phase2_select_route gave for N1, Nr and k
+// on this device, after phase2_select_prepare). norms: the global route's
+// (B, N1 Nr) float32 scratch, ignored (and may be null) on the on-chip
+// route, which takes threads = 256 only.
 extern "C" int phase2_select_launch(const void* us, const void* keff,
                                     const void* G1, const void* Gr,
                                     void* norms, void* picks, int B, int N1,
-                                    int Nr, int k, int threads,
+                                    int Nr, int k, int threads, int route,
                                     void* stream) {
   if (B < 1 || N1 < 1 || Nr < 1 || k < 1 || threads < 32 || threads > 1024 ||
       threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (static_cast<size_t>(k) * k + 4 * static_cast<size_t>(k) + 32) *
-                          sizeof(float) + 64 * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        phase2_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* u = static_cast<const float*>(us);
+  const int* ke = static_cast<const int*>(keff);
+  const float* g1 = static_cast<const float*>(G1);
+  const float* gr = static_cast<const float*>(Gr);
+  int* pk = static_cast<int*>(picks);
+  if (route == 0) {
+    if (threads != kThreads) return static_cast<int>(cudaErrorInvalidValue);
+    const Geom g = onchip_geom(N1, Nr, k);
+    switch (g.tn) {
+      case 4: return launch_onchip<4>(u, ke, g1, gr, pk, B, N1, Nr, k, g, s);
+      case 8: return launch_onchip<8>(u, ke, g1, gr, pk, B, N1, Nr, k, g, s);
+      case 12:
+        return launch_onchip<12>(u, ke, g1, gr, pk, B, N1, Nr, k, g, s);
+      default:
+        return launch_onchip<16>(u, ke, g1, gr, pk, B, N1, Nr, k, g, s);
+    }
   }
-  phase2_select_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(us), static_cast<const int*>(keff),
-      static_cast<const float*>(G1), static_cast<const float*>(Gr),
-      static_cast<float*>(norms), static_cast<int*>(picks), N1, Nr, k);
+  if (route != 1 || norms == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  phase2_select_kernel<<<B, threads, global_smem(k), s>>>(
+      u, ke, g1, gr, static_cast<float*>(norms), pk, N1, Nr, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,16 +9,18 @@ in the package:
     Y[b] = (A ⊗ B) X[b] = vec(A · mat(X[b]) · Bᵀ)
 
 accumulated in float32, output in X's dtype (float32 or bfloat16).
-``kron_matvec_plain`` is the einsum of the oracle and serves any device;
+``kron_matvec_plain`` computes it as the Pallas kernel does, on any device;
 ``kron_matvec_cuda`` launches ``csrc/kron_matvec.cu`` on CUDA tensors and
 raises on anything else. The kernel takes any N1, N2 and batch (the JAX
 wrapper padded to 128 for the TPU's matrix unit) by one of two routes
 (``kron_matvec_route``): "one_launch" keeps T = mat(X[b])·Bᵀ in shared
-memory and skips the all-zero rows of mat(X[b]); "two_pass", for factors
-too large for a block's shared memory, sends T through a float32 scratch
-in device memory. The kernel assumes A and B finite: where a row of
-mat(X[b]) is zero it skips the row, so a NaN or Inf in A or B, which the
-plain version spreads to Y (0 · Inf is NaN), need not reach Y.
+memory and skips the all-zero rows of mat(X[b]) (unless A or its block's
+tile of B holds an Inf or a NaN: then it takes every row, so that they
+spread to Y as in the plain version); "two_pass", for factors too large
+for a block's shared memory, sends T through a float32 scratch in device
+memory. Both compute T = mat(X[b])·Bᵀ first, then A·T, as the Pallas
+kernel does, and so does ``kron_matvec_plain``: the two orders of the
+product spread an Inf in B to different NaNs (0 · Inf).
 
 The wrapper counts its launches in ``kron_matvec_cuda.launches``.
 """
@@ -39,11 +41,12 @@ _LAUNCH_LOCK = threading.Lock()
 
 def kron_matvec_plain(A: torch.Tensor, B: torch.Tensor,
                       X: torch.Tensor) -> torch.Tensor:
-    """Y[b] = (A ⊗ B) X[b]; A (N1, N1), B (N2, N2), X (batch, N1·N2)."""
+    """Y[b] = (A ⊗ B) X[b]; A (N1, N1), B (N2, N2), X (batch, N1·N2).
+    T = mat(X[b])·Bᵀ, then A·T, in float32 (the Pallas kernel's order)."""
     N1, N2 = int(A.shape[0]), int(B.shape[0])
     X3 = X.reshape(X.shape[0], N1, N2)
-    Y = torch.einsum("ki,biu,vu->bkv", A.float(), X3.float(), B.float())
-    return Y.reshape(X.shape[0], N1 * N2).to(X.dtype)
+    T = X3.float() @ B.float().T
+    return (A.float() @ T).reshape(X.shape[0], N1 * N2).to(X.dtype)
 
 
 def _check_cuda_inputs(A, B, X):
@@ -107,10 +110,9 @@ def kron_matvec_cuda(A: torch.Tensor, B: torch.Tensor,
     """Launch the Hopper kernel (``csrc/kron_matvec.cu``) on PyTorch's
     current stream: one launch with T on chip, or, on the "two_pass" route,
     two through a (batch, N1, N2) float32 scratch allocated here. Same
-    contract as ``kron_matvec_plain`` for finite A and B (a NaN or Inf in
-    them may not reach the rows of Y where mat(X[b]) has zero rows). Raises
-    on CPU tensors, mixed or other dtypes, non-contiguous inputs, bad
-    shapes, and a refused launch."""
+    contract as ``kron_matvec_plain``, an Inf or a NaN in A or B included.
+    Raises on CPU tensors, mixed or other dtypes, non-contiguous inputs,
+    bad shapes, and a refused launch."""
     N1, N2, batch = _check_cuda_inputs(A, B, X)
     Y = torch.empty_like(X)
     if batch == 0:

@@ -52,9 +52,7 @@ def _resolve_backend(op: str, x: torch.Tensor, name: str,
 def kron_matvec(A: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
                 backend: Optional[str] = None) -> torch.Tensor:
     """Batched (A ⊗ B) X[b]; X (batch, N1·N2) float32 or bfloat16, output
-    in X's dtype. ``backend`` as for ``phase2_select``. A and B must be
-    finite: the kernel skips the zero rows of mat(X[b]), so a NaN or Inf
-    there need not reach Y as it does in the plain version."""
+    in X's dtype. ``backend`` as for ``phase2_select``."""
     if _resolve_backend("kron_matvec", X, "X", backend) == "reference":
         return kron_matvec_plain(A, B, X)
     return kron_matvec_cuda(A.contiguous(), B.contiguous(), X.contiguous())

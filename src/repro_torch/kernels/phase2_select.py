@@ -21,7 +21,12 @@ Output: (B, k_max) int32 picks, -1 in padded and dead slots.
 
 ``phase2_select_plain`` runs this as batched tensor code (any device);
 ``phase2_select_cuda`` launches ``csrc/phase2_select.cu`` on CUDA tensors
-and raises on anything else. The two agree draw for draw except where
+and raises on anything else, by one of two routes
+(``phase2_select_route``): "on_chip" keeps both factors and the residual
+norms in the block's shared memory for the whole run, "global" (shapes
+whose on-chip layout passes the device's shared memory per block) keeps
+the norms in a (B, N) scratch in device memory. The two agree draw for
+draw except where
 ``us · total`` lands within roundoff of a CDF boundary (the kernel's
 block-parallel scan rounds differently from ``torch.cumsum``), or where
 the residual mass after the span is exhausted is float32 roundoff near
@@ -31,8 +36,9 @@ the residual mass after the span is exhausted is float32 roundoff near
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +57,16 @@ MAX_K = 224
 
 #: Threads per block of the kernel (one block per sample).
 THREADS = 256
+
+#: The routes of ``phase2_select_cuda``, in the order of the C launcher's
+#: route code.
+ROUTES = ("on_chip", "global")
+
+#: The on-chip route's register tile: 4 rows of G1 by TN rows of Gr a
+#: thread, TN the first of these that gives every tile a thread of the
+#: block (else the last, and threads take several tiles).
+TILE_ROWS = 4
+TILE_COLS = (4, 8, 12, 16)
 
 #: Kernel launches since import (or since a caller reset it to 0).
 launches = 0
@@ -170,12 +186,57 @@ def _check_cuda_inputs(us, k_eff, G1, Gr) -> Tuple[int, int, int, int]:
     return nb, N1, Nr, k
 
 
+def onchip_geometry(N1: int, Nr: int, k: int) -> Tuple[int, int, int, int]:
+    """``(TN, N1p, Pr, smem_bytes)`` of the on-chip route; mirrors
+    ``onchip_geom`` in ``csrc/phase2_select.cu``. G1ᵀ (k, N1p) and Grᵀ
+    (k, Pr) k-major, the norms as an (N1p, Pr) grid (N1p = N1 rounded up to
+    TILE_ROWS, Pr = Nr to TN, padding held at zero), the k x k basis,
+    three k-vectors and the 32 warp partials in floats, then 64 ints."""
+    rows = -(-N1 // TILE_ROWS)
+    tn = next((t for t in TILE_COLS if rows * -(-Nr // t) <= THREADS),
+              TILE_COLS[-1])
+    n1p, pr = rows * TILE_ROWS, -(-Nr // tn) * tn
+    floats = k * n1p + k * pr + n1p * pr + k * k + 3 * k + 32
+    return tn, n1p, pr, 4 * floats + 4 * 64
+
+
+def phase2_select_route(N1: int, Nr: int, k: int,
+                        limit: Optional[int] = None) -> str:
+    """"on_chip" when the on-chip layout (``onchip_geometry``) fits
+    ``limit`` bytes of shared memory a block, else "global". ``limit``
+    None: the current CUDA device's opt-in limit, asked once per device
+    (``_smem_optin``)."""
+    if limit is None:
+        limit = _smem_optin(torch.cuda.current_device())
+    return ROUTES[0] if onchip_geometry(N1, Nr, k)[3] <= limit \
+        else ROUTES[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(device_index: int) -> int:
+    """The opt-in shared memory a block may use on this device, asked once;
+    the query also raises both kernels' dynamic shared-memory caps to it,
+    so that no launch queries or configures the device."""
+    from ._build import load_library
+    lib = load_library("phase2_select", bind)
+    limit = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = lib.phase2_select_prepare(ctypes.byref(limit))
+    if rc != 0:
+        msg = lib.phase2_select_error_string(rc).decode()
+        raise RuntimeError(f"phase2_select device query failed: CUDA error "
+                           f"{rc} ({msg})")
+    return limit.value
+
+
 def phase2_select_cuda(us: torch.Tensor, k_eff: torch.Tensor,
                        G1: torch.Tensor, Gr: torch.Tensor) -> torch.Tensor:
     """Launch the Hopper kernel (``csrc/phase2_select.cu``): one thread
-    block per sample, on PyTorch's current stream. Same contract as
-    ``phase2_select_plain``. Raises on CPU tensors, wrong dtypes,
-    non-contiguous inputs, bad shapes, and a refused launch."""
+    block per sample, on PyTorch's current stream, by the route
+    ``phase2_select_route`` gives (the "global" route's (B, N) norms
+    scratch is allocated here). Same contract as ``phase2_select_plain``.
+    Raises on CPU tensors, wrong dtypes, non-contiguous inputs, bad
+    shapes, and a refused launch."""
     global launches
     nb, N1, Nr, k = _check_cuda_inputs(us, k_eff, G1, Gr)
     picks = torch.empty((nb, k), dtype=torch.int32, device=us.device)
@@ -183,13 +244,18 @@ def phase2_select_cuda(us: torch.Tensor, k_eff: torch.Tensor,
         return picks
     from ._build import load_library
     lib = load_library("phase2_select", bind)
-    norms = torch.empty((nb, N1 * Nr), dtype=torch.float32, device=us.device)
+    route = ROUTES.index(phase2_select_route(N1, Nr, k,
+                                             _smem_optin(us.device.index)))
+    norms = None
+    if route == 1:
+        norms = torch.empty((nb, N1 * Nr), dtype=torch.float32,
+                            device=us.device)
     stream = torch.cuda.current_stream(us.device).cuda_stream
     with torch.cuda.device(us.device):
         rc = lib.phase2_select_launch(
             us.data_ptr(), k_eff.data_ptr(), G1.data_ptr(), Gr.data_ptr(),
-            norms.data_ptr(), picks.data_ptr(), nb, N1, Nr, k, THREADS,
-            stream)
+            None if norms is None else norms.data_ptr(), picks.data_ptr(),
+            nb, N1, Nr, k, THREADS, route, stream)
     if rc != 0:
         msg = lib.phase2_select_error_string(rc).decode()
         raise RuntimeError(f"phase2_select kernel launch failed: CUDA error "
@@ -202,8 +268,14 @@ def phase2_select_cuda(us: torch.Tensor, k_eff: torch.Tensor,
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C interface of ``csrc/phase2_select.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.phase2_select_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.phase2_select_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                         p]
     lib.phase2_select_launch.restype = ctypes.c_int
+    lib.phase2_select_prepare.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.phase2_select_prepare.restype = ctypes.c_int
+    lib.phase2_select_onchip_bytes.argtypes = [
+        i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.phase2_select_onchip_bytes.restype = ctypes.c_int
     lib.phase2_select_error_string.argtypes = [ctypes.c_int]
     lib.phase2_select_error_string.restype = ctypes.c_char_p
 

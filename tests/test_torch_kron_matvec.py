@@ -101,8 +101,54 @@ def test_plain_matches_jax_pallas_and_oracle(n1, n2, batch, pattern, dtype):
         assert (got[1] == 0).all()
 
 
+def nonfinite_inputs(n1, n2, batch, pattern, kind, seed):
+    """``np_inputs`` with a NaN in A (``kind`` "nan_A") or an Inf in B
+    ("inf_B"); the patterns give mat(X[b]) zero rows, which the kernel
+    skips unless A or B holds such a value."""
+    A, B, X = np_inputs(n1, n2, batch, pattern, seed)
+    if kind == "nan_A":
+        A[n1 // 2, (n1 - 1) // 3] = np.nan
+    else:
+        assert kind == "inf_B", kind
+        B[n2 // 3, n2 // 2] = np.inf
+    return A, B, X
+
+
+def assert_same_nonfinite(got, want, tol):
+    """NaN exactly where ``want`` has NaN, the same infinities, and the
+    finite entries within rtol = atol = ``tol``."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(got[~fin & ~np.isnan(want)],
+                                  want[~fin & ~np.isnan(want)])
+    np.testing.assert_allclose(got[fin], want[fin], rtol=tol, atol=tol)
+
+
+NONFINITE = [(8, 8, 5), (16, 12, 3), (64, 96, 7)]
+
+
+@pytest.mark.parametrize("n1,n2,batch", NONFINITE)
+@pytest.mark.parametrize("pattern", ["onehot", "zero_rows"])
+@pytest.mark.parametrize("kind", ["nan_A", "inf_B"])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_plain_spreads_nonfinite_as_jax_pallas(n1, n2, batch, pattern, kind,
+                                               dtype):
+    """A NaN in A or an Inf in B, with zero rows in mat(X[b]): the plain
+    version's NaN, its infinities and its finite entries are the JAX
+    Pallas kernel's (both take T = mat(X[b])·Bᵀ first; the oracle's
+    einsum may contract in the other order and put the NaN elsewhere)."""
+    A, B, X = (jnp.asarray(x, dtype) for x in
+               nonfinite_inputs(n1, n2, batch, pattern, kind, seed=n1 + n2))
+    want = jax_ops.kron_matvec(A, B, X, force_pallas=True)
+    got = ops.kron_matvec(to_torch(A), to_torch(B), to_torch(X))
+    assert np.isnan(np.asarray(want, np.float32)).any()
+    assert_same_nonfinite(got.float().numpy(), want,
+                          2e-4 if dtype == jnp.float32 else 3e-2)
+
+
 def test_plain_is_the_kronecker_product():
-    """The einsum index string against an explicit Kronecker product in
+    """The two products against an explicit Kronecker product in
     float64 (a transposed index would show). The plain version computes
     in float32, hence rtol = atol = 1e-5."""
     rng = np.random.default_rng(3)
@@ -267,3 +313,44 @@ def test_kernel_matches_plain_on_card(spec34):
     want = (vecs[0][:, i][:, None, :] * vecs[1][:, j][None, :, :]).reshape(
         12, 4)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-7)
+
+
+# A NaN in A or an Inf in B with zero rows of mat(X[b]), on both routes:
+# 100 x 100 (one launch; the eigenvector path's one-hot batch) and 256 x 256
+# (two passes).
+NONFINITE_ON_CARD = [(100, 100, 46, "onehot"), (100, 100, 8, "zero_rows"),
+                     (256, 256, 4, "onehot"), (256, 256, 4, "zero_rows")]
+
+
+@pytest.mark.cuda
+def test_kernel_spreads_nonfinite_on_card():
+    """On a card: where A holds a NaN or B an Inf and mat(X[b]) has zero
+    rows, the kernel's NaN are the plain version's exactly, on both routes
+    and in both dtypes; the finite entries within the tolerances of
+    ``test_kernel_matches_plain_on_card``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    from repro_torch.kernels.kron_matvec import kron_matvec_route
+    routes = set()
+    for n1, n2, batch, pattern in NONFINITE_ON_CARD:
+        for kind in ("nan_A", "inf_B"):
+            for dtype, tol in ((torch.float32, 2e-4),
+                               (torch.bfloat16, 3e-2)):
+                A, B, X = (torch.from_numpy(x).float().to("cuda", dtype)
+                           for x in nonfinite_inputs(n1, n2, batch, pattern,
+                                                     kind, seed=n1 + n2))
+                routes.add(kron_matvec_route(A, B, X))
+                got = kron_matvec_cuda(A, B, X).float()
+                want = kron_matvec_plain(A, B, X).float()
+                torch.cuda.synchronize()
+                assert bool(torch.isnan(want).any())
+                atol = tol
+                if dtype == torch.float32 and n1 * n2 > LONG_SUM:
+                    atol = tol * float(want[torch.isfinite(want)].abs().max())
+                assert torch.equal(torch.isnan(got), torch.isnan(want))
+                fin = torch.isfinite(want)
+                assert torch.equal(got[~fin & ~torch.isnan(want)],
+                                   want[~fin & ~torch.isnan(want)])
+                torch.testing.assert_close(got[fin], want[fin], rtol=tol,
+                                           atol=atol)
+    assert routes == {"one_launch", "two_pass"}

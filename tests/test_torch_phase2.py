@@ -31,11 +31,13 @@ from repro.sampling.batched import (_phase1_one, gather_factor_columns,
                                     phase2_select, sample_krondpp_batched)
 from repro_torch.convert import spectrum_from_numpy
 from repro_torch.kernels import ops
-from repro_torch.kernels.phase2_select import (canonical_pair,
+from repro_torch.kernels.phase2_select import (THREADS, canonical_pair,
                                                first_difference,
                                                is_roundoff_tie,
+                                               onchip_geometry,
                                                phase2_select_cuda,
-                                               phase2_select_plain)
+                                               phase2_select_plain,
+                                               phase2_select_route)
 from repro_torch.sampling import batched as tb
 
 def t(x, dtype=torch.float32):
@@ -168,19 +170,76 @@ def test_cuda_backend_refuses_cpu_tensors():
         ops.phase2_select(us, Gs, (5, 4), k_eff)
 
 
+# The opt-in shared memory a block may use on the H100 (227 KB), the limit
+# the route tests hand to phase2_select_route.
+H100_SMEM_OPTIN = 232_448
+
+
+@pytest.mark.parametrize("N1,Nr,k,want", [
+    (100, 100, 46, (12, 100, 108, 90_872)),    # the main path's shape
+    (400, 1, 46, (4, 400, 4, 90_136)),         # m = 1: Gr is a ones column
+    (20, 500, 46, (12, 20, 504, 146_136)),     # the m = 3 fold 20 x (20·25)
+    (30, 40, 20, (4, 32, 40, 13_104)),
+    (1, 1, 1, (4, 4, 4, 496)),
+])
+def test_onchip_geometry(N1, Nr, k, want):
+    """The on-chip layout by hand: tiles of 4 rows of G1 by TN of Gr, TN
+    the least of 4, 8, 12, 16 that gives every tile one of the 256
+    threads; G1ᵀ, Grᵀ, the padded norms grid, the basis, three k-vectors
+    and 32 partials in floats, then 64 ints."""
+    tn, n1p, pr, nbytes = onchip_geometry(N1, Nr, k)
+    assert (tn, n1p, pr, nbytes) == want
+    assert n1p % 4 == 0 and pr % tn == 0
+    assert nbytes == 4 * (k * (n1p + pr) + n1p * pr + k * k + 3 * k + 32) \
+        + 256
+    assert (n1p // 4) * (pr // tn) <= THREADS
+
+
+@pytest.mark.parametrize("N1,Nr,k,want", [
+    (100, 100, 46, "on_chip"), (400, 1, 46, "on_chip"),
+    (20, 500, 46, "on_chip"), (300, 300, 46, "global"),
+    (100, 100, 224, "global"), (400, 1, 224, "global"),
+])
+def test_route_at_the_h100_limit(N1, Nr, k, want):
+    """The main path's 100 x 100 at k_max 46 and the m = 1 and m = 3 edges
+    fit a block; 300 x 300 (its norms alone 360 KB) and k = 224 do not."""
+    assert phase2_select_route(N1, Nr, k, limit=H100_SMEM_OPTIN) == want
+
+
+@pytest.mark.parametrize("N1,Nr,k", [(100, 100, 46), (400, 1, 46),
+                                     (20, 500, 46), (100, 100, 224)])
+def test_route_switches_at_the_limit(N1, Nr, k):
+    """On-chip up to exactly its byte count, global one byte below it; and
+    along N1 at Nr = 1 the route turns global once and stays so."""
+    nbytes = onchip_geometry(N1, Nr, k)[3]
+    assert phase2_select_route(N1, Nr, k, limit=nbytes) == "on_chip"
+    assert phase2_select_route(N1, Nr, k, limit=nbytes - 1) == "global"
+    routes = [phase2_select_route(n, 1, k, limit=H100_SMEM_OPTIN)
+              for n in range(1, 4000, 37)]
+    assert routes == sorted(routes, reverse=True)     # on_chip..., global...
+
+
+# one shape of each route: the on-chip route's small shape, and 300 x 300
+# (N = 9·10^4), whose norms alone pass the H100's 227 KB a block
+ON_CARD = {"on_chip": ((30, 40), 64), "global": ((300, 300), 8)}
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("route", sorted(ON_CARD))
+def test_kernel_matches_plain_on_card(route):
     """On a card: the Hopper kernel against the plain version on the same
-    inputs (rows equal or proven boundary ties)."""
+    inputs (rows equal or proven boundary ties), on each route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     from repro_torch import dpp
+    sizes, B = ON_CARD[route]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    model = dpp.random_kron(gen, (30, 40)).rescale(10.0)
+    model = dpp.random_kron(gen, sizes).rescale(10.0)
     spec = model.spectrum()
     k_max = spec.suggested_k_max()
-    u = torch.rand((64, spec.N), generator=gen, device="cuda")
-    us = torch.rand((64, k_max), generator=gen, device="cuda")
+    assert phase2_select_route(*sizes, k_max) == route
+    u = torch.rand((B, spec.N), generator=gen, device="cuda")
+    us = torch.rand((B, k_max), generator=gen, device="cuda")
     us, Gs, k_eff, _ = tb._phase1_from_uniforms(u, us, spec.lams, spec.vecs,
                                                 k_max)
     G1, Gr = (G.contiguous() for G in canonical_pair(Gs))

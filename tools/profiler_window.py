@@ -10,7 +10,14 @@ three variants taken in turn, trial by trial:
 - ``markers``: the same, with a fill kernel before the calls and a
   multiply kernel after them, to show which end of the window loses events;
 - ``margin``: ``chip_smoke.PROFILER_MARGIN_S`` of host sleep before the
-  first call and after the final sync, as ``chip_smoke.device_ms`` does.
+  first call and after the final sync, as ``chip_smoke.device_ms`` does;
+- ``margin_markers``: the margin and the markers, to show which end of a
+  window that has the margin loses events;
+- ``long_margin``: ten times the margin;
+- ``spin_marks``: no margin, a ``torch.cuda._sleep`` kernel just before the
+  first call and just after the last (S): a window whose first and last
+  events are the two marks must hold every call (``marked_complete``
+  counts those that do, ``marked_short`` those that do not).
 
 Needs one CUDA card; builds ``csrc/kron_matvec.cu`` on first use. Run from
 the root of the checkout:
@@ -42,28 +49,42 @@ from repro_torch.kernels import kron_matvec as km  # noqa: E402
 REPS = 100
 
 
+# variant -> (host sleep at each edge of the window, markers around the
+# calls: None, "fill" (F before, M after) or "spin" (S before and after))
+VARIANTS = {"no_margin": (0.0, None), "markers": (0.0, "fill"),
+            "margin": (PROFILER_MARGIN_S, None),
+            "margin_markers": (PROFILER_MARGIN_S, "fill"),
+            "long_margin": (10 * PROFILER_MARGIN_S, None),
+            "spin_marks": (0.0, "spin")}
+EDGES = {None: ([], []), "fill": (["F"], ["M"]), "spin": (["S"], ["S"])}
+
+
 def window(fn, variant: str, marker: torch.Tensor) -> list:
     """Short names, in start order, of the device events one window
     recorded: K the kernel, F and M the markers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    margin, markers = VARIANTS[variant]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        if variant == "margin":
-            time.sleep(PROFILER_MARGIN_S)
-        if variant == "markers":
+        time.sleep(margin)
+        if markers == "fill":
             marker.fill_(1.0)
+        elif markers == "spin":
+            torch.cuda._sleep(1000)
         for _ in range(REPS):
             fn()
-        if variant == "markers":
+        if markers == "fill":
             marker.mul_(2.0)
+        elif markers == "spin":
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-        if variant == "margin":
-            time.sleep(PROFILER_MARGIN_S)
+        time.sleep(margin)
     dev = sorted((e for e in prof.events()
                   if e.device_type == DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
     return ["K" if "kron_matvec" in e.name else
+            "S" if "spin_kernel" in e.name else
             "F" if "Fill" in e.name else
             "M" if "Mul" in e.name else e.name[:40] for e in dev]
 
@@ -86,9 +107,10 @@ def main() -> None:
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    want = {"no_margin": ["K"] * REPS, "margin": ["K"] * REPS,
-            "markers": ["F"] + ["K"] * REPS + ["M"]}
+    want = {v: EDGES[m][0] + ["K"] * REPS + EDGES[m][1]
+            for v, (_, m) in VARIANTS.items()}
     out = {v: {"complete": 0, "short": []} for v in want}
+    out["spin_marks"].update(marked_complete=0, marked_short=0)
     for trial in range(args.trials):
         for variant, expected in want.items():
             names = window(fn, variant, marker)
@@ -98,6 +120,11 @@ def main() -> None:
                 out[variant]["short"].append(
                     {"trial": trial, "kernels": names.count("K"),
                      "first": names[:1], "last": names[-1:]})
+            if variant == "spin_marks" and names[:1] == names[-1:] == ["S"] \
+                    and len(names) >= 2:
+                key = ("marked_complete" if names == expected
+                       else "marked_short")
+                out[variant][key] += 1
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "torch": torch.__version__, "cuda": torch.version.cuda,
                       "trials": args.trials, "calls_per_window": REPS,
