@@ -42,7 +42,8 @@ non-zero and prints no result line.
 9. at the init, on the full batch, the A and C of the dense route through
    the kernels, of the dense route through the plain versions
    (``backend="reference"``) and of the per-subset route
-   (``accumulate_AC``) agree;
+   (``accumulate_AC``) agree; the dense Θ built twice from the same batch
+   and factors, compared bitwise (entries that differ, max |Δ|);
 10. the learning main path: ``model.fit(batch, algorithm="krk",
    use_dense_theta=True, schedule=armijo(a0=1.5), iters=5, log_every=5)``
    under an ``InMemoryTracker`` (so the health check reads CUDA factors).
@@ -102,7 +103,25 @@ non-zero and prints no result line.
    call and its phase 1 (ESP table, backward draw, compaction, gather);
    ``kernel_times`` of its phase 2; ``svc.sample_kdpp(20, 16)`` on the
    host clock;
-17. the device times of every ``kernels`` row (``fill_device_times``),
+17. the inference path at full width, on the phase-5 model and the
+   phase-8 batch: ``main.log_prob(batch)`` and ``log_likelihood`` on the
+   card against a CPU copy of the model; ``main.marginal`` of 8 singletons
+   (also against diag K off the factored spectrum) and of sets of 2, 5, 20
+   and 46 items of the batch's rows; ``main.condition(A, max_dense=10_000)``
+   on 5 items of one row (a ``Dense`` model of N = 9995: symmetric,
+   finite), the cross-path identity ``cond.log_prob(B') = main.log_prob(B
+   ∪ A) - log main.marginal(A)`` for three small B, and ``condition`` of
+   the 64 x 64 phase-13 model (N = 4096) against the CPU copy in full;
+   ``cond.sample(gen, 64)``: m = 1 at N = 9995 takes phase 2's "global"
+   route (asserted), one launch (counted, reset just before and read just
+   after), each row distinct and in range, the picks held against
+   ``phase2_select_plain`` on the replayed uniforms; a (2, 3) model
+   conditioned on two items, 3000 draws, singleton frequencies against the
+   brute-force conditional marginals; with CUDA events, ``log_prob`` of the
+   batch, ``marginal`` of 20 items, ``condition``, the conditioned model's
+   first ``spectrum`` (eigh of 9995²) and ``cond.sample(gen, 64)``;
+   ``kernel_times`` of its phase 2;
+18. the device times of every ``kernels`` row (``fill_device_times``),
    after every host-clock time above, with the host's time of one small
    launch before and after the profiler sessions.
 
@@ -145,6 +164,20 @@ which a fixed atol does not hold near Y = 0. Eigenvectors: |VᵀV - I| <=
 factor); the kernel route against the gather route within 1e-6 (each output is a sum
 with one non-zero term, so both round the same product once). k-DPP
 marginals: atol 0.04 at 3000 draws (4.4 standard errors at p = 0.5).
+
+Inference, the card against a CPU copy of the model: ``log_prob`` within
+1e-4 of max(1, |ref|) a row (the float32 fold of log Z over 10^4
+eigenvalues errs by about 1e-3, against |log P| near 140); K[S, S] within
+2e-6 (float32 sums of 10^4 terms in other orders; 2e-7 seen); P(S ⊆ Y)
+within 1e-3 relative and its log (slogdet, which does not underflow at 20
+and 46 items) within 1e-3 of max(1, |ref|), since K[S, S] entries of about
+1e-3 err by 2e-7; singletons within 1e-4 relative + 1e-7, also against
+diag K off the spectrum; the Schur complement at N = 4096 within 1e-6 ·
+max |L| (a rank-5 float32 product). The cross-path identity within 2e-4 of
+max(1, |rhs|): each side holds one float32 log normalizer over about 10^4
+eigenvalues, and these err by about 1e-3 against float64 (printed beside
+it), for |rhs| of 20 to 40. Conditioned marginals: atol 0.045 at 3000
+draws, as tests/test_dpp_facade.py.
 
 Partial traces, kernel against plain version on the same Θ: elementwise
 ``|kernel - plain| <= 1e-4 * (the same contraction over |Θ| and |L|) +
@@ -863,6 +896,271 @@ def kdpp_marginals(L: np.ndarray, k: int) -> np.ndarray:
     return marg / Z
 
 
+# ---------------------------------------------------------------------------
+# phase 17 helpers: facade inference
+# ---------------------------------------------------------------------------
+
+LOGP_RTOL = 1e-4        # log_prob, card vs CPU copy, of max(1, |ref|)
+K_SUB_ATOL = 2e-6       # K[S, S] entries, card vs CPU copy
+LOG_MARG_RTOL = 1e-3    # P(S ⊆ Y) and its log (of max(1, |ref|)), vs CPU
+COND_ID_RTOL = 2e-4     # the cross-path identity, of max(1, |rhs|)
+SCHUR_ATOL = 1e-6       # Schur complement at N = 4096, of max |L|
+COND_MARG_ATOL = 0.045  # 3000 draws (as tests/test_dpp_facade.py)
+
+
+def check_log_prob(main, cpu, batch) -> dict:
+    """``main.log_prob`` on the card against the CPU copy, row by row, and
+    ``log_likelihood`` against the mean."""
+    lp = main.log_prob(batch)
+    ll = main.log_likelihood(batch)
+    torch.cuda.synchronize()
+    check(lp.is_cuda and ll.is_cuda and tuple(lp.shape) == (batch.n,),
+          f"log_prob gave {tuple(lp.shape)} on {lp.device}, log_likelihood "
+          f"on {ll.device}")
+    check(bool(torch.isfinite(lp).all()), "log_prob is not finite")
+    ref = cpu.log_prob(batch)
+    d = (lp.cpu() - ref).abs()
+    ll_err = abs(float(ll) - float(lp.double().mean()))
+    out = {"n": batch.n, "k_max": batch.k_max, "max_abs_diff": float(d.max()),
+           "max_rel_diff": float((d / ref.abs().clamp_min(1.0)).max()),
+           "mean_cpu": float(ref.mean()), "log_likelihood": float(ll),
+           "log_likelihood_vs_mean": ll_err}
+    print(f"log_prob, card vs CPU copy per row: {json.dumps(out)}")
+    check(out["max_rel_diff"] <= LOGP_RTOL, f"log_prob differs from the CPU "
+          f"copy by {out['max_rel_diff']!r} > {LOGP_RTOL} of max(1, |ref|)")
+    check(ll_err <= 1e-5 * max(1.0, abs(float(ll))),
+          f"log_likelihood is {float(ll)!r}, the mean {float(lp.mean())!r}")
+    return out
+
+
+def check_marginals(main, cpu, pool) -> dict:
+    """``main.marginal`` on the card: 8 singletons against the CPU copy
+    and against diag K = (P1∘P1) σ (P2∘P2)ᵀ off the factored spectrum;
+    sets of 2, 5, 20 and 46 items of ``pool`` against the CPU copy (K[S,
+    S] entrywise, P(S ⊆ Y) and its log by slogdet, which does not
+    underflow)."""
+    spec = main.spectrum()
+    P1, P2 = spec.vecs
+    sig = torch.sigmoid(spec.log_eigenvalues()).reshape(spec.sizes)
+    diag_k = ((P1 * P1) @ sig @ (P2 * P2).T).reshape(-1)
+    err = {"cpu": 0.0, "diag_k": 0.0}
+    for i in pool[:8]:
+        p = main.marginal(i)
+        check(p.is_cuda and p.dim() == 0, f"marginal({i}) is {p.shape} on "
+              f"{p.device}")
+        for key, ref in (("cpu", float(cpu.marginal(i))),
+                         ("diag_k", float(diag_k[i]))):
+            e = abs(float(p) - ref)
+            check(e <= 1e-4 * abs(ref) + 1e-7, f"marginal({i}) = "
+                  f"{float(p)!r}, {key} {ref!r}")
+            err[key] = max(err[key], e)
+    out = {"singletons": pool[:8], "singleton_max_abs_diff": err}
+    for size in (2, 5, 20, 46):
+        S = pool[:size]
+        K = main.marginal_kernel_submatrix(S)
+        p = main.marginal(S)
+        check(K.is_cuda and p.is_cuda and tuple(K.shape) == (size, size),
+              f"marginal of {size} items on {p.device}, K_S {tuple(K.shape)}")
+        Kc, pc = cpu.marginal_kernel_submatrix(S), float(cpu.marginal(S))
+        sign, ld = torch.linalg.slogdet(K.double())
+        sign_c, ld_c = torch.linalg.slogdet(Kc.double())
+        rec = {"marginal": float(p), "marginal_cpu": pc,
+               "log_marginal": float(ld), "log_marginal_cpu": float(ld_c),
+               "K_sub_max_abs_diff": float((K.cpu() - Kc).abs().max())}
+        out[f"set{size}"] = rec
+        print(f"  marginal of {size} items: {json.dumps(rec)}")
+        check(float(sign) > 0 and float(sign_c) > 0, f"K_S of {size} items "
+              f"is not PD (signs {float(sign)}, {float(sign_c)})")
+        check(rec["K_sub_max_abs_diff"] <= K_SUB_ATOL, f"K_S of {size} items "
+              f"differs from the CPU copy by {rec['K_sub_max_abs_diff']!r}")
+        check(abs(float(ld) - float(ld_c)) <= LOG_MARG_RTOL
+              * max(1.0, abs(float(ld_c))), f"log P(S ⊆ Y) of {size} items: "
+              f"{float(ld)!r} vs {float(ld_c)!r}")
+        # 1e-37 covers float32's subnormals, where det loses its digits
+        check(abs(float(p) - pc) <= LOG_MARG_RTOL * abs(pc) + 1e-37,
+              f"P(S ⊆ Y) of {size} items: {float(p)!r} vs {pc!r}")
+    return out
+
+
+def check_identity(main, cond, A, Bs, dev, cache) -> dict:
+    """The cross-path identity log P_cond(B′) = log P(B ∪ A) - log P(A ⊆ Y)
+    on the card, B′ the items of B renumbered into the sorted complement
+    of A; and where its float32 error comes from: each log normalizer
+    against a float64 one (the factor spectra in float64; a float64
+    Cholesky of I + L′). ``cache`` holds the conditioned spectrum."""
+    from repro_torch.core.dpp import SubsetBatch
+    comp = np.setdiff1d(np.arange(main.N), A)
+    local = [np.searchsorted(comp, B).tolist() for B in Bs]
+    lhs = cond.log_prob(SubsetBatch.from_lists(local, k_max=4, device=dev),
+                        cache)
+    full = SubsetBatch.from_lists([sorted(A + B) for B in Bs],
+                                  k_max=len(A) + 4, device=dev)
+    rhs = main.log_prob(full) - torch.log(main.marginal(A))
+    check(lhs.is_cuda and rhs.is_cuda, "the identity left the card")
+    d = (lhs - rhs).abs()
+    ll = cond.spectrum(cache).log_eigenvalues()
+    log_z_cond = float(torch.logaddexp(ll, torch.zeros_like(ll)).sum())
+    eye = torch.eye(cond.N, dtype=torch.float64, device=dev)
+    log_z_cond64 = float(2.0 * torch.log(torch.diagonal(
+        torch.linalg.cholesky(cond.L.double() + eye))).sum())
+    del eye
+    lams64 = [torch.clamp_min(torch.linalg.eigvalsh(f.double()), 0.0)
+              for f in main.factors]
+    ll64 = (torch.log(lams64[0])[:, None] + torch.log(lams64[1])[None, :])
+    ll32 = main.spectrum().log_eigenvalues()
+    out = {"A": A, "B": Bs, "lhs": lhs.tolist(), "rhs": rhs.tolist(),
+           "max_abs_diff": float(d.max()),
+           "max_rel_diff": float((d / rhs.abs().clamp_min(1.0)).max()),
+           "log_z_cond": log_z_cond, "log_z_cond_float64_cholesky":
+               log_z_cond64,
+           "log_z_main": float(torch.logaddexp(
+               ll32, torch.zeros_like(ll32)).sum()),
+           "log_z_main_float64": float(torch.logaddexp(
+               ll64, torch.zeros_like(ll64)).sum())}
+    print(f"cross-path identity: {json.dumps(out)}")
+    check(out["max_rel_diff"] <= COND_ID_RTOL, f"log P_cond(B') and log "
+          f"P(B ∪ A) - log P(A ⊆ Y) differ by {out['max_rel_diff']!r} > "
+          f"{COND_ID_RTOL} of max(1, |rhs|)")
+    return out
+
+
+def check_schur(guard, gen, dev) -> dict:
+    """``condition`` of a 64 x 64 model (N = 4096, the default guard) on 5
+    items of one of its rows, on the card against the CPU copy in full."""
+    from repro_torch import dpp
+    A = next(r for r in guard.sample(gen, 8).to_lists() if len(r) >= 5)[:5]
+    cg = guard.condition(A)
+    cgc = dpp.Kron([f.cpu() for f in guard.factors],
+                   device="cpu").condition(A)
+    check(cg.L.is_cuda and cg.N == guard.N - 5, f"condition at N = "
+          f"{guard.N} gave N = {cg.N} on {cg.L.device}")
+    scale = float(guard.dense_kernel().abs().max())
+    err = float((cg.L.cpu() - cgc.L).abs().max())
+    out = {"A": A, "N": guard.N, "max_abs_diff": err, "max_abs_L": scale}
+    print(f"condition, card vs CPU copy: {json.dumps(out)}")
+    check(err <= SCHUR_ATOL * scale, f"Schur complement differs from the CPU "
+          f"copy by {err!r} > {SCHUR_ATOL} * max |L|")
+    return out
+
+
+def check_conditioned_marginals(gen) -> float:
+    """A (2, 3) model conditioned on items 0 and 3, 3000 draws on the card:
+    singleton frequencies against the brute-force conditional marginals."""
+    from repro_torch import dpp
+    from repro_torch.core.dpp import enumerate_probabilities
+    small = dpp.random_kron(gen, (2, 3))
+    A = [0, 3]
+    cond = small.condition(A)
+    probs = enumerate_probabilities(small.dense_kernel())
+    comp = [i for i in range(6) if i not in A]
+    z_a = sum(p for Y, p in probs.items() if set(A) <= set(Y))
+    want = np.array([sum(p for Y, p in probs.items()
+                         if set(A) <= set(Y) and i in Y) / z_a for i in comp])
+    mem = np.zeros((3000, cond.N))
+    for b, row in enumerate(cond.sample(gen, 3000).to_lists()):
+        mem[b, row] = 1.0
+    err = float(np.abs(mem.mean(0) - want).max())
+    print(f"conditioned (2,3) on {A}, 3000 kernel draws: max |freq - P(i in "
+          f"Y | A)| = {err!r}")
+    check(err <= COND_MARG_ATOL, f"conditioned marginals off by {err}")
+    return err
+
+
+def inference_path(main, guard, batch, fit_rows, gen, dev) -> dict:
+    """Phase 17: facade inference on the phase-5 model ``main`` and the
+    phase-8 batch, then the conditioned model's draw through phase 2's
+    global route. Returns the checks' records (``inference``), the CUDA
+    event times (``times``), the phase-2 ``kernel_times`` row
+    (``phase2``), the draw's launch count and its agreement with the
+    plain version."""
+    t_phase = time.perf_counter()
+    import repro_torch.obs as obs
+    from repro_torch import dpp
+    from repro_torch.kernels import phase2_select as p2
+    from repro_torch.sampling.spectral import SpectralCache
+    cpu = dpp.Kron([f.cpu() for f in main.factors], device="cpu")
+    pool = list(dict.fromkeys(itertools.chain.from_iterable(fit_rows)))
+    inference = {"log_prob": check_log_prob(main, cpu, batch),
+                 "marginal": check_marginals(main, cpu, pool)}
+    A_obs = next(r for r in fit_rows if len(r) >= 5)[:5]
+    cond = main.condition(A_obs, max_dense=10_000)
+    torch.cuda.synchronize()
+    check(isinstance(cond, dpp.Dense) and cond.L.is_cuda
+          and cond.N == main.N - 5, f"condition gave {cond!r} on "
+          f"{cond.L.device}")
+    check(torch.equal(cond.L, cond.L.T), "the conditioned L is not symmetric")
+    check(bool(torch.isfinite(cond.L).all()), "the conditioned L is not "
+          "finite")
+    inf_times = {"condition_9995_ms": cuda_ms(
+        lambda: main.condition(A_obs, max_dense=10_000), reps=3, warmup=1)}
+    cache_c = SpectralCache()
+    inf_times["cond_first_spectrum_ms"] = cuda_ms(
+        lambda: cond.spectrum(cache_c), reps=1, warmup=0)
+    spec_c = cond.spectrum(cache_c)
+    Bs = [[], [x for x in pool if x not in A_obs][:1],
+          [x for x in pool if x not in A_obs][1:4]]
+    inference["identity"] = check_identity(main, cond, A_obs, Bs, dev,
+                                           cache_c)
+    inference["schur_4096"] = check_schur(guard, gen, dev)
+    # the conditioned model's draw: m = 1 at N = 9995 takes phase 2's
+    # global route; its one launch is counted and held against the plain
+    # version on the draw's replayed uniforms
+    k_c = spec_c.suggested_k_max()
+    route_c = p2.phase2_select_route(cond.N, 1, k_c)
+    check(route_c == "global", f"phase 2 of the conditioned draw (N = "
+          f"{cond.N}, k_max {k_c}) takes the {route_c} route, not global")
+    gen_c = torch.Generator(device=dev).manual_seed(4)
+    cond_state = gen_c.get_state()
+    cond_tracker = obs.InMemoryTracker()
+    p2.launches = 0
+    with obs.use(cond_tracker):
+        cb = cond.sample(gen_c, 64, cache=cache_c)
+        torch.cuda.synchronize()
+    cond_launches = p2.launches
+    cond_count = int(cond_tracker.counter_value("kernels.phase2_select.cuda"))
+    print(f"cond.sample(gen, 64) at N = {cond.N}, k_max {k_c}, route "
+          f"{route_c}: phase-2 launches {cond_launches}, "
+          f"kernels.phase2_select.cuda {cond_count}")
+    check(cond_launches == 1 and cond_count == 1, f"the conditioned draw "
+          f"launched phase 2 {cond_launches} times, counted {cond_count}")
+    check(cb.indices.is_cuda and cb.n == 64, f"the conditioned draw gave "
+          f"{cb.n} rows on {cb.indices.device}")
+    for r in cb.to_lists():
+        check(len(set(r)) == len(r) and all(0 <= i < cond.N for i in r),
+              f"a conditioned row repeats an item or leaves [0, "
+              f"{cond.N}): {r}")
+    replay_c = torch.Generator(device=dev)
+    replay_c.set_state(cond_state)
+    us_c, ke_c, G1_c, Gr_c = phase1_inputs(spec_c, k_c, 64, replay_c)
+    pk_c = torch.where(cb.mask, cb.indices, -1).cpu().numpy()
+    pp_c = p2.phase2_select_plain(us_c, ke_c, G1_c, Gr_c).cpu().numpy()
+    agree_cond = compare_picks(pk_c, pp_c, us_c, ke_c, G1_c, Gr_c,
+                               f"conditioned m=1 N={cond.N} B=64 (global)")
+    inference["conditioned_marginal_err"] = check_conditioned_marginals(gen)
+    s20 = pool[:20]
+    inf_times["log_prob_ms"] = cuda_ms(lambda: main.log_prob(batch), reps=10,
+                                       warmup=2)
+    inf_times["marginal20_ms"] = cuda_ms(lambda: main.marginal(s20),
+                                         reps=20, warmup=2)
+    inf_times["cond_sample64_ms"] = cuda_ms(
+        lambda: cond.sample(gen, 64, cache=cache_c), reps=5, warmup=1)
+    b_ms, b_by = bound(pk_c, cond.N, 1, k_c)
+    times_c = kernel_times(
+        partial(p2.phase2_select_cuda, us_c, ke_c, G1_c, Gr_c),
+        partial(p2.phase2_select_plain, us_c, ke_c, G1_c, Gr_c), None,
+        reps=5, plain_reps=2, expect="phase2_select_kernel", sole=True,
+        kernel_route=route_c, bound_ms=b_ms, bound_by=b_by,
+        bound_row_ms=bound_row(pk_c, cond.N, 1, k_c),
+        live_steps=int((pk_c >= 0).sum()),
+        max_row_steps=int((pk_c >= 0).sum(axis=1).max()),
+        shapes={"N1": cond.N, "Nr": 1, "k_max": k_c, "B": 64})
+    inf_times["phase_s"] = time.perf_counter() - t_phase
+    print(f"  inference times (ms, CUDA events; the phase on the host "
+          f"clock, s): {json.dumps(inf_times)}")
+    return {"inference": inference, "times": inf_times, "phase2": times_c,
+            "launches": cond_launches, "agree": agree_cond}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -1076,6 +1374,15 @@ def main() -> None:
 
     # -- 9. the routes agree at the init -------------------------------------
     theta = theta_matrix_kron(L1, L2, batch)
+    # the dense Θ of the same batch and factors once more: the scatter's
+    # atomics may sum in another order
+    theta_again = theta_matrix_kron(L1, L2, batch)
+    theta_repeat = {
+        "entries_differing": int((theta != theta_again).sum()),
+        "max_abs_diff": float((theta - theta_again).abs().max()),
+        "max_abs": float(theta.abs().max()), "entries": theta.numel()}
+    del theta_again
+    print(f"dense Θ built twice, bitwise: {json.dumps(theta_repeat)}")
     A_k, C_k = AC_from_dense_theta(theta, L1, L2)
     A_r, C_r = AC_from_dense_theta(theta, L1, L2, backend="reference")
     A_s, C_s = accumulate_AC(L1, L2, batch)
@@ -1195,7 +1502,7 @@ def main() -> None:
         "fit_n": batch.n, "fit_k_max": batch.k_max,
         "backtracks": int(rep.state.sched.backtracks),
         "pt_shape": PT_SHAPES[0], "partial_trace_A": pt_times["A"],
-        "partial_trace_C": pt_times["C"]}
+        "partial_trace_C": pt_times["C"], "theta_repeat": theta_repeat}
 
     # -- 12. greedy-MAP and Kronecker-matvec kernels vs plain ----------------
     from repro_torch.kernels import greedy_map as gm
@@ -1416,7 +1723,10 @@ def main() -> None:
     sel_times["svc_sample_kdpp16_median_ms"] = float(np.median(kreq))
     print(f"  selection times: {json.dumps(sel_times)}")
 
-    # -- 17. device times of every kernels row --------------------------------
+    # -- 17. the inference path ----------------------------------------------
+    inf = inference_path(main, guard, batch, fit_rows, gen, dev)
+
+    # -- 18. device times of every kernels row -------------------------------
     launch_us = [host_launch_us()]
     fill_device_times()
     launch_us.append(host_launch_us())
@@ -1428,7 +1738,7 @@ def main() -> None:
           f"{len(WINDOWS['lead_lost'])}, marks lost {WINDOWS['lead_lost']}")
 
     for t in (times[64], times[1], times["global"],
-              sel_times["kdpp_phase2"]):
+              sel_times["kdpp_phase2"], inf["phase2"]):
         t["per_step_ms"] = t["ms"] / t["max_row_steps"]
     row = {"name": "phase2_select", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/phase2_select.cu",
@@ -1436,10 +1746,11 @@ def main() -> None:
            "launches": launches,
            "max_abs_err": max(a["max_boundary_gap"] for a in
                               [*agree.values(), *edges, agree_main,
-                               agree_kdpp]),
+                               agree_kdpp, inf["agree"]]),
            **times[64], "agree_rows": agree[64]["agree_rows"],
            "b1": times[1], "agree_rows_b1": agree[1]["agree_rows"],
            "global_300x300_b8": times["global"],
+           "global_dense_9995_b64": inf["phase2"],
            "agree_rows_main_path": agree_main["agree_rows"],
            "card": card, "power_limit": power_limit}
     pt_rows = [{"name": f"partial_trace_{k}", "route": "cuda",
@@ -1476,11 +1787,17 @@ def main() -> None:
               "card": card, "power_limit": power_limit}
     row["launches_kdpp"] = kdpp_launches
     row["agree_rows_kdpp"] = agree_kdpp["agree_rows"]
+    row["launches_inference"] = inf["launches"]
+    row["agree_rows_inference"] = inf["agree"]["agree_rows"]
     learn_timing["host_launch_us_before_after_profiler"] = launch_us
     print(json.dumps({"learning_timing": learn_timing, "card": card,
                       "power_limit": power_limit}))
     print(json.dumps({"selection_timing": sel_times, "eigvec": eig,
                       "kdpp_marginal_err": kdpp_marg_err, "card": card,
+                      "power_limit": power_limit}))
+    inf["times"]["phase2_global_dense_9995_b64"] = inf["phase2"]
+    print(json.dumps({"inference_timing": inf["times"],
+                      "inference": inf["inference"], "card": card,
                       "power_limit": power_limit}))
     print(json.dumps({"kernels": [row, *pt_rows, gm_row, km_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,

@@ -1,6 +1,7 @@
 """Full (unstructured) DPP operations (port of ``repro/core/dpp.py``):
 subset batches, masked submatrix inverses and log-determinants, the
-log-likelihood, Θ, and the marginal-kernel oracle.
+log-likelihood, Θ and the Picard gradient, and the brute-force and
+marginal-kernel oracles.
 
 A DPP over ground set {0..N-1} with L-ensemble kernel L:
     P(Y) = det(L_Y) / det(L + I)                                   (paper Eq. 2)
@@ -12,6 +13,7 @@ batch as a leading dimension.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -155,6 +157,31 @@ def theta_matrix(L: torch.Tensor, batch: SubsetBatch) -> torch.Tensor:
     inv, _ = masked_inv_and_logdet(
         gather_submatrix(L, batch.indices, batch.mask))
     return scatter_theta(L.shape[0], batch.indices, batch.mask, inv)
+
+
+def picard_delta(L: torch.Tensor, batch: SubsetBatch) -> torch.Tensor:
+    """Delta = Theta - (L + I)^{-1}  (paper Eq. 4)."""
+    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+    return theta_matrix(L, batch) - torch.linalg.solve(L + eye, eye)
+
+
+# ---------------------------------------------------------------------------
+# Brute-force oracles (tests only; N <= ~12)
+# ---------------------------------------------------------------------------
+
+def enumerate_probabilities(L) -> dict:
+    """Exact P(Y) for every subset Y (a sorted tuple), by enumeration in
+    float64 numpy; ``L`` is a tensor (any device) or an array."""
+    if isinstance(L, torch.Tensor):
+        L = L.detach().cpu().numpy()
+    L = np.asarray(L, np.float64)
+    N = L.shape[0]
+    Z = np.linalg.det(L + np.eye(N))
+    out = {}
+    for k in range(N + 1):
+        for Y in itertools.combinations(range(N), k):
+            out[Y] = (np.linalg.det(L[np.ix_(Y, Y)]) if k else 1.0) / Z
+    return out
 
 
 def marginal_kernel(L: np.ndarray) -> np.ndarray:

@@ -8,10 +8,11 @@
     the paper's Kronecker kernel L = L_1 ⊗ ... ⊗ L_m.
 
 Everything dispatches through the spectrum: per-factor eigendecompositions
-held in a ``SpectralCache``, the product spectrum folded in log space. The
-port runs on one card; the JAX package's ``runtime=`` placement is not
-ported. Operations not ported yet raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+held in a ``SpectralCache``, the product spectrum folded in log space. Every
+call runs where the model's factors live. The port runs on one card; the
+JAX package's ``runtime=`` placement is not ported. Operations not ported
+yet raise ``NotImplementedError`` naming the ROADMAP.md item that ports
+them.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from .._device import DeviceLike, as_float, resolve_device
 from ..core.dpp import SubsetBatch
+from ..core.kron import split_indices_multi
 from ..core.krondpp import KronDPP, random_krondpp
 from ..kernels import ops as kernel_ops
 from ..sampling.batched import sample_krondpp_batched
@@ -39,6 +42,18 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1: "
         f"{item})")
+
+
+def _as_index_set(idx, n: int, device: torch.device) -> torch.Tensor:
+    """Validate and canonicalize a host-side index set: 1-D, in range,
+    deduplicated (inclusion events have set semantics). Returns sorted
+    int64 indices on ``device``."""
+    arr = np.atleast_1d(np.asarray(idx, np.int64))
+    if arr.ndim != 1:
+        raise ValueError(f"index set must be scalar or 1-D, got {arr.shape}")
+    if arr.size and (arr.min() < 0 or arr.max() >= n):
+        raise ValueError(f"indices out of range [0, {n}): {idx!r}")
+    return torch.from_numpy(np.unique(arr)).to(device)
 
 
 def _picks_to_subsets(picks: torch.Tensor,
@@ -145,6 +160,96 @@ class DPPModel:
         ``k_max=``, ``max_batch=``, ``device=`` (default "cuda")."""
         return SamplingService(self, **kwargs)
 
+    # -- likelihood ---------------------------------------------------------
+    def log_prob(self, batch: SubsetBatch,
+                 cache: Optional[SpectralCache] = None) -> torch.Tensor:
+        """(n,) log P(Y_i) = log det(L_{Y_i}) - log det(L + I) for a padded
+        subset batch, on the model's device (the batch is moved there):
+        the subset log-determinants off the factors, the normalizer
+        Σ logaddexp(log λ, 0) off the log-space product spectrum. The
+        N x N kernel is never materialized."""
+        from ..learning.objective import subset_logdets_factored
+        dev = self.device
+        batch = SubsetBatch(batch.indices.to(dev), batch.mask.to(dev))
+        ll = self.spectrum(cache).log_eigenvalues()
+        log_z = torch.logaddexp(ll, torch.zeros_like(ll)).sum()
+        return subset_logdets_factored(self.factors, batch) - log_z
+
+    def log_likelihood(self, batch: SubsetBatch,
+                       cache: Optional[SpectralCache] = None
+                       ) -> torch.Tensor:
+        """Mean log P(Y_i) over the batch (the learners' objective phi)."""
+        return self.log_prob(batch, cache).mean()
+
+    # -- marginals ----------------------------------------------------------
+    def marginal_kernel_submatrix(self, idx,
+                                  cache: Optional[SpectralCache] = None
+                                  ) -> torch.Tensor:
+        """K[idx, idx] for the marginal kernel K = L(L+I)^{-1}, gathered
+        from the factored spectrum in O(k² N) without forming K:
+        K[a,b] = Σ_g σ(log λ_g) · Π_f P_f[a_f, g_f] P_f[b_f, g_f],
+        contracted one factor at a time (the first factor's broadcast
+        product is (k, k, N) floats). Indices are validated and
+        deduplicated (set semantics)."""
+        spec = self.spectrum(cache)
+        idx = _as_index_set(idx, self.N, spec.device)
+        parts = split_indices_multi(idx, spec.sizes)
+        T = torch.sigmoid(spec.log_eigenvalues()).reshape(
+            (1, 1) + spec.sizes)
+        for V, p in zip(spec.vecs, parts):
+            R = V[p, :]                          # (k, N_f)
+            E = R[:, None, :] * R[None, :, :]    # (k, k, N_f)
+            E = E.reshape(E.shape + (1,) * (T.ndim - 3))
+            T = (E * T).sum(dim=2)               # contract factor f's axis
+        return T
+
+    def marginal(self, idx, cache: Optional[SpectralCache] = None
+                 ) -> torch.Tensor:
+        """P(idx ⊆ Y) = det(K_idx): a scalar index gives the singleton
+        inclusion probability K_ii, an index set the joint inclusion
+        probability (0-d tensor on the model's device)."""
+        K_sub = self.marginal_kernel_submatrix(idx, cache)
+        if K_sub.shape[0] == 1:
+            return K_sub[0, 0]
+        return torch.linalg.det(K_sub)
+
+    # -- conditioning -------------------------------------------------------
+    def condition(self, observed, max_dense: int = MAX_DENSE_N
+                  ) -> "DPPModel":
+        """The conditional DPP given ``observed ⊆ Y`` (Kulesza & Taskar
+        closure): an L-ensemble over the complement ground set with the
+        Schur-complement kernel L' = L_Ā - L_{Ā,A} L_A^{-1} L_{A,Ā}, as a
+        ``Dense`` model on this model's device.
+
+        Item i of the returned model is the i-th element of
+        ``sorted(set(range(N)) - set(observed))``. An empty ``observed``
+        returns ``self``. Kron kernels take the dense Schur complement
+        behind the ``max_dense`` guard (the complement of a product index
+        set is not a product set). Raises ``ValueError`` when L_A is
+        singular (P(A ⊆ Y) = 0).
+        """
+        A = _as_index_set(observed, self.N, self.device)
+        if A.numel() == 0:
+            return self
+        L = self.dense_kernel(max_dense)
+        keep = torch.ones(self.N, dtype=torch.bool, device=L.device)
+        keep[A] = False
+        comp = torch.nonzero(keep).squeeze(1)
+        L_cA = L[comp[:, None], A[None, :]]
+        # torch.linalg.cholesky raises on a matrix that is not PD, where
+        # jnp.linalg.cholesky returns NaN: cholesky_ex reports it in info
+        chol, info = torch.linalg.cholesky_ex(L[A[:, None], A[None, :]])
+        if int(info) != 0 or not bool(torch.isfinite(chol).all()):
+            # det(L_A) = 0: P(A ⊆ Y) = 0, the conditional is undefined —
+            # fail loudly instead of returning an all-NaN model
+            raise ValueError(
+                f"cannot condition on {observed!r}: L_A is singular "
+                f"(P(A ⊆ Y) = 0 — e.g. linearly dependent items of a "
+                f"rank-deficient kernel)")
+        X = torch.cholesky_solve(L_cA.T, chol)  # L_A^{-1} L_{A,Ā}
+        schur = L[comp[:, None], comp[None, :]] - L_cA @ X
+        return Dense(0.5 * (schur + schur.T), device=L.device)
+
     # -- MAP ----------------------------------------------------------------
     def map(self, k: int, max_dense: int = MAX_DENSE_N) -> torch.Tensor:
         """Greedy MAP subset of size k (Chen et al. 2018 fast greedy,
@@ -156,22 +261,11 @@ class DPPModel:
 
     # -- not ported yet -----------------------------------------------------
     def serving(self, config=None, **kwargs):
-        _not_ported("serving (the async tier)", "PRNG twin and serving")
-
-    def log_prob(self, batch: SubsetBatch, cache=None):
-        _not_ported("log_prob", "log_prob, marginal and condition")
-
-    def log_likelihood(self, batch: SubsetBatch, cache=None):
-        _not_ported("log_likelihood", "log_prob, marginal and condition")
-
-    def marginal(self, idx, cache=None):
-        _not_ported("marginal", "log_prob, marginal and condition")
-
-    def condition(self, observed, max_dense: int = MAX_DENSE_N):
-        _not_ported("condition", "log_prob, marginal and condition")
+        _not_ported("serving (the async tier)",
+                    "serving/ and the obs exporters")
 
     def fit(self, batch: SubsetBatch, algorithm=None, **fit_kwargs):
-        _not_ported("fit of a Dense model (EM)", "learning: EM")
+        _not_ported("fit of a Dense model (EM)", "The rest of learning")
 
     # -- subclass hooks -----------------------------------------------------
     def _wrap_factors(self, factors: Tuple[torch.Tensor, ...]

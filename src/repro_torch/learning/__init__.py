@@ -17,8 +17,9 @@ schedules.py  step-size policies for ``a``: constant, a0/sqrt(1+t), and
               Thm 3.2; one host sync per trial).
 api.py        ``fit(model, batch, algorithm=..., ...)`` on one device.
 
-Not ported yet (ROADMAP.md queue 1 #8): EM and joint Picard (so
-``log_likelihood_eig``), checkpoint save/resume, the mesh placement.
+Not ported yet (ROADMAP.md queue 1, "The rest of learning" and
+"Placement"): EM and joint Picard (so ``log_likelihood_eig``), checkpoint
+save/resume, the mesh placement.
 """
 
 from . import schedules

@@ -50,7 +50,7 @@ class FitReport:
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1 "
+        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1: "
         f"{item})")
 
 
@@ -99,16 +99,16 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
         Raises ``RuntimeError`` for "cuda" (the default) without a card.
     """
     if algorithm == "lowrank":
-        _not_ported("fit(algorithm='lowrank')", "#10: lowrank/")
+        _not_ported("fit(algorithm='lowrank')", "lowrank/")
     if mesh is not None or runtime is not None:
         _not_ported("fit(runtime=/mesh=): placements other than one device",
-                    "#12: Placement")
+                    "Placement")
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm must be one of {ALGORITHMS}, "
                          f"got {algorithm!r}")
     if checkpoint_dir is not None or resume:
         _not_ported("fit(checkpoint_dir=/resume=)",
-                    "#8: Learning, checkpoint/manager.py")
+                    "The rest of learning, checkpoint/manager.py")
     dev = resolve_device(device)
     if algorithm == "krk" and minibatch_size is not None:
         algorithm = "krk-stochastic"   # a minibatch request IS stochastic

@@ -133,7 +133,8 @@ class LearningEngine:
         if algorithm in ("em", "joint"):
             raise NotImplementedError(
                 f"algorithm {algorithm!r} is not ported to repro_torch yet "
-                f"(ROADMAP.md, queue 1 #8: EM and joint Picard)")
+                f"(ROADMAP.md, queue 1: The rest of learning, EM and joint "
+                f"Picard)")
         self.algorithm = algorithm
         self.schedule = schedule
         self.minibatch_size = minibatch_size

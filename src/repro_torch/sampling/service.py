@@ -220,7 +220,7 @@ class SamplingService:
     def draw_keyed(self, row_keys):
         raise NotImplementedError(
             "SamplingService.draw_keyed needs the threefry PRNG twin "
-            "(ROADMAP.md, queue 1: PRNG twin and serving)")
+            "(ROADMAP.md, queue 1: PRNG twin)")
 
     # -- batching core ------------------------------------------------------
     def _round_up(self, n: int) -> int:

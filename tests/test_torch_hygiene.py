@@ -36,7 +36,8 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
             "repro_torch.learning, repro_torch.learning.api, "
             "repro_torch.dpp.functional, repro_torch.sampling.kdpp, "
             "repro_torch.core.sampling, repro_torch.kernels.greedy_map, "
-            "repro_torch.kernels.kron_matvec\n"
+            "repro_torch.kernels.kron_matvec, repro_torch.core.kron, "
+            "repro_torch.core.clustering, repro_torch.core.dpp\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"

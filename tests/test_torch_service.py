@@ -166,10 +166,10 @@ def test_facade_sample_returns_subset_batch_with_provenance():
 
 
 @pytest.mark.parametrize("call", [
-    lambda m, g: m.log_likelihood(None),
-    lambda m, g: m.log_prob(None),
-    lambda m, g: m.marginal(0),
-    lambda m, g: m.condition([0]),
+    lambda m, g: m.fit(None, algorithm="joint", device="cpu"),
+    lambda m, g: m.fit(None, algorithm="lowrank", device="cpu"),
+    lambda m, g: m.fit(None, resume=True, device="cpu"),
+    lambda m, g: m.fit(None, runtime=object(), device="cpu"),
     lambda m, g: dpp.from_kernel(m.dense_kernel(), device="cpu").fit(None),
     lambda m, g: m.fit(None, algorithm="em", device="cpu"),
     lambda m, g: m.serving(),
