@@ -6,11 +6,11 @@ Phases, in order, none of them guarded by a try: any failure exits
 non-zero and prints no result line.
 
 1. environment: torch/CUDA versions, the card's name and power limit;
-2. build: nvcc compiles the four sources of
+2. build: nvcc compiles the five sources of
    ``src/repro_torch/kernels/csrc/`` (phase2_select, partial_trace,
-   greedy_map, kron_matvec), one process each, started together, into
-   ``build/kernels/``; the ``-Xptxas -v`` lines give registers and shared
-   memory;
+   greedy_map, kron_matvec, threefry), one process each, started together,
+   into ``build/kernels/``; the ``-Xptxas -v`` lines give registers and
+   shared memory;
 3. the phase-2 kernel against its plain PyTorch version on the card, at
    the main path's shapes (N = 100 x 100, E|Y| = 20, B = 1 and 64) and at
    the edges (m = 1, m = 3, degenerate columns), on the same uniforms, all
@@ -21,23 +21,25 @@ non-zero and prints no result line.
    from 3000 draws against diag K;
 5. the main path: ``dpp.random_kron(gen, (100, 100)).rescale(20.0)``,
    ``model.service(seed=0)``, tickets of 1, 4, 16, 64 and 200 samples,
-   one flush; the kernel's launch count and the
-   ``kernels.phase2_select.cuda`` counter are reset just before and read
-   just after. The flush's own launch (285 rows served of one call at
-   B = 512) is then held against the plain version: the flush's uniforms
-   are replayed from the service generator's saved state;
+   one flush; the launch counts of phase 2 and ``threefry2x32`` and the
+   ``kernels.*.cuda`` counters are reset just before and read just after.
+   The flush's own launch (285 rows served of one call at B = 512) is then
+   held against the plain version: the flush's uniforms are replayed from
+   the service key saved before it through the plain PRNG twin on the card
+   (bit for bit the kernel's uniforms from the same key);
 6. times of the phase-2 kernel and its plain version (``kernel_times``:
    device time from ``torch.profiler`` and CUDA events around a loop;
    each call one ``phase2_select_kernel_onchip`` and nothing else), the
    bound on the whole card and the longest row's on one SM, the time per
    step of the longest row; the global route's time at 300 x 300; the
    DPP's phase 1 alone (uniforms, phase 1 and the column gather) at B = 16
-   and 64; one ``svc.sample(16)`` request on the host clock;
+   and 64, from a generator and from a key (``keyed_*``); one
+   ``svc.sample(16)`` request on the host clock;
 7. the partial-trace kernels (``csrc/partial_trace.cu``) against their
    plain versions on random non-symmetric Θ, L1, L2 at N1 x N2 = 100 x 100
    (the main shape), 64 x 150 and 7 x 13;
-8. data for the fit: n = 1000 subsets drawn through the service of the
-   phase-5 model (E|Y| = 20, N = 100 x 100); the init is a second
+8. data for the fit: n = 1000 subsets drawn through the (keyed) service
+   of the phase-5 model (E|Y| = 20, N = 100 x 100); the init is a second
    ``random_kron(gen2, (100, 100))`` (paper §5.1);
 9. at the init, on the full batch, the A and C of the dense route through
    the kernels, of the dense route through the plain versions
@@ -89,7 +91,8 @@ non-zero and prints no result line.
    ``kron_matvec`` launch (counted), VᵀV = I on the valid columns, equal to
    the gather route run by hand on the card;
 15. the k-DPP path at full width: ``main.sample(gen, 64, k=20)`` and
-   ``svc.sample_kdpp(20, 16)``, one phase-2 launch each (counted); every
+   ``svc.sample_kdpp(20, 16)`` (from the service key), one phase-2
+   launch each (counted); every
    row 20 distinct items; the model call's own launch held against
    ``phase2_select_plain`` on its replayed phase-1 output; inclusion
    frequencies of 3000 k = 2 draws of a (2, 3) kernel through the kernel
@@ -121,7 +124,24 @@ non-zero and prints no result line.
    batch, ``marginal`` of 20 items, ``condition``, the conditioned model's
    first ``spectrum`` (eigh of 9995²) and ``cond.sample(gen, 64)``;
    ``kernel_times`` of its phase 2;
-18. the device times of every ``kernels`` row (``fill_device_times``),
+18. keyed randomness at full width: the ``threefry2x32`` kernel
+   (``csrc/threefry.cu``) against the plain PRNG twin on the card, bit for
+   bit, in every mode (``split``, ``fold_in``, ``bits``, ``uniform`` with
+   and without bounds) for 1 and 512 keys over shapes (0,), (), (1,),
+   (7,), (10^4,) and one key's (64, 10^4) and (512, 10^4); both against
+   ``GOLDEN``, jax.random's own values; ``main.sample(PRNGKey(1), 64)``
+   and ``(..., k=20)`` through the kernels (launches counted), their
+   uniforms bit for bit the plain twin's and their picks the plain phase
+   2's; ``svc.draw_keyed`` of 512 keys from a ``TenantKeyring`` (three
+   tenants, tickets of 1, 4, 16, 64 and 200 rows, pad rows) in one chunk
+   and in chunks of 64, the same rows (one phase-2 launch a chunk,
+   counted); three ``krk-stochastic`` sweeps of minibatch 100 on the
+   phase-8 batch, each sweep's minibatch key and indices the plain twin's
+   on the CPU (9 ``threefry2x32`` launches); ``kernel_times`` of the kernel,
+   the plain twin and ``torch.rand`` (another generator, for scale) at
+   16, 64 and 512 rows of 10^4 uniforms, beside the bound; the 285-row
+   flush on the host clock;
+19. the device times of every ``kernels`` row (``fill_device_times``),
    after every host-clock time above, with the host's time of one small
    launch before and after the profiler sessions.
 
@@ -179,6 +199,10 @@ eigenvalues, and these err by about 1e-3 against float64 (printed beside
 it), for |rhs| of 20 to 40. Conditioned marginals: atol 0.045 at 3000
 draws, as tests/test_dpp_facade.py.
 
+PRNG: the kernel and the plain twin agree bit for bit, and both equal
+jax.random's literal values: a slip of one bit gives draws that are
+statistically fine and wrong, so no distribution stands in for them.
+
 Partial traces, kernel against plain version on the same Θ: elementwise
 ``|kernel - plain| <= 1e-4 * (the same contraction over |Θ| and |L|) +
 1e-7``, because the two sum N2² or N1² float32 terms in other orders.
@@ -193,15 +217,17 @@ moves them by 2e-5 to 4e-5 (20 x 20 and 50 x 50); on the card the scatter
 into Θ also runs in atomics.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
-are the kernel table (all five kernels) and the timing lines as JSON,
+are the kernel table (all six kernels) and the timing lines as JSON,
 each with the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -213,6 +239,22 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+# jax.random's own values (threefry2x32, jax_threefry_partitionable on, x64
+# off), typed in because this script may not import jax;
+# tests/test_torch_random.py holds them against jax.random
+GOLDEN = {
+    "prng_key": {0: [0, 0], -1: [0, 4294967295],
+                 2 ** 31 + 5: [0, 2147483653]},
+    "split_0_4": [[1797259609, 2579123966], [928981903, 3453687069],
+                  [4146024105, 2718843009], [2467461003, 3840466878]],
+    "fold_in_3_5": [2464363587, 131619366],
+    "uniform_7_8_bits": [0x3F2C9128, 0x3F79807E, 0x3E9B0E50, 0x3EE34E88,
+                         0x3F3B1B62, 0x3F21849A, 0x3EE5A864, 0x3ED2ADA8],
+    "choice_2_1000_32": [135, 543, 783, 164, 965, 319, 792, 83, 387, 754,
+                         107, 91, 593, 503, 52, 58, 2, 379, 450, 951, 614,
+                         744, 238, 156, 719, 659, 501, 59, 984, 467, 73,
+                         536],
+}
 FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12      # H100 SXM bf16 tensor cores, dense
 HBM_BYTES_S = 3.35e12    # H100 SXM HBM3
@@ -333,16 +375,40 @@ def compare_picks(pk_np, pp_np, us, k_eff, G1, Gr, label: str,
 
 
 def phase1_inputs(spec, k_max: int, B: int, gen):
-    from repro_torch.kernels.phase2_select import canonical_pair
-    from repro_torch.sampling.batched import _phase1_from_uniforms
     dev = spec.device
     u = torch.rand((B, spec.N), generator=gen, device=dev)
     us = torch.rand((B, k_max), generator=gen, device=dev)
+    return phase1_of(spec, k_max, u, us)
+
+
+def phase1_of(spec, k_max: int, u, us):
+    """Phase 2's inputs (us, k_eff, G1, Gr), contiguous, from the
+    uniforms u (B, N) and us (B, k_max)."""
+    from repro_torch.kernels.phase2_select import canonical_pair
+    from repro_torch.sampling.batched import _phase1_from_uniforms
     us, Gs, k_eff, _ = _phase1_from_uniforms(u, us, spec.lams, spec.vecs,
                                              k_max)
     G1, Gr = canonical_pair(Gs)
     return us.contiguous(), k_eff.contiguous(), G1.contiguous(), \
         Gr.contiguous()
+
+
+def plain_row_uniforms(row_keys, N: int, k: int):
+    """A row key's phase-1 and phase-2 uniforms through the plain twin
+    (``keyed_uniforms`` with ``backend="reference"``)."""
+    from repro_torch import random as prng
+    sub = prng.split(row_keys, backend="reference")
+    return (prng.uniform(sub[:, 0], (N,), backend="reference"),
+            prng.uniform(sub[:, 1], (k,), backend="reference"))
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes, dtypes and bits (floats compared as their words)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
 
 
 # ---------------------------------------------------------------------------
@@ -1161,6 +1227,279 @@ def inference_path(main, guard, batch, fit_rows, gen, dev) -> dict:
             "launches": cond_launches, "agree": agree_cond}
 
 
+# ---------------------------------------------------------------------------
+# phase 18 helpers: keyed randomness
+# ---------------------------------------------------------------------------
+
+INT32_OPS_S = SMS * 64 * 1.98e9   # H100 SXM INT32 lanes x SMs x boost clock
+TF_UNIFORM_OPS = 80      # int32 operations a uniform: 77 hash, 3 conversion
+TF_COUNTERS = 10_000     # uniforms a row: N of the main model
+TF_SHAPES = ((0,), (), (1,), (7,), (TF_COUNTERS,))
+TF_BIG = ((64, TF_COUNTERS), (512, TF_COUNTERS))   # one key's 2-D draws
+Ticket = collections.namedtuple("Ticket", "tenant seq num_samples")
+
+
+def tf_bound(R: int, n: int):
+    """Least time of R x n float32 uniforms: the integer operations over
+    the card's INT32 issue rate, or the keys read and the floats written
+    over HBM, whichever is larger."""
+    t_ops = TF_UNIFORM_OPS * R * n / INT32_OPS_S
+    t_bytes = (16 * R + 4 * R * n) / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_twin_bits(dev) -> dict:
+    """Phase 18, bits: every mode of the ``threefry2x32`` kernel against
+    the plain twin on the card, bit for bit, for 1 and 512 keys over
+    ``TF_SHAPES`` (and one key's ``TF_BIG``); both against ``GOLDEN``.
+    Returns the cases held and the largest |kernel - plain| of the
+    uniforms (0 when bitwise)."""
+    from repro_torch import random as prng
+    cases, err = 0, 0.0
+    for R in (1, 512):
+        keys = prng.split(prng.PRNGKey(R, dev), R)
+        data = (torch.arange(R, dtype=torch.int64, device=dev)
+                * 2654435761) & 0xFFFFFFFF
+        check(same_bits(prng.fold_in(keys, data),
+                        prng.fold_in(keys, data, "reference")),
+              f"threefry2x32 fold_in, {R} keys: kernel and plain differ")
+        cases += 1
+        fns = {"split": lambda b, shape: prng.split(keys, shape, b),
+               "bits": lambda b, shape: prng.bits(keys, shape, b),
+               "uniform": lambda b, shape: prng.uniform(keys, shape,
+                                                        backend=b),
+               "uniform_bounds": lambda b, shape: prng.uniform(
+                   keys, shape, -3.0, 2.5, backend=b),
+               "split_uniform": lambda b, shape: torch.cat(
+                   prng.split_uniform(keys, math.prod(shape), 46,
+                                      backend=b), dim=-1)}
+        for shape in TF_SHAPES + (TF_BIG if R == 1 else ()):
+            for name, fn in fns.items():
+                got, want = fn(None, shape), fn("reference", shape)
+                check(same_bits(got, want), f"threefry2x32 {name}, {R} keys, "
+                      f"shape {shape}: kernel and plain twin differ")
+                if got.is_floating_point() and got.numel():
+                    err = max(err, float((got - want).abs().max()))
+                cases += 1
+    for b in (None, "reference"):
+        def key(s):
+            return prng.PRNGKey(s, dev)
+        for seed, words in GOLDEN["prng_key"].items():
+            check(prng.key_data(key(seed)).tolist() == words,
+                  f"PRNGKey({seed}) is not JAX's {words}")
+        check(prng.key_data(prng.split(key(0), 4, b)).tolist()
+              == GOLDEN["split_0_4"], f"split(PRNGKey(0), 4), {b}")
+        check(prng.key_data(prng.fold_in(key(3), 5, b)).tolist()
+              == GOLDEN["fold_in_3_5"], f"fold_in(PRNGKey(3), 5), {b}")
+        u = prng.uniform(key(7), (8,), backend=b)
+        check(u.view(torch.int32).cpu().numpy().astype(np.uint32).tolist()
+              == GOLDEN["uniform_7_8_bits"], f"uniform(PRNGKey(7), 8), {b}")
+        check(prng.choice(key(2), 1000, (32,), replace=False, backend=b)
+              .cpu().tolist() == GOLDEN["choice_2_1000_32"],
+              f"choice(PRNGKey(2), 1000, 32), {b}")
+        cases += 5
+    out = {"cases": cases, "max_abs_err": err}
+    print(f"threefry2x32, kernel vs plain twin and the golden values: "
+          f"{json.dumps(out)}")
+    return out
+
+
+def counted(fn, tracker_name: str = ""):
+    """Run ``fn`` with the phase-2 and threefry2x32 launch counts set to 0
+    just before and read just after, under a fresh tracker. Returns
+    (fn's result, {"phase2_select": n, "threefry2x32": n})."""
+    import repro_torch.obs as obs
+    from repro_torch.kernels import phase2_select as p2
+    from repro_torch.kernels import threefry as tf
+    tracker = obs.InMemoryTracker()
+    p2.launches = 0
+    tf.threefry2x32_cuda.launches = 0
+    with obs.use(tracker):
+        out = fn()
+        torch.cuda.synchronize()
+    n = {"phase2_select": p2.launches,
+         "threefry2x32": tf.threefry2x32_cuda.launches}
+    for op, k in n.items():
+        c = {e: int(tracker.counter_value(f"kernels.{op}.{e}"))
+             for e in ("cuda", "reference")}
+        check(c == {"cuda": k, "reference": 0}, f"{tracker_name}: {op} "
+              f"launched {k} times, counted {c}")
+    return out, n
+
+
+def keyed_path(main, svc, batch, init, dev) -> dict:
+    """Phase 18: keyed randomness at full width on the phase-5 model."""
+    from repro_torch import random as prng
+    from repro_torch.kernels import phase2_select as p2
+    from repro_torch.kernels import threefry as tf
+    from repro_torch.learning import engine as eng
+    from repro_torch.learning import schedules
+    from repro_torch.sampling import kdpp as kd
+    from repro_torch.sampling.batched import (compact_selection,
+                                              gather_factor_columns,
+                                              keyed_uniforms)
+    from repro_torch.sampling.spectral import log_product_spectrum
+    from repro_torch.serving import TenantKeyring
+    out = {"bits": check_twin_bits(dev)}
+    spec, k_max, N = svc.spectrum, svc.k_max, svc.spectrum.N
+
+    # draws: model.sample(key, 64) and (key, 64, k=20) on the kernels,
+    # replayed through the plain twin and the plain phase 2
+    key1 = prng.PRNGKey(1, dev)
+    rk_p = prng.split(key1, 64, backend="reference")
+    u_p, us_p = plain_row_uniforms(rk_p, N, k_max)
+    u_k, us_k = keyed_uniforms(prng.split(key1, 64), N, k_max)
+    check(same_bits(u_k, u_p) and same_bits(us_k, us_p),
+          "model.sample's uniforms: kernel and plain twin differ")
+    b_dpp, n_dpp = counted(lambda: main.sample(key1, 64), "sample(key, 64)")
+    ins = phase1_of(spec, k_max, u_p, us_p)
+    pp = p2.phase2_select_plain(*ins).cpu().numpy()
+    pk = torch.where(b_dpp.mask, b_dpp.indices, -1).cpu().numpy()
+    out["sample64"] = {"launches": n_dpp, **compare_picks(
+        pk, pp, *ins, "keyed model.sample(key, 64)")}
+    check(n_dpp["phase2_select"] == 1 and n_dpp["threefry2x32"] > 0,
+          f"model.sample(key, 64) launched {n_dpp}")
+    b_k, n_k = counted(lambda: main.sample(key1, 64, k=20),
+                       "sample(key, 64, k=20)")
+    u_p, us_p = plain_row_uniforms(rk_p, N, 20)
+    mask = kd._phase1_kdpp_from_uniforms(u_p, log_product_spectrum(
+        spec.lams), 20)
+    sel, valid, _ = compact_selection(mask, 20)
+    G1, Gr = (G.contiguous() for G in p2.canonical_pair(
+        gather_factor_columns(spec.vecs, spec.sizes, sel, valid)))
+    ke = mask.sum(dim=1).to(torch.int32)
+    pp = p2.phase2_select_plain(us_p, ke, G1, Gr).cpu().numpy()
+    pk = torch.where(b_k.mask, b_k.indices, -1).cpu().numpy()
+    out["sample64_k20"] = {"launches": n_k, **compare_picks(
+        pk, pp, us_p, ke, G1, Gr, "keyed model.sample(key, 64, k=20)")}
+    check(n_k["phase2_select"] == 1 and n_k["threefry2x32"] > 0,
+          f"model.sample(key, 64, k=20) launched {n_k}")
+    for r in b_k.to_lists():
+        check(len(set(r)) == 20, f"a keyed k-DPP row is not 20 items: {r}")
+
+    # draw_keyed: 512 keys of three tenants from a keyring, in one chunk
+    # and in chunks of 64: the same rows, row for row
+    sizes = (1, 4, 16, 64, 200)
+    tickets = [Ticket(("alpha", "beta", "gamma")[i % 3], 10 + i, n)
+               for i, n in enumerate(sizes)]
+    ring = TenantKeyring(5, device=dev)
+    keys, n_ring = counted(lambda: ring.row_keys(tickets, 512),
+                           "TenantKeyring.row_keys")
+    check(tuple(keys.shape) == (512, 2) and n_ring["threefry2x32"] >= 2,
+          f"row_keys gave {tuple(keys.shape)}, launches {n_ring}")
+    svc64 = main.service(seed=0, max_batch=64)
+    (rows_1, trunc_1, col_1), n_1 = counted(lambda: svc.draw_keyed(keys),
+                                            "draw_keyed, one chunk")
+    (rows_64, trunc_64, col_64), n_64 = counted(
+        lambda: svc64.draw_keyed(keys), "draw_keyed, chunks of 64")
+    same = sum(a == b for a, b in zip(rows_1, rows_64))
+    out["draw_keyed"] = {"keys": 512, "served": sum(sizes),
+                         "identical_rows_vs_max_batch_64": same,
+                         "launches_one_chunk": n_1,
+                         "launches_chunks_of_64": n_64,
+                         "truncations": [trunc_1, trunc_64],
+                         "collapsed": [col_1, col_64],
+                         "keyring_launches": n_ring}
+    print(f"draw_keyed of 512 keys: {json.dumps(out['draw_keyed'])}")
+    check(same == 512 and (trunc_1, col_1) == (trunc_64, col_64),
+          f"draw_keyed is not invariant to max_batch: {same} of 512 rows")
+    check(n_1["phase2_select"] == 1 and n_64["phase2_select"] == 8,
+          f"draw_keyed launched phase 2 {n_1} / {n_64}, not 1 / 8")
+    for r in rows_1:
+        check(len(set(r)) == len(r) and all(0 <= i < N for i in r),
+              f"a keyed row is not distinct items in range: {r}")
+
+    # learning: three stochastic sweeps, minibatch 100 of the phase-8
+    # batch; the key each sweep drew its minibatch from, and the indices,
+    # against the plain twin's chain on the CPU
+    drawn = []
+    chosen = eng.select_minibatch
+
+    def recording(key, b, size):
+        drawn.append(key.clone())
+        return chosen(key, b, size)
+
+    eng.select_minibatch = recording
+    try:
+        rep, n_fit = counted(lambda: init.fit(
+            batch, algorithm="krk-stochastic", minibatch_size=100, iters=3,
+            log_every=3, seed=7, schedule=schedules.armijo(a0=1.5)),
+            "krk-stochastic fit")
+    finally:
+        eng.select_minibatch = chosen
+    key = prng.PRNGKey(7, "cpu")
+    same_idx = []
+    for k_sel in drawn:
+        key, k_cpu = prng.split(key)
+        want = prng.choice(k_cpu, batch.n, (100,), replace=False)
+        got = prng.choice(k_sel, batch.n, (100,), replace=False)
+        same_idx.append(bool(torch.equal(prng.as_key(k_sel).cpu(), k_cpu))
+                        and bool(torch.equal(got.cpu(), want)))
+    out["learning"] = {"sweeps": len(drawn), "minibatches_equal": same_idx,
+                       "launches": n_fit, "lls": rep.log_likelihoods}
+    print(f"krk-stochastic, 3 sweeps of 100: {json.dumps(out['learning'])}")
+    check(len(drawn) == 3 and all(same_idx), "the stochastic fit's "
+          f"minibatches are not the plain twin's: {same_idx}")
+    check(np.isfinite(rep.log_likelihoods).all(), "stochastic LL not finite")
+    check(n_fit["threefry2x32"] == 9, f"3 sweeps launched threefry2x32 "
+          f"{n_fit['threefry2x32']} times, not 9 (a split, and a choice's "
+          f"split and bits, each sweep)")
+    out["launches"] = {"sample64": n_dpp["threefry2x32"],
+                       "sample64_k20": n_k["threefry2x32"],
+                       "draw_keyed_512": n_1["threefry2x32"],
+                       "draw_keyed_512_by_64": n_64["threefry2x32"],
+                       "keyring_512": n_ring["threefry2x32"],
+                       "fit_3_sweeps": n_fit["threefry2x32"]}
+
+    # times: the kernel, the plain twin and torch.rand (another generator,
+    # for scale) at 16, 64 and 512 rows of 10^4 uniforms; the flush
+    tf_times = {}
+    n = TF_COUNTERS
+    for R in (16, 64, 512):
+        keys = prng.split(prng.PRNGKey(R, dev), R)
+        b_ms, b_by = tf_bound(R, n)
+        tf_times[R] = kernel_times(
+            partial(tf.threefry2x32_cuda, keys, n, "uniform"),
+            partial(tf.threefry2x32_plain, keys, n, "uniform"),
+            partial(torch.rand, (R, n), device=dev), reps=50,
+            plain_reps=5, expect="threefry2x32_kernel", sole=True,
+            bound_ms=b_ms, bound_by=b_by,
+            shapes={"keys": R, "counters": n, "mode": "uniform"})
+        print(f"  threefry2x32 {R} x 10^4: {json.dumps(tf_times[R])}")
+    # the fused split_uniform of the serving path: a request's 16 rows and
+    # a flush's 512 rows of 10^4 + 46 uniforms
+    for R in (16, 512):
+        keys = prng.split(prng.PRNGKey(R, dev), R)
+        b_ms, b_by = tf_bound(R, n + k_max)
+        tf_times[f"split_uniform_{R}"] = kernel_times(
+            partial(tf.threefry2x32_cuda, keys, n, "split_uniform",
+                    n2=k_max),
+            partial(tf.threefry2x32_plain, keys, n, "split_uniform",
+                    n2=k_max),
+            partial(torch.rand, (R, n + k_max), device=dev), reps=50,
+            plain_reps=5, expect="threefry2x32_split_uniform_kernel",
+            sole=True, bound_ms=b_ms, bound_by=b_by,
+            shapes={"keys": R, "counters": [n, k_max],
+                    "mode": "split_uniform"})
+        print(f"  threefry2x32 split_uniform {R} x (10^4 + {k_max}): "
+              f"{json.dumps(tf_times[f'split_uniform_{R}'])}")
+    out["times"] = tf_times
+    flush_ms = []
+    for _ in range(6):
+        tk = [svc.submit(n) for n in sizes]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.flush()
+        torch.cuda.synchronize()
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+        check(sum(len(t.result()) for t in tk) == 285, "flush rows")
+    out["flush285_ms"] = flush_ms[1:]
+    out["flush285_median_ms"] = float(np.median(flush_ms[1:]))
+    print(f"  the 285-row flush (ms, host clock): {flush_ms[1:]}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -1172,8 +1511,11 @@ def main() -> None:
     from repro_torch import dpp
     from repro_torch.core.dpp import marginal_kernel
     from repro_torch.kernels import _build
+    from repro_torch import random as prng
     from repro_torch.kernels import phase2_select as p2
+    from repro_torch.kernels import threefry as tf
     from repro_torch.sampling.batched import (gather_factor_columns,
+                                              keyed_uniforms,
                                               sample_krondpp_batched)
     from repro_torch.sampling.spectral import SpectralCache
 
@@ -1191,7 +1533,8 @@ def main() -> None:
 
     # -- 2. build: one nvcc per source, started together --------------------
     t0 = time.perf_counter()
-    sources = ("phase2_select", "partial_trace", "greedy_map", "kron_matvec")
+    sources = ("phase2_select", "partial_trace", "greedy_map", "kron_matvec",
+               "threefry")
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
@@ -1269,23 +1612,28 @@ def main() -> None:
 
     # -- 5. the main path ---------------------------------------------------
     tracker = obs.InMemoryTracker()
+    gen_main = torch.Generator(device=dev).manual_seed(1)
+    main = dpp.random_kron(gen_main, (100, 100)).rescale(20.0)
+    svc = main.service(seed=0)
+    tickets = [svc.submit(n) for n in (1, 4, 16, 64, 200)]
+    with svc._lock:                     # the flush's key, replayed below
+        flush_key = svc._key.clone()
     p2.launches = 0
+    tf.threefry2x32_cuda.launches = 0
     with obs.use(tracker):
-        gen_main = torch.Generator(device=dev).manual_seed(1)
-        main = dpp.random_kron(gen_main, (100, 100)).rescale(20.0)
-        svc = main.service(seed=0)
-        tickets = [svc.submit(n) for n in (1, 4, 16, 64, 200)]
-        with svc._lock:                 # the flush's uniforms, replayed below
-            flush_state = svc._generator.get_state()
         svc.flush()
         torch.cuda.synchronize()
     launches = p2.launches
+    tf_launches_flush = tf.threefry2x32_cuda.launches
     cuda_count = int(tracker.counter_value("kernels.phase2_select.cuda"))
+    tf_counts = {e: int(tracker.counter_value(f"kernels.threefry2x32.{e}"))
+                 for e in ("cuda", "reference")}
     rows = [r for t in tickets for r in t.result()]
     e_size = svc.spectrum.expected_size()
     print(f"main path: {len(rows)} rows, k_max {svc.k_max}, E|Y| "
           f"{e_size!r}, launches {launches}, kernels.phase2_select.cuda "
-          f"{cuda_count}, stats {svc.stats()}")
+          f"{cuda_count}, threefry2x32 launches {tf_launches_flush}, "
+          f"kernels.threefry2x32 {tf_counts}, stats {svc.stats()}")
     check(len(rows) == 285, f"service returned {len(rows)} rows, not 285")
     for r in rows:
         check(len(set(r)) == len(r), f"service row repeats an item: {r}")
@@ -1296,17 +1644,28 @@ def main() -> None:
     check(abs(mean_size - e_size) <= 1.0, "mean |Y| is not within 1 of E|Y|")
     check(launches > 0, "the main path never launched the phase-2 kernel")
     check(cuda_count > 0, "kernels.phase2_select.cuda was not counted")
+    check(tf_launches_flush > 0 and tf_counts["cuda"] == tf_launches_flush
+          and tf_counts["reference"] == 0, f"the flush launched threefry2x32 "
+          f"{tf_launches_flush} times, counted {tf_counts}")
     # the main path's own launch against the plain version: replay the
     # flush's draw (one call at the rounded-up batch) from the saved
-    # generator state, run phase 1 and the plain phase 2 on it, and hold
-    # the served rows against the plain rows of the same uniforms
+    # service key through the plain PRNG twin on the card (its uniforms
+    # bit for bit the kernel's), run phase 1 and the plain phase 2 on it,
+    # and hold the served rows against the plain rows of the same uniforms
     stats = svc.stats()
     check(stats["device_calls"] == 1, f"the flush made {stats} calls, not 1")
     B_main = stats["samples_drawn"]
-    replay = torch.Generator(device=dev)
-    replay.set_state(flush_state)
-    us_m, ke_m, G1_m, Gr_m = phase1_inputs(svc.spectrum, svc.k_max, B_main,
-                                           replay)
+    _, sub_m = prng.split(flush_key, backend="reference")
+    rk_plain = prng.split(sub_m, B_main, backend="reference")
+    u_p, us_p = plain_row_uniforms(rk_plain, svc.spectrum.N, svc.k_max)
+    u_k, us_k = keyed_uniforms(prng.split(prng.split(flush_key)[1], B_main),
+                               svc.spectrum.N, svc.k_max)
+    check(same_bits(u_k, u_p) and same_bits(us_k, us_p), "the flush's "
+          "uniforms from the kernel and from the plain twin differ")
+    print(f"main path replay: the flush's {B_main} x {svc.spectrum.N} and "
+          f"{B_main} x {svc.k_max} uniforms, kernel and plain twin, equal "
+          f"bit for bit")
+    us_m, ke_m, G1_m, Gr_m = phase1_of(svc.spectrum, svc.k_max, u_p, us_p)
     pp_m = p2.phase2_select_plain(us_m, ke_m, G1_m, Gr_m)[:len(rows)]
     pk_m = np.full((len(rows), svc.k_max), -1, dtype=np.int32)
     for b, r in enumerate(rows):
@@ -1340,9 +1699,16 @@ def main() -> None:
     # the DPP's phase 1 alone: the request's uniforms, the Bernoulli draw
     # and compaction, the factor-column gather (svc.sample(16) runs B = 16)
     phase1_ms = {}
+    key_t = prng.PRNGKey(11, dev)
     for B in (16, 64):
         phase1_ms[B] = cuda_ms(partial(phase1_inputs, spec, k_max, B, gen),
                                reps=20, warmup=2)
+        # the same from a key: the service's split, the rows' keys, their
+        # splits and two uniforms through threefry2x32, then phase 1
+        phase1_ms[f"keyed_{B}"] = cuda_ms(
+            lambda B=B: phase1_of(spec, k_max, *keyed_uniforms(
+                prng.split(prng.split(key_t)[1], B), spec.N, k_max)),
+            reps=20, warmup=2)
     print(f"  DPP phase 1 (ms, CUDA events): {json.dumps(phase1_ms)}")
     svc.sample(16)                              # warm the request path
     req = []
@@ -1726,7 +2092,10 @@ def main() -> None:
     # -- 17. the inference path ----------------------------------------------
     inf = inference_path(main, guard, batch, fit_rows, gen, dev)
 
-    # -- 18. device times of every kernels row -------------------------------
+    # -- 18. keyed randomness -------------------------------------------------
+    keyed = keyed_path(main, svc, batch, init, dev)
+
+    # -- 19. device times of every kernels row -------------------------------
     launch_us = [host_launch_us()]
     fill_device_times()
     launch_us.append(host_launch_us())
@@ -1799,7 +2168,33 @@ def main() -> None:
     print(json.dumps({"inference_timing": inf["times"],
                       "inference": inf["inference"], "card": card,
                       "power_limit": power_limit}))
-    print(json.dumps({"kernels": [row, *pt_rows, gm_row, km_row]}))
+    row["launches_keyed"] = {k: keyed[k]["launches"]["phase2_select"]
+                             for k in ("sample64", "sample64_k20")}
+    row["agree_rows_keyed"] = {k: keyed[k]["agree_rows"]
+                               for k in ("sample64", "sample64_k20")}
+    tf_row = {"name": "threefry2x32", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/threefry.cu",
+              "replaces": "no Pallas kernel: jax.random's threefry2x32, "
+                          "fused by XLA, drawn at "
+                          "src/repro/sampling/batched.py:240",
+              "launches": tf_launches_flush,
+              "launches_per_path": {"flush285": tf_launches_flush,
+                                    **keyed["launches"]},
+              "max_abs_err": keyed["bits"]["max_abs_err"],
+              "bitwise_cases": keyed["bits"]["cases"],
+              **keyed["times"][512],
+              "rows16": keyed["times"][16], "rows64": keyed["times"][64],
+              "split_uniform_rows16": keyed["times"]["split_uniform_16"],
+              "split_uniform_rows512": keyed["times"]["split_uniform_512"],
+              "card": card, "power_limit": power_limit}
+    print(json.dumps({"keyed_timing": {
+        "flush285_ms": keyed["flush285_ms"],
+        "flush285_median_ms": keyed["flush285_median_ms"],
+        "svc_sample16_ms": req, "svc_sample16_median_ms":
+            float(np.median(req)), "draw_keyed": keyed["draw_keyed"],
+        "learning": keyed["learning"]}, "card": card,
+        "power_limit": power_limit}))
+    print(json.dumps({"kernels": [row, *pt_rows, gm_row, km_row, tf_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,
                                  "svc_sample16_median_ms":
                                      float(np.median(req)),

@@ -1,7 +1,10 @@
 """Carry weights and state between the JAX package and the port as numpy
 arrays. Both packages can then sample from the *same* eigenvectors:
 ``eigh`` sign and degenerate-basis choices differ between LAPACK and
-cuSOLVER, so a spectrum is carried across rather than recomputed."""
+cuSOLVER, so a spectrum is carried across rather than recomputed. PRNG
+keys cross as their uint32 words (``key_from_numpy``/``key_to_numpy``):
+the port's ``repro_torch.random`` then draws the JAX package's numbers
+from them."""
 
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import numpy as np
 
 import torch
 
+from . import random as prng
 from ._device import DeviceLike, as_float, resolve_device
 from .core.dpp import SubsetBatch
 from .dpp.model import Kron
@@ -61,3 +65,16 @@ def factors_to_numpy(model) -> Tuple[np.ndarray, ...]:
     factors = model.factors if hasattr(model, "factors") else model
     return tuple(f.detach().cpu().numpy().astype(np.float32)
                  for f in factors)
+
+
+def key_from_numpy(key: np.ndarray, device: DeviceLike = "cuda"
+                   ) -> torch.Tensor:
+    """The port's PRNG key (..., 2) int64 on ``device`` from the JAX
+    package's uint32 key data (``np.asarray(jax_key)``)."""
+    return prng.as_key(np.asarray(key), resolve_device(device))
+
+
+def key_to_numpy(key: torch.Tensor) -> np.ndarray:
+    """The uint32 words (..., 2) of a port key, which
+    ``jnp.asarray(..., jnp.uint32)`` turns into the JAX package's key."""
+    return prng.key_data(key)

@@ -10,6 +10,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from .. import random as prng
 from .._device import FLOAT, DeviceLike, resolve_device
 from . import kron
 from .dpp import SubsetBatch, identity_padded, masked_inv_and_logdet
@@ -77,18 +78,30 @@ class KronDPP:
         return lds.mean() - self.logdet_L_plus_I()
 
 
-def random_krondpp(generator: torch.Generator, sizes: Sequence[int],
-                   device: DeviceLike = "cuda") -> KronDPP:
-    """Paper Sec. 5.1 init: L_i = X^T X + 1e-3 I with X ~ U[0, sqrt(2)].
+def random_krondpp(key, sizes: Sequence[int], device: DeviceLike = "cuda",
+                   scale: float = 1.0) -> KronDPP:
+    """Paper Sec. 5.1 init: L_i = X^T X + 1e-3 I with X ~ U[0, sqrt(2)],
+    times ``scale``.
 
-    X is drawn on the generator's device and the factors are moved to
-    ``device``."""
+    ``key``: a PRNG key (``repro_torch.random``, or the JAX package's uint32
+    key): per factor ``key, sub = split(key)``, X = uniform(sub, (s, s), 0,
+    sqrt 2) * scale, so a key builds the JAX package's factors (up to the
+    float32 roundoff of X^T X); X is drawn on ``device``. Or a
+    ``torch.Generator``: X is drawn with ``torch.rand`` on the generator's
+    device and moved to ``device``."""
     dev = resolve_device(device)
+    keyed = not isinstance(key, torch.Generator)
+    if keyed:
+        key = prng.as_key(key, dev)
     factors = []
     for s in sizes:
-        X = torch.rand((s, s), generator=generator, dtype=FLOAT,
-                       device=generator.device) * math.sqrt(2.0)
-        X = X.to(dev)
+        if keyed:
+            key, sub = prng.split(key)
+            X = prng.uniform(sub, (s, s), 0.0, math.sqrt(2.0)) * scale
+        else:
+            X = torch.rand((s, s), generator=key, dtype=FLOAT,
+                           device=key.device) * math.sqrt(2.0)
+            X = X.to(dev) * scale
         factors.append(X.T @ X + 1e-3 * torch.eye(s, dtype=FLOAT,
                                                   device=dev))
     return KronDPP(tuple(factors))

@@ -125,18 +125,21 @@ class DPPModel:
         return self._wrap_factors(tuple(f * gm for f in self.factors))
 
     # -- sampling -----------------------------------------------------------
-    def sample(self, generator: torch.Generator,
-               batch_shape: Union[int, Tuple[int, ...]] = (),
+    def sample(self, key, batch_shape: Union[int, Tuple[int, ...]] = (),
                k: Optional[int] = None, k_max: Optional[int] = None,
                cache: Optional[SpectralCache] = None,
                device: DeviceLike = "cuda") -> SubsetBatch:
         """Exact DPP (or, with ``k``, k-DPP) samples as a ``SubsetBatch``,
-        drawn on ``device`` from ``generator`` (which must live there).
-        ``batch_shape`` gives n = prod(shape) rows. DPP draws carry
-        ``truncated`` provenance and ``k_max`` overrides their phase-2
-        budget (default E|Y| + 6σ); k-DPP rows hold exactly k items (fewer,
-        -1 padded, below the kernel's rank). Phase 2 runs the CUDA kernel
-        on the card and its plain version on the CPU."""
+        drawn on ``device``.
+
+        key: a PRNG key (``repro_torch.random``, or the JAX package's uint32
+            key (2,)), moved to ``device``: the JAX package's rows for the
+            same key; or a ``torch.Generator`` living on ``device``.
+        batch_shape: n = prod(shape) rows. DPP draws carry ``truncated``
+            provenance and ``k_max`` overrides their phase-2 budget
+            (default E|Y| + 6σ); k-DPP rows hold exactly k items (fewer,
+            -1 padded, below the kernel's rank). Phase 2 runs the CUDA
+            kernel on the card and its plain version on the CPU."""
         dev = resolve_device(device)
         shape = (batch_shape,) if isinstance(batch_shape, int) \
             else tuple(batch_shape)
@@ -146,12 +149,12 @@ class DPPModel:
         spec = self.spectrum(cache).to(dev)
         if k is not None:
             # exact-k draws cannot overflow their k-slot budget
-            return _picks_to_subsets(sample_kdpp_batched(generator, spec,
-                                                         int(k), n))
+            return _picks_to_subsets(sample_kdpp_batched(key, spec, int(k),
+                                                         n))
         if k_max is None:
             k_max = spec.suggested_k_max()
-        picks, _, truncated = sample_krondpp_batched(generator, spec,
-                                                     int(k_max), n)
+        picks, _, truncated = sample_krondpp_batched(key, spec, int(k_max),
+                                                     n)
         return _picks_to_subsets(picks, truncated)
 
     def service(self, **kwargs) -> SamplingService:
@@ -346,9 +349,10 @@ def from_factors(*factors, device: DeviceLike = "cuda") -> Kron:
     return Kron(factors, device=device)
 
 
-def random_kron(generator: torch.Generator, sizes: Sequence[int],
-                device: DeviceLike = "cuda") -> Kron:
+def random_kron(key, sizes: Sequence[int], device: DeviceLike = "cuda",
+                scale: float = 1.0) -> Kron:
     """Paper Sec. 5.1 random init (L_i = X^T X + 1e-3 I,
-    X ~ U[0, sqrt(2)])."""
-    return Kron(random_krondpp(generator, tuple(sizes), device=device),
-                device=device)
+    X ~ U[0, sqrt(2)]) from a PRNG key (the JAX package's factors for the
+    same key) or a ``torch.Generator`` (``core.random_krondpp``)."""
+    return Kron(random_krondpp(key, tuple(sizes), device=device,
+                               scale=scale), device=device)

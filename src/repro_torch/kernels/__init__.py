@@ -6,6 +6,8 @@ partial_trace.py   Appendix-B contractions A and C of the dense Θ (KrK)
 greedy_map.py      one fast-greedy k-DPP MAP update step (``map``)
 kron_matvec.py     batched (A ⊗ B) x by the vec-trick (explicit
                    eigenvectors)
+threefry.py        the threefry2x32 counter hash of ``jax.random`` (every
+                   keyed draw; no Pallas counterpart)
 
 ``ops.py`` holds the dispatchers: a CUDA tensor goes to the kernel, a CPU
 tensor to the plain version. ``_build.py`` compiles a kernel with nvcc at

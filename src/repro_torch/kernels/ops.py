@@ -22,6 +22,7 @@ from .partial_trace import (partial_trace_A_cuda, partial_trace_A_plain,
                             partial_trace_C_cuda, partial_trace_C_plain)
 from .phase2_select import (canonical_pair, phase2_select_cuda,
                             phase2_select_plain)
+from .threefry import threefry2x32_cuda, threefry2x32_plain
 
 
 def _count_dispatch(op: str, engine: str) -> None:
@@ -43,6 +44,27 @@ def _resolve_backend(op: str, x: torch.Tensor, name: str,
                          f"{name} on {x.device}")
     _count_dispatch(op, backend)
     return backend
+
+
+# ---------------------------------------------------------------------------
+# threefry2x32 (the bits of every keyed draw, ``repro_torch.random``)
+# ---------------------------------------------------------------------------
+
+def threefry2x32(keys: torch.Tensor, n: int, mode: str,
+                 data: Optional[torch.Tensor] = None, minval: float = 0.0,
+                 maxval: float = 1.0, n2: int = 0,
+                 backend: Optional[str] = None):
+    """The threefry2x32 hash of each key row's counters 0..n-1 (or, in
+    mode "fold", of the pair (0, data[r])): keys (R, 2) int64 of uint32
+    words. ``mode`` and the shapes returned as in ``kernels.threefry``
+    ("split_uniform" returns two tensors, of n and n2 columns);
+    ``backend`` as for ``phase2_select``."""
+    if _resolve_backend("threefry2x32", keys, "keys",
+                        backend) == "reference":
+        return threefry2x32_plain(keys, n, mode, data, minval, maxval, n2)
+    return threefry2x32_cuda(
+        keys.contiguous(), n, mode,
+        None if data is None else data.contiguous(), minval, maxval, n2)
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,8 @@ def _factors(model, algorithm: str):
 def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
         a: float = 1.0, schedule: Optional[schedules_mod.Schedule] = None,
         minibatch_size: Optional[int] = None, seed: int = 0,
-        generator: Optional[torch.Generator] = None, log_every: int = 1,
+        key=None, generator: Optional[torch.Generator] = None,
+        log_every: int = 1,
         track_ll: bool = True, ll_mode: Optional[str] = None,
         use_dense_theta: bool = False, fresh_theta: bool = True,
         checkpoint_dir: Optional[str] = None, resume: bool = False,
@@ -80,9 +81,11 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
     algorithm: "krk" (batch Alg. 1) or "krk-stochastic" (minibatch
         sweeps); a ``minibatch_size`` turns "krk" into "krk-stochastic".
     schedule: a ``schedules.Schedule``; default ``constant(a)``.
-    seed / generator: the minibatch stream — a ``torch.Generator`` on
-        ``device`` seeded with ``seed``, or ``generator`` itself (the JAX
-        package's ``key=``).
+    seed / key / generator: the minibatch stream — the PRNG key ``key``
+        (``repro_torch.random``, or the JAX package's uint32 key), else
+        ``PRNGKey(seed)``: the JAX engine's minibatches for the same seed
+        or key; or a ``torch.Generator`` on ``device`` (``randperm``
+        minibatches).
     log_every: sweeps per chunk — LL/metrics reach the host once per
         chunk. ll_mode overrides how LL is tracked: "sweep" (every sweep,
         read per chunk), "chunk" (computed once per chunk), or "none";
@@ -124,7 +127,7 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
                             backend=backend)
     batch = SubsetBatch(batch.indices.to(dev), batch.mask.to(dev))
     state = engine.init_state(_factors(model, algorithm), batch, seed=seed,
-                              generator=generator, device=dev)
+                              generator=generator, device=dev, key=key)
 
     if isinstance(health, obs.HealthMonitor):
         monitor = health

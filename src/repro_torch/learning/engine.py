@@ -5,11 +5,13 @@ The JAX engine compiles a chunk of ``log_every`` sweeps into one call
 a chunk is a Python loop over sweeps, with the same contract:
 
   * the factors stay on their device between sweeps;
-  * minibatches are drawn on the batch's device from an explicit
-    ``torch.Generator`` carried in the ``LearnerState``
-    (``torch.randperm(n, generator=g)[:size]``) — so for a given seed the
-    draws differ from ``jax.random.choice``'s (the distribution is the
-    same);
+  * minibatches follow the JAX engine's key stream: the ``LearnerState``
+    carries a PRNG key (``repro_torch.random``), each sweep takes
+    ``key, k_sel = split(key)`` whether or not it draws a minibatch, and a
+    minibatch is ``choice(k_sel, n, (size,), replace=False)`` — so a seed
+    gives the JAX engine's minibatch indices on every sweep. A state
+    seeded with an explicit ``torch.Generator`` draws
+    ``torch.randperm(n, generator=g)[:size]`` instead;
   * the log-likelihood is tracked with the factored objective
     (``objective.log_likelihood_factored``) either every sweep
     (``ll_mode="sweep"``, values read once per chunk) or once per chunk
@@ -27,11 +29,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .. import obs
+from .. import random as prng
 from .._device import DeviceLike, resolve_device
 from ..core.dpp import SubsetBatch
 from ..core.krk_picard import _alpha_beta, compute_AC, compute_C
@@ -65,30 +68,35 @@ def emit_sweep_metrics(tracker, *, algorithm: str, runtime: str,
 class LearnerState:
     """Everything a fit needs to continue.
 
-    params:    (L1, L2) factors.
-    sweep:     () int32 — completed sweeps.
-    generator: ``torch.Generator`` on the factors' device driving
-               minibatch selection (the JAX package's PRNG key).
-    sched:     schedule carry (t, last accepted a, backtrack count).
-    ll:        () float32 — last tracked log-likelihood (-inf if
-               untracked).
+    params: (L1, L2) factors.
+    sweep:  () int32 — completed sweeps.
+    key:    the minibatch stream: a PRNG key (2,) on the factors' device,
+            split once a sweep as the JAX engine splits its key; or a
+            ``torch.Generator`` there, when the fit was given one.
+    sched:  schedule carry (t, last accepted a, backtrack count).
+    ll:     () float32 — last tracked log-likelihood (-inf if untracked).
     """
     params: Tuple[torch.Tensor, ...]
     sweep: torch.Tensor
-    generator: torch.Generator
+    key: Union[torch.Tensor, torch.Generator]
     sched: schedules.ScheduleState
     ll: torch.Tensor
 
 
-def select_minibatch(generator: torch.Generator, batch: SubsetBatch,
-                     size: int) -> SubsetBatch:
-    """Uniform without-replacement minibatch, drawn on the batch's device
-    (the generator must live there)."""
+def select_minibatch(key, batch: SubsetBatch, size: int) -> SubsetBatch:
+    """Uniform without-replacement minibatch, drawn on the batch's device:
+    ``choice(key, n, (size,), replace=False)`` for a PRNG key (the JAX
+    engine's indices), ``randperm(n)[:size]`` for a ``torch.Generator``
+    (which must live there)."""
     if size > batch.n:
         raise ValueError(f"cannot draw minibatches of {size} from a batch "
                          f"of {batch.n} subsets")
-    sel = torch.randperm(batch.n, generator=generator,
-                         device=batch.indices.device)[:size]
+    dev = batch.indices.device
+    if isinstance(key, torch.Generator):
+        sel = torch.randperm(batch.n, generator=key, device=dev)[:size]
+    else:
+        sel = prng.choice(prng.as_key(key, dev), batch.n, (size,),
+                          replace=False)
     return SubsetBatch(batch.indices[sel], batch.mask[sel])
 
 
@@ -154,16 +162,19 @@ class LearningEngine:
         tracked log-likelihoods (device tensors, not yet read)."""
         lls = []
         for _ in range(chunk_len):
-            sub = (select_minibatch(state.generator, batch,
-                                    self.minibatch_size)
+            key = state.key
+            k_sel = key
+            if not isinstance(key, torch.Generator):
+                key, k_sel = prng.split(key)
+            sub = (select_minibatch(k_sel, batch, self.minibatch_size)
                    if self.minibatch_size else batch)
             a_trial = schedules.trial_step(self.schedule, state.sched)
             params, a_acc, n_bt = self._krk_sweep(state.params, sub, a_trial)
             sched = schedules.advance(self.schedule, state.sched, a_acc, n_bt)
             ll = (self._ll_value(params, batch)
                   if self.ll_mode == "sweep" else state.ll)
-            state = LearnerState(tuple(params), state.sweep + 1,
-                                 state.generator, sched, ll)
+            state = LearnerState(tuple(params), state.sweep + 1, key, sched,
+                                 ll)
             lls.append(ll)
         if self.ll_mode == "chunk":
             state = dataclasses.replace(
@@ -222,19 +233,27 @@ class LearningEngine:
     def init_state(self, params: Sequence[torch.Tensor],
                    batch: Optional[SubsetBatch] = None, seed: int = 0,
                    generator: Optional[torch.Generator] = None,
-                   device: DeviceLike = "cuda") -> LearnerState:
+                   device: DeviceLike = "cuda", key=None) -> LearnerState:
         """A fresh state on ``device``: float32 clones of ``params`` (a
-        fit never changes a caller's tensors in place), a generator seeded
-        with ``seed`` unless ``generator`` (which must live on ``device``)
-        is given, and the initial log-likelihood on ``batch``."""
+        fit never changes a caller's tensors in place), the minibatch
+        stream — ``key`` (a PRNG key, copied to ``device``), else
+        ``PRNGKey(seed)`` as the JAX engine seeds it, or ``generator``
+        (which must live on ``device``) when given — and the initial
+        log-likelihood on ``batch``."""
         dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(int(seed))
-        elif generator.device.type != dev.type or None not in (
-                generator.device.index, dev.index) \
-                and generator.device.index != dev.index:
-            raise ValueError(f"generator lives on {generator.device}, the "
-                             f"fit runs on {dev}")
+        if generator is not None and key is not None:
+            raise ValueError("pass a key or a generator, not both")
+        if generator is not None:
+            if generator.device.type != dev.type or None not in (
+                    generator.device.index, dev.index) \
+                    and generator.device.index != dev.index:
+                raise ValueError(f"generator lives on {generator.device}, "
+                                 f"the fit runs on {dev}")
+            key = generator
+        elif key is None:
+            key = prng.PRNGKey(seed, dev)
+        else:
+            key = prng.as_key(key, dev).clone()
         params = tuple(torch.as_tensor(p).to(device=dev, dtype=torch.float32,
                                              copy=True) for p in params)
         if batch is not None and self.ll_mode != "none":
@@ -243,8 +262,8 @@ class LearningEngine:
             ll = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
         return LearnerState(params, torch.zeros((), dtype=torch.int32,
                                                 device=dev),
-                            generator, schedules.init_state(self.schedule,
-                                                            dev), ll)
+                            key, schedules.init_state(self.schedule, dev),
+                            ll)
 
     def run(self, state: LearnerState, batch: SubsetBatch, iters: int,
             log_every: int = 1,

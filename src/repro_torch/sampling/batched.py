@@ -16,8 +16,11 @@ the card); the sampler never does.
 
 The batch dimension is written out (the JAX package vmaps one sample).
 ``sample_krondpp_from_uniforms`` takes every uniform as a tensor, so a
-test can feed it the numbers JAX drew; ``sample_krondpp_batched`` draws
-them from an explicit ``torch.Generator``.
+test can feed it the numbers JAX drew. ``sample_krondpp_keyed`` draws them
+from per-row PRNG keys exactly as the JAX package does
+(``repro_torch.random``), so a key gives the JAX package's rows;
+``sample_krondpp_batched`` takes one key (split into the rows' keys) or an
+explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import random as prng
 from ..core.kron import split_indices_multi
 from ..kernels import ops as kernel_ops
 from .spectral import FactorSpectrum, log_product_spectrum
@@ -135,15 +139,50 @@ def sample_krondpp_from_uniforms(u: torch.Tensor, us: torch.Tensor,
     return picks, k_eff, truncated
 
 
-def sample_krondpp_batched(generator: torch.Generator,
-                           spectrum: FactorSpectrum,
+def keyed_uniforms(row_keys: torch.Tensor, n: int, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The uniforms a row key gives phase 1 and phase 2, as the JAX
+    package's ``_phase1_one`` draws them: ``k1, k2 = split(key)``,
+    u = uniform(k1, (n,)), us = uniform(k2, (k,)); row_keys (B, 2) ->
+    u (B, n), us (B, k) float32 on the keys' device, from one
+    ``threefry2x32`` launch (``random.split_uniform``)."""
+    return prng.split_uniform(row_keys, n, k)
+
+
+def sample_krondpp_keyed(row_keys, spectrum: FactorSpectrum,
+                         k_max: Optional[int] = None,
+                         backend: Optional[str] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """Exact KronDPP draws, row i from ``row_keys[i]`` alone ((B, 2) twin
+    keys or the JAX package's uint32 keys; moved to the spectrum's
+    device). The result for a key does not depend on which other keys
+    share the call: the batching-invariance the keyed service
+    (``SamplingService.draw_keyed``) builds on.
+
+    Same return contract as ``sample_krondpp_batched``."""
+    if k_max is None:
+        k_max = spectrum.suggested_k_max()
+    row_keys = prng.as_key(row_keys, spectrum.device)
+    u, us = keyed_uniforms(row_keys, spectrum.N, int(k_max))
+    return sample_krondpp_from_uniforms(u, us, spectrum, int(k_max),
+                                        backend=backend)
+
+
+def sample_krondpp_batched(key, spectrum: FactorSpectrum,
                            k_max: Optional[int] = None,
                            num_samples: int = 1,
                            backend: Optional[str] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Draw ``num_samples`` exact KronDPP samples in one batched call on
-    the spectrum's device; ``generator`` must live on that device.
+    the spectrum's device.
+
+    ``key``: a PRNG key (2,) (``repro_torch.random``, or the JAX package's
+    uint32 key), split into one key per row as the JAX package splits it,
+    so the rows equal the JAX package's for the same key; or a
+    ``torch.Generator`` on the spectrum's device, whose uniforms are drawn
+    with ``torch.rand``.
 
     Returns (picks (num_samples, k_max) int32 with -1 padding,
     counts (num_samples,) int32, truncated (num_samples,) bool — True
@@ -151,9 +190,13 @@ def sample_krondpp_batched(generator: torch.Generator,
     if k_max is None:
         k_max = spectrum.suggested_k_max()
     dev = spectrum.device
-    u = torch.rand((num_samples, spectrum.N), generator=generator,
+    if not isinstance(key, torch.Generator):
+        keys = prng.split(prng.as_key(key, dev), int(num_samples))
+        return sample_krondpp_keyed(keys, spectrum, int(k_max),
+                                    backend=backend)
+    u = torch.rand((num_samples, spectrum.N), generator=key,
                    dtype=torch.float32, device=dev)
-    us = torch.rand((num_samples, int(k_max)), generator=generator,
+    us = torch.rand((num_samples, int(k_max)), generator=key,
                     dtype=torch.float32, device=dev)
     return sample_krondpp_from_uniforms(u, us, spectrum, int(k_max),
                                         backend=backend)

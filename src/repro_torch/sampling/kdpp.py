@@ -28,7 +28,11 @@ per element:
   p_n.
 
 ``sample_kdpp_from_uniforms`` takes every uniform as a tensor, so a test
-can feed it the numbers JAX drew.
+can feed it the numbers JAX drew. The sampling entry points take a PRNG
+key (``repro_torch.random``), whose uniforms are the JAX package's for the
+same key (per row ``k1, k2 = split(key)``, u = uniform(k1, (N,)),
+us = uniform(k2, (k,)); the scan order of ``u`` above is the JAX scan's),
+or a ``torch.Generator``, whose uniforms come from ``torch.rand``.
 """
 
 from __future__ import annotations
@@ -37,8 +41,9 @@ from typing import Optional
 
 import torch
 
+from .. import random as prng
 from ..kernels import ops as kernel_ops
-from .batched import compact_selection, gather_factor_columns
+from .batched import compact_selection, gather_factor_columns, keyed_uniforms
 from .spectral import FactorSpectrum, log_product_spectrum
 
 
@@ -138,12 +143,12 @@ def sample_kdpp_from_uniforms(u: torch.Tensor, us: torch.Tensor,
     return _select_kdpp(mask, us, spectrum, int(k), backend)
 
 
-def sample_kdpp_batched(generator: torch.Generator,
-                        spectrum: FactorSpectrum, k: int,
+def sample_kdpp_batched(key, spectrum: FactorSpectrum, k: int,
                         num_samples: int = 1,
                         backend: Optional[str] = None) -> torch.Tensor:
     """``num_samples`` exact k-DPP samples in one batched call on the
-    spectrum's device; ``generator`` must live there.
+    spectrum's device, from a PRNG key (the JAX package's rows for the same
+    key) or a ``torch.Generator`` on that device.
 
     Returns (num_samples, k) int32: every row has exactly k distinct items
     when the kernel has rank >= k; below rank exactly rank distinct items
@@ -151,17 +156,22 @@ def sample_kdpp_batched(generator: torch.Generator,
     row). Phase 2 for the whole batch is one ``kernels.ops.phase2_select``
     call (``backend`` forces an engine)."""
     k = int(k)
-    mask = _phase1_kdpp(generator, spectrum.log_eigenvalues(), k,
-                        num_samples)
-    us = torch.rand((int(num_samples), k), generator=generator,
+    if not isinstance(key, torch.Generator):
+        keys = prng.split(prng.as_key(key, spectrum.device),
+                          int(num_samples))
+        u, us = keyed_uniforms(keys, spectrum.N, k)
+        return sample_kdpp_from_uniforms(u, us, spectrum, k, backend)
+    mask = _phase1_kdpp(key, spectrum.log_eigenvalues(), k, num_samples)
+    us = torch.rand((int(num_samples), k), generator=key,
                     dtype=torch.float32, device=spectrum.device)
     return _select_kdpp(mask, us, spectrum, k, backend)
 
 
-def sample_kdpp_dense(generator: torch.Generator, L: torch.Tensor,
-                      k: int) -> torch.Tensor:
+def sample_kdpp_dense(key, L: torch.Tensor, k: int) -> torch.Tensor:
     """One exact k-DPP sample (k,) int32 from a dense kernel L, on L's
-    device (the m = 1 spectrum: one ``eigh``).
+    device (the m = 1 spectrum: one ``eigh``), from a PRNG key (drawn as
+    the JAX package draws one sample: ``k1, k2 = split(key)``) or a
+    ``torch.Generator``.
 
     The JAX version pins phase 2 to its reference engine because that one
     is transparent to ``vmap``; PyTorch has no such constraint here, so
@@ -170,7 +180,11 @@ def sample_kdpp_dense(generator: torch.Generator, L: torch.Tensor,
     lam, vec = torch.linalg.eigh(L)
     spectrum = FactorSpectrum((torch.clamp_min(lam, 0.0),), (vec,))
     k = int(k)
-    mask = _phase1_kdpp(generator, spectrum.log_eigenvalues(), k)
-    us = torch.rand((k,), generator=generator, dtype=torch.float32,
+    if not isinstance(key, torch.Generator):
+        u, us = keyed_uniforms(prng.as_key(key, L.device)[None],
+                               spectrum.N, k)
+        return sample_kdpp_from_uniforms(u[0], us[0], spectrum, k)
+    mask = _phase1_kdpp(key, spectrum.log_eigenvalues(), k)
+    us = torch.rand((k,), generator=key, dtype=torch.float32,
                     device=L.device)
     return _select_kdpp(mask, us, spectrum, k, None)

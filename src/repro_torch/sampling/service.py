@@ -12,17 +12,19 @@ Coalesced batch sizes are rounded up to the next power of two (surplus
 rows are dropped), capped at ``max_batch``, so a service sees
 O(log max_batch) distinct batch shapes.
 
-Determinism: the service owns one ``torch.Generator`` on its device,
-seeded at construction; every call draws from it in order, so a fixed
-seed and submission order reproduce every sample.
+Determinism: the service owns one PRNG key (``repro_torch.random``),
+``PRNGKey(seed)`` on its device, and splits it once per device call
+(``key, sub = split(key)``), as the JAX service does: a fixed seed and
+submission order reproduce every sample, and give the JAX service's rows
+for the same seed and the same sequence of calls.
 
-Thread-safety: one re-entrant lock guards the pending queue, the
-generator and every flush; any number of threads may
-``submit()``/``flush()``/``result()`` concurrently.
+Thread-safety: one re-entrant lock guards the pending queue, the key and
+every flush; any number of threads may ``submit()``/``flush()``/
+``result()`` concurrently.
 
-``sample_kdpp`` draws exactly-k subsets immediately (not queued). Not
-ported yet: ``draw_keyed`` (per-row keys for the async tier), see
-ROADMAP.md.
+``sample_kdpp`` draws exactly-k subsets immediately (not queued);
+``draw_keyed`` draws one subset per explicit row key (the async tier's
+batching-invariant entry point).
 """
 
 from __future__ import annotations
@@ -31,12 +33,12 @@ import threading
 import time
 from typing import List, Optional
 
-import torch
-
 from .. import obs
+from .. import random as prng
 from .._device import DeviceLike
 from ..core.krondpp import KronDPP
-from .batched import picks_to_lists, sample_krondpp_batched
+from .batched import (picks_to_lists, sample_krondpp_batched,
+                      sample_krondpp_keyed)
 from .kdpp import sample_kdpp_batched
 from .spectral import SpectralCache, default_cache
 
@@ -157,11 +159,10 @@ class SamplingService:
         self.k_max = int(k_max) if k_max is not None \
             else self.spectrum.suggested_k_max()
         self.max_batch = int(max_batch)
-        gen = torch.Generator(device=self.spectrum.device).manual_seed(
-            int(seed))
-        self._generator = gen                     #: guarded-by: _lock
+        #: guarded-by: _lock
+        self._key = prng.PRNGKey(seed, self.spectrum.device)
         self._pending: List[SampleTicket] = []    #: guarded-by: _lock
-        # guards _pending, _generator, and flush critical sections; RLock
+        # guards _pending, _key, and flush/draw critical sections; RLock
         # so result() -> flush() composes with callers already holding it
         self._lock = threading.RLock()
         self._metrics = obs.InMemoryTracker()
@@ -200,16 +201,17 @@ class SamplingService:
     def sample_kdpp(self, k: int, num_samples: int = 1) -> List[List[int]]:
         """Exactly-k subsets (conditional ESP draw); immediate, not queued.
         Device calls are chunked at max_batch like ``flush``, each drawn
-        from the service generator under the lock."""
+        from a split of the service key under the lock."""
         drawn: List[List[int]] = []
         remaining = self._round_up(num_samples)
         tr = self.tracker
         with self._lock:
             while len(drawn) < num_samples:
                 batch = min(remaining, self.max_batch)
+                self._key, sub = prng.split(self._key)
                 with tr.timer("service.device_call_s", kind="kdpp"):
-                    picks = sample_kdpp_batched(self._generator,
-                                                self.spectrum, int(k), batch)
+                    picks = sample_kdpp_batched(sub, self.spectrum, int(k),
+                                                batch)
                     rows = picks_to_lists(picks)   # synchronizes the card
                 tr.counter("service.device_calls")
                 tr.counter("service.samples_drawn", batch)
@@ -218,9 +220,47 @@ class SamplingService:
         return drawn[:num_samples]
 
     def draw_keyed(self, row_keys):
-        raise NotImplementedError(
-            "SamplingService.draw_keyed needs the threefry PRNG twin "
-            "(ROADMAP.md, queue 1: PRNG twin)")
+        """Draw one subset per explicit PRNG key (row_keys (n, 2): twin
+        keys or the JAX package's uint32 keys), chunked at max_batch.
+
+        Unlike ``flush()``, which splits the service key once per device
+        call (draws depend on coalescing), every row here is a function of
+        its own key alone — the determinism contract of the async serving
+        tier under a background flush of any timing. Updates the shared
+        ``service.*`` counters (device_calls, samples_drawn, truncations,
+        device_call_s, truncation_rate) so ``stats`` counts sync and keyed
+        traffic in one place.
+
+        Returns ``(rows, truncations, collapsed)``: one index list per key,
+        in key order, and the counts of this call only. Thread-safe; does
+        not touch the pending queue or the service key."""
+        row_keys = prng.as_key(row_keys, self.spectrum.device)
+        n = int(row_keys.shape[0])
+        tr = self.tracker
+        rows: List[List[int]] = []
+        truncations = 0
+        collapsed = 0
+        with self._lock:
+            for off in range(0, n, self.max_batch):
+                chunk = row_keys[off: off + self.max_batch]
+                with tr.timer("service.device_call_s", kind="dpp"):
+                    picks, counts, truncated = sample_krondpp_keyed(
+                        chunk, self.spectrum, self.k_max)
+                    part = picks_to_lists(picks)   # synchronizes the card
+                tr.counter("service.device_calls")
+                tr.counter("service.samples_drawn", int(chunk.shape[0]))
+                n_trunc = int(truncated.sum())
+                tr.counter("service.truncations", n_trunc)
+                truncations += n_trunc
+                want = counts.cpu().tolist()
+                collapsed += sum(1 for r, w in zip(part, want)
+                                 if len(r) < int(w))
+                rows.extend(part)
+            m = self._metrics
+            tr.gauge("service.truncation_rate",
+                     m.counter_value("service.truncations")
+                     / max(1, m.counter_value("service.samples_drawn")))
+        return rows, truncations, collapsed
 
     # -- batching core ------------------------------------------------------
     def _round_up(self, n: int) -> int:
@@ -267,9 +307,10 @@ class SamplingService:
         with live:
             while len(drawn) < total:
                 batch = min(remaining, self.max_batch)
+                self._key, sub = prng.split(self._key)
                 with tr.timer("service.device_call_s", kind="dpp"):
                     picks, counts, truncated = sample_krondpp_batched(
-                        self._generator, self.spectrum, self.k_max, batch)
+                        sub, self.spectrum, self.k_max, batch)
                     rows = picks_to_lists(picks)   # synchronizes the card
                 tr.counter("service.device_calls")
                 tr.counter("service.samples_drawn", batch)

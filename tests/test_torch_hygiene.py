@@ -17,11 +17,14 @@ import pytest
 import torch
 
 from repro_torch import FLOAT, INDEX, dpp
-from repro_torch.convert import (kron_from_numpy, spectrum_from_numpy,
+from repro_torch import random as prng
+from repro_torch.convert import (key_from_numpy, kron_from_numpy,
+                                  spectrum_from_numpy,
                                   subset_batch_from_numpy)
 from repro_torch.core import SubsetBatch, random_krondpp
 from repro_torch.learning import LearningEngine, fit, schedules
 from repro_torch.sampling import SamplingService
+from repro_torch.serving import TenantKeyring
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -37,7 +40,9 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
             "repro_torch.dpp.functional, repro_torch.sampling.kdpp, "
             "repro_torch.core.sampling, repro_torch.kernels.greedy_map, "
             "repro_torch.kernels.kron_matvec, repro_torch.core.kron, "
-            "repro_torch.core.clustering, repro_torch.core.dpp\n"
+            "repro_torch.core.clustering, repro_torch.core.dpp, "
+            "repro_torch.random, repro_torch.serving, "
+            "repro_torch.kernels.threefry\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -92,6 +97,12 @@ def test_no_jax_or_jax_package_import_in_port_sources(path):
     lambda: dpp.Kron((np.eye(2), np.eye(3))).map(2),
     lambda: SamplingService(dpp.Kron((np.eye(3),), device="cpu")
                             ).sample_kdpp(2),
+    lambda: prng.PRNGKey(0),
+    lambda: key_from_numpy(np.zeros(2, np.uint32)),
+    lambda: TenantKeyring(0),
+    lambda: random_krondpp(prng.PRNGKey(0, "cpu"), (3, 3)),
+    lambda: dpp.Kron((np.eye(3),), device="cpu").sample(
+        prng.PRNGKey(0, "cpu"), 2),
 ])
 def test_entry_points_without_a_card_raise(call):
     """Every entry point defaults to device="cuda"; with no card it
@@ -119,5 +130,6 @@ def test_kernel_build_is_deferred_to_first_launch():
     assert _build._LIBS == {}
     assert _build.source_path("phase2_select").is_file()
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == \
-        ["greedy_map", "kron_matvec", "partial_trace", "phase2_select"]
+        ["greedy_map", "kron_matvec", "partial_trace", "phase2_select",
+         "threefry"]
     assert _build.library_path("phase2_select").parent == _build.BUILD_DIR

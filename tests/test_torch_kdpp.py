@@ -7,9 +7,9 @@ here exactly as JAX's ``_phase1_one_kdpp`` draws them: per row key,
 (k,))``. Phase-1 masks must be equal; picks equal up to a named
 CDF-boundary tie (``test_torch_phase2.assert_same_picks``), phase 2 plain.
 The port's generator-driven entry points (``sample_kdpp_batched``,
-``model.sample(k=)``, ``svc.sample_kdpp``) are held to
-``sample_kdpp_from_uniforms`` on the uniforms their generator gives, so
-they inherit that draw-for-draw agreement. The ESP table: rtol 1e-5
+``model.sample(k=)``) and the seeded ``svc.sample_kdpp`` are held to
+``sample_kdpp_from_uniforms`` on the uniforms their generator or key
+gives, so they inherit that draw-for-draw agreement. The ESP table: rtol 1e-5
 against JAX (the same recursion, float32, transcendentals from other
 libraries) and, as in tests/test_sampling_batched.py, rtol 1e-4 / atol
 1e-7 against brute force. Distributions: ±0.04 at 4000 draws, as there.
@@ -35,12 +35,13 @@ from repro.sampling.kdpp import log_esp_table as jax_log_esp_table
 from repro.sampling.kdpp import sample_kdpp_batched as jax_sample_kdpp
 import repro_torch.obs as obs
 from repro_torch import dpp
+from repro_torch import random as prng
 from repro_torch.convert import spectrum_from_numpy
 from repro_torch.kernels.phase2_select import canonical_pair
 from repro_torch.sampling import SamplingService, picks_to_lists
 from repro_torch.sampling import kdpp as tk
 from repro_torch.sampling.batched import gather_factor_columns
-from repro_torch.sampling.batched import compact_selection
+from repro_torch.sampling.batched import compact_selection, keyed_uniforms
 from test_torch_phase2 import assert_rows_distinct, assert_same_picks
 
 
@@ -126,10 +127,12 @@ def test_sample_kdpp_matches_jax_on_shared_uniforms(sizes, k, seed):
 
 
 def test_generator_entry_points_use_their_uniforms():
-    """``sample_kdpp_batched``, ``model.sample(k=)`` and ``svc.sample_kdpp``
-    are ``sample_kdpp_from_uniforms`` on their generator's uniforms
-    (u (B, N) first, then us (B, k)) — so they match JAX draw for draw
-    wherever the test above does."""
+    """``sample_kdpp_batched`` and ``model.sample(k=)`` given a generator
+    are ``sample_kdpp_from_uniforms`` on its uniforms (u (B, N) first,
+    then us (B, k)); the seeded ``svc.sample_kdpp`` is the same on the
+    uniforms of its key (``key, sub = split(key)``, one key per row from
+    ``split(sub, B)``, drawn as JAX draws them) — so all match JAX draw
+    for draw wherever the test above does."""
     factors = [np.asarray(f) for f in
                random_krondpp(jax.random.PRNGKey(4), (3, 4)).factors]
     model = dpp.Kron(factors, device="cpu")
@@ -142,6 +145,11 @@ def test_generator_entry_points_use_their_uniforms():
         us = torch.rand((batch, k), generator=gen)
         return tk.sample_kdpp_from_uniforms(u, us, spec, k)
 
+    def replay_key(seed, batch):
+        _, sub = prng.split(prng.PRNGKey(seed, "cpu"))
+        u, us = keyed_uniforms(prng.split(sub, batch), spec.N, k)
+        return tk.sample_kdpp_from_uniforms(u, us, spec, k)
+
     got = tk.sample_kdpp_batched(torch.Generator().manual_seed(7), spec, k, B)
     assert torch.equal(got, replay(7, B))
     batch = model.sample(torch.Generator().manual_seed(8), B, k=k,
@@ -149,7 +157,7 @@ def test_generator_entry_points_use_their_uniforms():
     assert batch.truncated is None and (batch.sizes() == k).all()
     assert torch.equal(batch.indices, replay(8, B))
     svc = model.service(seed=9, device="cpu")
-    assert svc.sample_kdpp(k, B) == picks_to_lists(replay(9, B))
+    assert svc.sample_kdpp(k, B) == picks_to_lists(replay_key(9, B))
 
 
 def test_kdpp_exactly_k_and_conditional_distribution():

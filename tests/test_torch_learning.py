@@ -15,10 +15,10 @@ math on the CPU in float32. Tolerances:
   as in ``tests/test_learning.py`` (the naive side inverts N x N
   matrices in float32).
 
-Minibatches come from a ``torch.Generator`` and differ from
-``jax.random.choice``'s, so ``krk-stochastic`` is held against the
-port's own ``krk_picard_step`` on the minibatch the same generator state
-picks.
+``krk-stochastic`` is held against the port's own ``krk_picard_step``
+on the minibatches its key stream (or an explicit generator) picks; that
+the key stream draws JAX's minibatches, sweep by sweep over a whole fit,
+is ``tests/test_torch_keyed.py``'s.
 """
 
 import os
@@ -42,6 +42,7 @@ from repro.learning import log_likelihood_factored as jax_ll_factored
 from repro.learning import schedules as jax_schedules
 import repro_torch.obs as obs
 from repro_torch import dpp
+from repro_torch import random as prng
 from repro_torch.convert import factors_to_numpy, subset_batch_from_numpy
 from repro_torch.core import KronDPP, log_likelihood
 from repro_torch.core.dpp import masked_inv_and_logdet, theta_matrix
@@ -279,12 +280,16 @@ def test_armijo_halfstep_rejects_a_non_pd_candidate():
 # ---------------------------------------------------------------------------
 
 def test_stochastic_sweeps_equal_steps_on_the_same_minibatches(data, init):
+    """A seeded fit's minibatches come from its key: each sweep takes
+    ``key, k_sel = split(key)`` and draws ``choice(k_sel, n, (8,))``
+    without replacement, as the JAX engine does."""
     rep = fit(init, data, algorithm="krk-stochastic", iters=3,
               minibatch_size=8, a=0.7, seed=1, device="cpu")
-    g = torch.Generator().manual_seed(1)
+    key = prng.PRNGKey(1, "cpu")
     L1, L2 = init
     for _ in range(3):
-        sub = select_minibatch(g, data, 8)
+        key, k_sel = prng.split(key)
+        sub = select_minibatch(k_sel, data, 8)
         L1, L2 = krk_picard_stochastic_step(L1, L2, sub, 0.7)
     np.testing.assert_allclose(rep.model.factors[0], L1, rtol=1e-6,
                                atol=1e-6)
@@ -294,6 +299,28 @@ def test_stochastic_sweeps_equal_steps_on_the_same_minibatches(data, init):
                    a=0.7, seed=1, device="cpu")
     np.testing.assert_array_equal(promoted.model.factors[0],
                                   rep.model.factors[0])
+
+
+def test_stochastic_sweeps_with_a_generator(data, init):
+    """``generator=`` keeps the ``torch.randperm`` minibatch route: the
+    sweeps equal steps on the minibatches the same generator state picks,
+    and the state carries the generator."""
+    g_fit = torch.Generator().manual_seed(1)
+    rep = fit(init, data, algorithm="krk-stochastic", iters=3,
+              minibatch_size=8, a=0.7, generator=g_fit, device="cpu")
+    assert rep.state.key is g_fit
+    g = torch.Generator().manual_seed(1)
+    L1, L2 = init
+    for _ in range(3):
+        sub = select_minibatch(g, data, 8)
+        L1, L2 = krk_picard_stochastic_step(L1, L2, sub, 0.7)
+    np.testing.assert_allclose(rep.model.factors[0], L1, rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(rep.model.factors[1], L2, rtol=1e-6,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="not both"):
+        fit(init, data, iters=1, generator=g, key=prng.PRNGKey(0, "cpu"),
+            device="cpu")
 
 
 @pytest.mark.parametrize("fresh,per_sweep_C", [(True, 2), (False, 1)])

@@ -174,7 +174,7 @@ def test_facade_sample_returns_subset_batch_with_provenance():
     lambda m, g: m.fit(None, algorithm="em", device="cpu"),
     lambda m, g: m.serving(),
     lambda m, g: m.fit(None, checkpoint_dir="ckpt", device="cpu"),
-    lambda m, g: m.service(device="cpu").draw_keyed(None),
+    lambda m, g: m.serving(config=None, max_batch=4),
 ])
 def test_operations_not_ported_raise(call):
     m = dpp.Kron(model().factors, device="cpu")

@@ -19,6 +19,20 @@ parent, and ``chip_smoke.device_ms`` takes the device time of each turn.
 The parent's phase-2 launcher takes no route (it has the global route
 only). Prints one JSON line with every turn's time, the card's name and
 its power limit.
+
+    python3 tools/compare_parent.py --serving PARENT_ROOT
+
+times the service of the main path on the parent's whole tree (unpacked at
+PARENT_ROOT beforehand, e.g. ``git archive HEAD~1 | tar -x -C
+build/parent_tree``) against this checkout's: one process per turn, parent,
+change, change, parent, each importing ``repro_torch`` from its tree's
+``src/`` and building its kernels there. A turn builds the phase-5 model of
+``chip_smoke.py`` (``random_kron`` of a seeded generator, 100 x 100,
+E|Y| = 20) and ``service(seed=0)``, warms the path, then takes on the host
+clock, each call ending in a device sync, 20 ``svc.sample(16)`` requests
+and 10 flushes of tickets of 1, 4, 16, 64 and 200 rows (285 rows, one call
+at B = 512). Prints one JSON line with every turn's times and medians, the
+card's name and its power limit.
 """
 
 from __future__ import annotations
@@ -33,18 +47,68 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
-sys.path.insert(0, str(ROOT / "src"))
+SERVING_SIZES = (1, 4, 16, 64, 200)
 
-from chip_smoke import device_ms, km_inputs, phase1_inputs  # noqa: E402
-from repro_torch import dpp  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels import kron_matvec as km  # noqa: E402
-from repro_torch.kernels import phase2_select as p2  # noqa: E402
-from repro_torch.sampling.spectral import SpectralCache  # noqa: E402
+
+def serving_turn(root: Path) -> dict:
+    """One turn of ``--serving``, in a process of its own: the service of
+    the main path from the tree at ``root``, timed on the host clock."""
+    import time
+
+    import numpy as np
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch import dpp
+    dev = torch.device("cuda", 0)
+    main = dpp.random_kron(torch.Generator(device=dev).manual_seed(1),
+                           (100, 100)).rescale(20.0)
+    svc = main.service(seed=0)
+
+    def flush():
+        tickets = [svc.submit(n) for n in SERVING_SIZES]
+        svc.flush()
+        return tickets
+
+    def clock(fn, reps):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(3):
+        svc.sample(16)
+        flush()
+    sample16, flush285 = clock(lambda: svc.sample(16), 20), clock(flush, 10)
+    return {"sample16_ms": sample16,
+            "sample16_median_ms": float(np.median(sample16)),
+            "flush285_ms": flush285,
+            "flush285_median_ms": float(np.median(flush285))}
+
+
+def serving(parent: Path) -> dict:
+    """``--serving``: the turns parent, change, change, parent, each a
+    process of its own."""
+    out = {"parent": [], "change": []}
+    for name, root in (("parent", parent), ("change", ROOT),
+                       ("change", ROOT), ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--turn",
+             str(root)], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            sys.exit(f"serving turn on {root} failed:\n{proc.stdout}\n"
+                     f"{proc.stderr}")
+        out[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for name in ("parent", "change"):
+        for k in ("sample16_median_ms", "flush285_median_ms"):
+            out[f"{name}_{k}"] = [t[k] for t in out[name]]
+    return out
 
 
 def build(src: Path) -> ctypes.CDLL:
+    from repro_torch.kernels import _build
     lib = src.with_name(f"lib{src.stem}_parent.so")
     subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
                     str(src)], check=True, capture_output=True, text=True)
@@ -52,16 +116,45 @@ def build(src: Path) -> ctypes.CDLL:
 
 
 def turns(parent, change, reps: int, expect: str) -> dict:
+    from chip_smoke import device_ms
     t = [device_ms(f, reps, 3, expect=expect)
          for f in (parent, change, change, parent)]
     return {"parent_ms": [t[0], t[3]], "change_ms": [t[1], t[2]]}
 
 
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
 def main() -> None:
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
+    args = sys.argv[1:]
+    if not torch.cuda.is_available() or len(args) not in (1, 2) or (
+            len(args) == 2 and args[0] not in ("--serving", "--turn")):
         sys.exit("usage, on a CUDA card: python3 tools/compare_parent.py "
-                 "DIR (the parent's phase2_select.cu and kron_matvec.cu)")
-    parent = Path(sys.argv[1])
+                 "DIR (the parent's phase2_select.cu and kron_matvec.cu), "
+                 "or --serving PARENT_ROOT (the parent's whole tree)")
+    if args[0] == "--turn":
+        print(json.dumps(serving_turn(Path(args[1]).resolve())))
+        return
+    if args[0] == "--serving":
+        print(json.dumps({"compare_parent_serving": serving(
+            Path(args[1]).resolve()), "card": card()}))
+        return
+    kernels(Path(args[0]))
+
+
+def kernels(parent: Path) -> None:
+    """The parent's phase-2 and ``kron_matvec`` kernels against this
+    checkout's (the first form of the command)."""
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
+    from chip_smoke import km_inputs, phase1_inputs
+    from repro_torch import dpp
+    from repro_torch.kernels import kron_matvec as km
+    from repro_torch.kernels import phase2_select as p2
+    from repro_torch.sampling.spectral import SpectralCache
     km_par = build(parent / "kron_matvec.cu")
     km.bind(km_par)
     p2_par = build(parent / "phase2_select.cu")
@@ -123,10 +216,7 @@ def main() -> None:
         new = partial(p2.phase2_select_cuda, us, ke, G1, Gr)
         out[f"phase2_select_b{B}"] = turns(par, new, 10,
                                            "phase2_select_kernel")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    print(json.dumps({"compare_parent": out, "card": card}))
+    print(json.dumps({"compare_parent": out, "card": card()}))
 
 
 if __name__ == "__main__":
