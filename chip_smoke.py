@@ -141,7 +141,29 @@ non-zero and prints no result line.
    the plain twin and ``torch.rand`` (another generator, for scale) at
    16, 64 and 512 rows of 10^4 uniforms, beside the bound; the 285-row
    flush on the host clock;
-19. the device times of every ``kernels`` row (``fill_device_times``),
+19. the rest of learning at full width, on the phase-8 batch and init
+   (N = 10^4, n = 1000), with TF32 asserted off. Joint and full Picard
+   start from the init rescaled to E|Y| = 20 (``start``): from the raw
+   init both break down in float32 (``tools/learning_precision.py``).
+   ``start.fit(batch, algorithm="joint", iters=3)`` (a ``Kron``, finite PD
+   factors, a finite LL track); ``fit_picard(start.dense_kernel(10_000),
+   batch, iters=3)`` (the LL never falls by more than ``_ASCENT_TOL``; the
+   kernel symmetric, finite, and within 1e-5 of max |L| of the same steps
+   in float64 on the card); ``init.fit(batch, algorithm="em", iters=3,
+   a=1e-3, max_dense=10_000)`` (a ``Dense`` whose λ lie in (0, inf)) and
+   the first E-step's row sums of q against the subset sizes; the same
+   three fits at 24 x 24 (N = 576, 60 subsets, from the raw init) on the
+   card and on a CPU copy, both against a float64 run on the CPU;
+   the phase-10 dense-Θ Armijo fit with ``checkpoint_dir`` (under the
+   gitignored ``build/``) and ``save_every=2``, 3 sweeps then resumed to
+   5, against phase 10's one-shot 5-sweep fit (entries that differ and the
+   largest |Δ|), its partial-trace launches counted (reset just before,
+   read just after: A 2, C 4); a blocking save and a restore of the
+   KrK-Picard state and of the EM state (λ, V at N = 10^4) and EM's
+   first eigh (of the 400 MB L) on the host clock; with CUDA events, one sweep of each learner from the raw init
+   (KrK-Picard with dense Θ and per subset, full Picard, joint Picard, EM)
+   and joint Picard's from ``start``;
+20. the device times of every ``kernels`` row (``fill_device_times``),
    after every host-clock time above, with the host's time of one small
    launch before and after the profiler sessions.
 
@@ -213,8 +235,22 @@ backtracks equal, LLs within rtol 1e-4, factors within
 ``1e-3 * max |L|``. The trajectory itself amplifies float32 noise: on the
 CPU two runs of the same fit already differ by 1e-5 to 3e-5 of max |L|
 after 5 sweeps (threaded sums), and taking the partial traces in float64
-moves them by 2e-5 to 4e-5 (20 x 20 and 50 x 50); on the card the scatter
-into Θ also runs in atomics.
+moves them by 2e-5 to 4e-5 (20 x 20 and 50 x 50).
+
+The rest of learning (phase 19) at 24 x 24: the card's fit and the CPU
+copy's are each held against a float64 run of the same sweeps on the CPU
+(full Picard's L, EM's V diag(λ) Vᵀ, joint Picard's L1 ⊗ L2, and the LL
+tracks). The card's distance may be up to 4 times the CPU copy's plus the
+CPU tests' tolerance (LLs 1e-4 of max |LL|; models 1e-4, 2e-4 and 5e-4 of
+max |L|, tests/test_torch_{em,picard}.py). A fixed tolerance does not hold
+here: from the raw init (L + I of condition 1e5) each float32 run,
+on the card, on the CPU and in the JAX package, lies 1e-3 to 8e-3 of
+max |L| from float64, and the two float32 runs as far from each other
+(tools/learning_precision.py). At N = 10^4: full Picard within 1e-5 of
+max |L| of float64 steps on the card (8e-7 seen); the first E-step's q
+rows sum to |Y_i| within 1e-3 · k_max. The resumed dense-Θ fit against
+the one-shot fit: factors within 1e-5 of max |L_i| (expected bit for bit,
+since two builds of Θ are), the same accepted step and backtracks.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 are the kernel table (all six kernels) and the timing lines as JSON,
@@ -228,6 +264,7 @@ import ctypes
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -1500,6 +1537,300 @@ def keyed_path(main, svc, batch, init, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19 helpers: the rest of learning
+# ---------------------------------------------------------------------------
+
+# the CPU tests' tolerances (tests/test_torch_{em,picard}.py): LLs, and the
+# final model of each learner as a share of its max |entry|
+LL_RTOL = 1e-4
+MODEL_REL = {"picard": 1e-4, "em": 2e-4, "joint": 5e-4}
+F32_MARGIN = 4.0        # the card's float32 error against the CPU's
+PICARD_F64_REL = 1e-5   # full Picard at N = 10^4 against float64 steps
+RESUME_REL = 1e-5       # resumed against one-shot factors, of max |L_i|
+
+
+def float64_fits(factors, batch) -> dict:
+    """The three baselines' 3 sweeps in float64 on the CPU, through the
+    same step functions as the fits: {name: (LL track, model)}, the model
+    L for full Picard and EM and L1 ⊗ L2 for joint Picard."""
+    from repro_torch.core import em
+    from repro_torch.core.dpp import log_likelihood
+    from repro_torch.core.joint_picard import joint_picard_step
+    from repro_torch.core.picard import picard_step
+    from repro_torch.learning.objective import (log_likelihood_eig,
+                                                log_likelihood_factored)
+    L1, L2 = (f.detach().cpu().double() for f in factors)
+    L = torch.kron(L1, L2)
+    lam, V = torch.linalg.eigh(L)
+    lam = torch.clamp_min(lam, 1e-6)
+    lls = {"picard": [float(log_likelihood(L, batch))],
+           "joint": [float(log_likelihood_factored((L1, L2), batch))],
+           "em": [float(log_likelihood_eig(lam, V, batch))]}
+    for _ in range(3):
+        L = picard_step(L, batch, 1.0)
+        lls["picard"].append(float(log_likelihood(L, batch)))
+        L1, L2 = joint_picard_step(L1, L2, batch, 1.0, 50)
+        lls["joint"].append(float(log_likelihood_factored((L1, L2), batch)))
+        lam = em.m_step_eigvals(em.e_step(lam, V, batch))
+        V = em.eigvec_ascent(lam, V, batch, 1e-3)
+        lls["em"].append(float(log_likelihood_eig(lam, V, batch)))
+    return {"picard": (lls["picard"], L), "joint": (lls["joint"],
+                                                      torch.kron(L1, L2)),
+            "em": (lls["em"], (V * lam[None, :]) @ V.T)}
+
+
+def small_fits_card_vs_cpu(dev) -> dict:
+    """The three fits at 24 x 24 (N = 576, 60 subsets of a rescaled model,
+    the init a second random_kron), on the card and on a CPU copy, both
+    held against a float64 run of the same sweeps on the CPU."""
+    from repro_torch import dpp
+    from repro_torch import random as prng
+    from repro_torch.core.dpp import SubsetBatch
+    from repro_torch.core.picard import fit_picard
+    true = dpp.random_kron(prng.PRNGKey(0, dev), (24, 24)).rescale(10.0)
+    rows = [r for r in true.sample(prng.PRNGKey(1, dev), 60).to_lists() if r]
+    init = dpp.random_kron(prng.PRNGKey(2, dev), (24, 24))
+    batches = {"card": SubsetBatch.from_lists(rows, device=dev),
+               "cpu": SubsetBatch.from_lists(rows, device="cpu")}
+    runs = {}
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        b, m = batches[where], dpp.Kron(init.factors, device=d)
+        joint = m.fit(b, algorithm="joint", iters=3, device=d)
+        em_fit = m.fit(b, algorithm="em", iters=3, a=1e-3, device=d)
+        pic = fit_picard(m.dense_kernel(), b, iters=3, device=d)
+        runs[where] = {
+            "joint": (joint.log_likelihoods,
+                      torch.kron(*joint.model.factors)),
+            "em": (em_fit.log_likelihoods, em_fit.model.L),
+            "picard": (pic.log_likelihoods, pic.L)}
+    exact = float64_fits(init.factors, batches["cpu"])
+    out = {"n": len(rows), "k_max": batches["cpu"].k_max}
+    for name in ("joint", "em", "picard"):
+        ll64, model64 = exact[name]
+        ll64 = np.asarray(ll64)
+        err = {}
+        for where in ("card", "cpu"):
+            lls, model = runs[where][name]
+            err[where] = (float(np.abs(np.asarray(lls) - ll64).max()),
+                          max_rel(model.cpu().double(), model64))
+        row = {"lls_card": runs["card"][name][0],
+               "lls_cpu": runs["cpu"][name][0], "lls_float64": ll64.tolist(),
+               "ll_err_card_cpu_vs_float64": [err["card"][0],
+                                              err["cpu"][0]],
+               "model_err_card_cpu_vs_float64": [err["card"][1],
+                                                 err["cpu"][1]],
+               "model_card_vs_cpu": max_rel(runs["card"][name][1].cpu(),
+                                            runs["cpu"][name][1])}
+        out[name] = row
+        print(f"  24 x 24 {name}: {json.dumps(row)}")
+        ll_bound = F32_MARGIN * err["cpu"][0] + LL_RTOL * np.abs(ll64).max()
+        model_bound = F32_MARGIN * err["cpu"][1] + MODEL_REL[name]
+        check(np.isfinite(runs["card"][name][0]).all()
+              and err["card"][0] <= ll_bound,
+              f"24 x 24 {name}: the card's LLs miss the float64 run's by "
+              f"{err['card'][0]} > {ll_bound}")
+        check(err["card"][1] <= model_bound, f"24 x 24 {name}: the card's "
+              f"model misses the float64 run's by {err['card'][1]} of max "
+              f"|L| > {model_bound}")
+    return out
+
+
+def checkpointed_fit(init, batch, oneshot, fit_kw, ck_dir) -> dict:
+    """The phase-10 dense-Θ Armijo fit saved every 2 sweeps: 3 sweeps,
+    then resumed to 5, against phase 10's one-shot 5-sweep fit; the
+    resumed run's partial-trace launches counted."""
+    import repro_torch.obs as obs
+    from repro_torch.kernels import partial_trace as pt
+    kw = dict(fit_kw, log_every=1, checkpoint_dir=str(ck_dir), save_every=2)
+    init.fit(batch, **dict(kw, iters=3))
+    saved = sorted(p.name for p in ck_dir.iterdir())
+    tracker = obs.InMemoryTracker()
+    pt.partial_trace_A_cuda.launches = 0
+    pt.partial_trace_C_cuda.launches = 0
+    with obs.use(tracker):
+        resumed = init.fit(batch, **dict(kw, iters=5, resume=True))
+        torch.cuda.synchronize()
+    launches = {"A": pt.partial_trace_A_cuda.launches,
+                "C": pt.partial_trace_C_cuda.launches}
+    counts = {k: int(tracker.counter_value(f"kernels.partial_trace_{k}.cuda"))
+              for k in ("A", "C")}
+    pairs = list(zip(resumed.model.factors, oneshot.model.factors))
+    rel = [max_rel(a, b) for a, b in pairs]
+    out = {"saved": saved, "ll_sweeps": resumed.ll_sweeps,
+           "lls_resumed": resumed.log_likelihoods,
+           "lls_oneshot": oneshot.log_likelihoods[4:],
+           "entries_differing": [int((a != b).sum()) for a, b in pairs],
+           "max_abs_diff": [float((a - b).abs().max()) for a, b in pairs],
+           "max_rel_diff": rel, "launches": launches, "counters": counts,
+           "a": [float(resumed.state.sched.a), float(oneshot.state.sched.a)],
+           "backtracks": [int(resumed.state.sched.backtracks),
+                          int(oneshot.state.sched.backtracks)]}
+    print(f"checkpointed dense-Θ fit, resumed 3 -> 5 against one-shot 5: "
+          f"{json.dumps(out)}")
+    check(saved == ["step_2", "step_3"], f"saved steps {saved}")
+    check(resumed.ll_sweeps == [4, 5], f"resumed at {resumed.ll_sweeps}")
+    check(launches == {"A": 2, "C": 4} and counts == launches,
+          f"the resumed sweeps launched the partial traces {launches} "
+          f"times, counted {counts}, not A 2 and C 4")
+    check(max(rel) <= RESUME_REL, f"resumed factors differ from the "
+          f"one-shot fit's by {rel} of max |L_i| > {RESUME_REL}")
+    check(out["a"][0] == out["a"][1] and out["backtracks"][0]
+          == out["backtracks"][1], f"the resumed schedule carry differs: "
+          f"{out['a']}, {out['backtracks']}")
+    return out
+
+
+def save_restore_ms(state, ck_dir) -> dict:
+    """Host clock of a blocking save and of a restore of ``state`` (the
+    device syncs included); the restored leaves equal the saved ones."""
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    mgr = CheckpointManager(CheckpointConfig(str(ck_dir), async_save=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(1, state, blocking=True)
+    t1 = time.perf_counter()
+    back = mgr.restore(target=state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for a, b in zip(back.tree_flatten(), state.tree_flatten()):
+        check(np.array_equal(np.asarray(a.cpu() if hasattr(a, "cpu") else a),
+                             np.asarray(b.cpu() if hasattr(b, "cpu") else b)),
+              "a restored leaf differs from the saved one")
+    check(back.params[0].device == state.params[0].device,
+          "the restored state left the card")
+    nbytes = sum(p.numel() * p.element_size() for p in state.params)
+    return {"save_ms": (t1 - t0) * 1e3, "restore_ms": (t2 - t1) * 1e3,
+            "param_bytes": nbytes}
+
+
+def rest_of_learning(init, batch, oneshot, fit_kw, dev) -> dict:
+    """Phase 19: joint Picard, full Picard and EM at N = 10^4 on the
+    phase-8 batch and init, the same fits at 24 x 24 against a CPU copy,
+    the checkpointed dense-Θ fit, and one sweep of each learner timed."""
+    from repro_torch import dpp
+    from repro_torch.core import em
+    from repro_torch.core.joint_picard import joint_picard_step
+    from repro_torch.core.krk_picard import krk_picard_step
+    from repro_torch.core.picard import fit_picard, picard_step
+    from repro_torch.learning.schedules import _ASCENT_TOL
+    t_phase = time.perf_counter()
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "float32 products would run in TF32")
+    out = {}
+
+    # joint and full Picard start from the init rescaled to the data's
+    # E|Y| = 20: from the raw init (L + I of condition 2.5e7, the float32
+    # dense L already indefinite) both break down in float32 at N = 10^4
+    # while a float64 run ascends (tools/learning_precision.py)
+    start = init.rescale(20.0)
+    rj = start.fit(batch, algorithm="joint", iters=3, log_every=3)
+    min_j = [float(torch.linalg.eigvalsh(f)[0]) for f in rj.model.factors]
+    out["joint"] = {"lls": rj.log_likelihoods, "min_eig": min_j,
+                    "chunk_s": rj.sweep_times}
+    print(f"joint Picard, 3 sweeps at N = 10^4: {json.dumps(out['joint'])}")
+    check(isinstance(rj.model, dpp.Kron) and all(
+        bool(torch.isfinite(f).all()) for f in rj.model.factors)
+        and min(min_j) > 0, f"joint Picard's factors are not finite and "
+        f"PD: min eigenvalues {min_j}")
+    check(len(rj.log_likelihoods) == 4
+          and np.isfinite(rj.log_likelihoods).all(),
+          f"joint Picard's LL track {rj.log_likelihoods}")
+
+    # full Picard on the dense kernel, and the same steps in float64
+    Ls = start.dense_kernel(10_000)
+    rp = fit_picard(Ls, batch, iters=3, a=1.0)
+    L64 = Ls.double()
+    for _ in range(3):
+        L64 = picard_step(L64, batch, 1.0)
+    out["picard"] = {"lls": rp.log_likelihoods, "step_s": rp.step_times,
+                     "vs_float64": max_rel(rp.L.double(), L64)}
+    del L64, Ls
+    print(f"full Picard, 3 steps at N = 10^4: {json.dumps(out['picard'])}")
+    check(len(rp.log_likelihoods) == 4
+          and np.isfinite(rp.log_likelihoods).all()
+          and bool((np.diff(rp.log_likelihoods) >= -_ASCENT_TOL).all()),
+          f"full Picard's LL fell by more than {_ASCENT_TOL}: "
+          f"{rp.log_likelihoods}")
+    check(bool(torch.isfinite(rp.L).all()) and torch.equal(rp.L, rp.L.T),
+          "full Picard's kernel is not finite and symmetric")
+    check(out["picard"]["vs_float64"] <= PICARD_F64_REL, f"full Picard's "
+          f"kernel misses the float64 steps' by {out['picard']['vs_float64']}"
+          f" of max |L| > {PICARD_F64_REL}")
+    del rp
+
+    # EM from eigh(L0) of the raw init
+    L0 = init.dense_kernel(10_000)
+    re = init.fit(batch, algorithm="em", iters=3, a=1e-3, max_dense=10_000,
+                  log_every=3)
+    lam_e = re.state.params[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lam0, V0 = torch.linalg.eigh(L0)      # EM's start, as the fit takes it
+    torch.cuda.synchronize()
+    eigh_ms = (time.perf_counter() - t0) * 1e3
+    lam0 = torch.clamp_min(lam0, 1e-6)
+    q_err = float((em.e_step(lam0, V0, batch).sum(-1)
+                   - batch.sizes().to(torch.float32)).abs().max())
+    out["em"] = {"lls": re.log_likelihoods, "chunk_s": re.sweep_times,
+                 "lam_min": float(lam_e.min()), "lam_max": float(lam_e.max()),
+                 "first_q_sum_max_abs_err": q_err, "eigh_ms": eigh_ms}
+    print(f"EM, 3 sweeps at N = 10^4: {json.dumps(out['em'])}")
+    check(isinstance(re.model, dpp.Dense) and re.model.N == init.N,
+          f"EM did not return a Dense model of N = {init.N}")
+    check(bool(torch.isfinite(lam_e).all()) and bool((lam_e > 0).all()),
+          f"EM's λ leave (0, inf): [{out['em']['lam_min']}, "
+          f"{out['em']['lam_max']}]")
+    check(np.isfinite(re.log_likelihoods).all(),
+          f"EM's LL track {re.log_likelihoods}")
+    check(q_err <= 1e-3 * batch.k_max, f"the first E-step's q sums miss "
+          f"the subset sizes by {q_err} > {1e-3 * batch.k_max}")
+
+    # the same fits at 24 x 24, card against a CPU copy
+    out["small_card_vs_cpu"] = small_fits_card_vs_cpu(dev)
+
+    # the checkpointed dense-Θ fit, and a save and a restore
+    ck_root = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(ck_root, ignore_errors=True)
+    ck_root.mkdir(parents=True)
+    out["checkpoint"] = checkpointed_fit(init, batch, oneshot, fit_kw,
+                                         ck_root / "fit")
+    out["save_restore"] = {
+        "krk": save_restore_ms(oneshot.state, ck_root / "krk"),
+        "em_n10000": save_restore_ms(re.state, ck_root / "em")}
+    shutil.rmtree(ck_root)
+    print(f"  checkpoint save and restore (ms, host clock): "
+          f"{json.dumps(out['save_restore'])}")
+
+    # one sweep of each learner at N = 10^4, n = 1000 (CUDA events), from
+    # the raw init as phase 10, and joint Picard's from ``start`` too
+    L1, L2 = init.factors
+    S1, S2 = start.factors
+    a_em = torch.tensor(1e-3, device=dev)
+
+    def em_sweep():
+        lam = em.m_step_eigvals(em.e_step(lam0, V0, batch))
+        return em.eigvec_ascent(lam, V0, batch, a_em)
+
+    sweeps = {
+        "krk_dense_theta": lambda: krk_picard_step(L1, L2, batch, 1.0,
+                                                   use_dense_theta=True),
+        "krk_per_subset": lambda: krk_picard_step(L1, L2, batch, 1.0),
+        "full_picard": lambda: picard_step(L0, batch, 1.0),
+        "joint_picard": lambda: joint_picard_step(L1, L2, batch, 1.0, 50),
+        "joint_picard_from_start": lambda: joint_picard_step(
+            S1, S2, batch, 1.0, 50),
+        "em": em_sweep}
+    out["sweep_ms"] = {k: cuda_ms(f, reps=3, warmup=1)
+                       for k, f in sweeps.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  one sweep at N = 10^4, n = {batch.n} (ms, CUDA events): "
+          f"{json.dumps(out['sweep_ms'])}; the phase took "
+          f"{out['phase_s']!r} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -1740,8 +2071,8 @@ def main() -> None:
 
     # -- 9. the routes agree at the init -------------------------------------
     theta = theta_matrix_kron(L1, L2, batch)
-    # the dense Θ of the same batch and factors once more: the scatter's
-    # atomics may sum in another order
+    # the dense Θ of the same batch and factors once more: bitwise equal
+    # unless the scatter sums in another order
     theta_again = theta_matrix_kron(L1, L2, batch)
     theta_repeat = {
         "entries_differing": int((theta != theta_again).sum()),
@@ -2095,7 +2426,10 @@ def main() -> None:
     # -- 18. keyed randomness -------------------------------------------------
     keyed = keyed_path(main, svc, batch, init, dev)
 
-    # -- 19. device times of every kernels row -------------------------------
+    # -- 19. the rest of learning ---------------------------------------------
+    rest = rest_of_learning(init, batch, rep, fit_kw, dev)
+
+    # -- 20. device times of every kernels row -------------------------------
     launch_us = [host_launch_us()]
     fill_device_times()
     launch_us.append(host_launch_us())
@@ -2126,6 +2460,7 @@ def main() -> None:
                 "source": "src/repro_torch/kernels/csrc/partial_trace.cu",
                 "replaces": f"src/repro/kernels/partial_trace.py:{line}",
                 "launches": fit_launches[k],
+                "launches_resumed_fit": rest["checkpoint"]["launches"][k],
                 "max_abs_err": pt_check["err"][k], **pt_times[k],
                 "shapes": {"N1": PT_SHAPES[0][0], "N2": PT_SHAPES[0][1]},
                 "card": card, "power_limit": power_limit}
@@ -2194,6 +2529,14 @@ def main() -> None:
             float(np.median(req)), "draw_keyed": keyed["draw_keyed"],
         "learning": keyed["learning"]}, "card": card,
         "power_limit": power_limit}))
+    print(json.dumps({"rest_of_learning_timing": {
+        "sweep_ms": rest["sweep_ms"], "save_restore": rest["save_restore"],
+        "em_eigh_ms": rest["em"]["eigh_ms"],
+        "phase_s": rest["phase_s"], "fit_n": batch.n,
+        "fit_k_max": batch.k_max}, "rest_of_learning": {
+        k: rest[k] for k in ("joint", "picard", "em", "small_card_vs_cpu",
+                             "checkpoint")},
+        "card": card, "power_limit": power_limit}))
     print(json.dumps({"kernels": [row, *pt_rows, gm_row, km_row, tf_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,
                                  "svc_sample16_median_ms":

@@ -1,0 +1,240 @@
+"""Fault-tolerant checkpointing: async save, atomic commit, retention,
+auto-resume and emergency save (port of ``repro/checkpoint/manager.py``).
+
+Layout (per step), the JAX package's:
+    <dir>/step_<n>.tmp/           # written first
+        meta.json                 # step, leaf count, tree skeleton, time
+        arr_<i>.npy               # one file per leaf
+    <dir>/step_<n>/               # atomic rename marks the commit
+
+A tree is a tensor, a numpy array, a ``torch.Generator`` or a scalar, or a
+dict, list or tuple of trees, or an object with the pair ``tree_flatten()``
+/ ``tree_unflatten(leaves, like)`` (``learning.LearnerState``). Leaves are
+taken in the JAX package's pytree order (a dict's keys sorted), so the
+same state gives the same files in either package. A generator's leaf is
+its ``get_state()``. The leaves are copied to the host when ``save`` is
+called (a device sync); the files are written by a background thread.
+``restore`` places each leaf where the target's leaf lives; the JAX
+package's ``shardings=`` (placement on a mesh) is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import queue
+import shutil
+import threading
+import time
+from typing import Any, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class CheckpointConfig:
+    directory: str
+    keep: int = 3
+    save_interval_steps: int = 100
+    async_save: bool = True
+
+
+def _is_node(tree) -> bool:
+    return hasattr(tree, "tree_flatten") and hasattr(type(tree),
+                                                     "tree_unflatten")
+
+
+def _flatten(tree) -> list:
+    """The leaves of ``tree`` in the JAX package's pytree order (None is an
+    empty subtree, as in JAX)."""
+    if tree is None:
+        return []
+    if _is_node(tree):
+        return list(tree.tree_flatten())
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _flatten(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in _flatten(t)]
+    return [tree]
+
+
+def _skeleton(tree):
+    """``tree`` with every leaf None — its JSON form; TypeError for an
+    object node, which restores only through a ``target``."""
+    if _is_node(tree):
+        raise TypeError(f"{type(tree).__name__} has no JSON form")
+    if isinstance(tree, dict):
+        return {k: _skeleton(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [_skeleton(t) for t in tree]
+    return None
+
+
+def _to_host(leaf) -> np.ndarray:
+    """A numpy snapshot of one leaf, never a view of the caller's memory."""
+    if isinstance(leaf, torch.Generator):
+        return leaf.get_state().numpy()
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf)
+
+
+def _like(arr: np.ndarray, target):
+    """One restored leaf, placed as ``target``'s leaf is."""
+    if isinstance(target, torch.Generator):
+        target.set_state(torch.as_tensor(arr))
+        return target
+    if isinstance(target, torch.Tensor):
+        return torch.as_tensor(arr).to(target.device)
+    return arr
+
+
+def _unflatten(target, leaves: Iterator[np.ndarray]):
+    if target is None:
+        return None
+    if _is_node(target):
+        n = len(target.tree_flatten())
+        return type(target).tree_unflatten([next(leaves) for _ in range(n)],
+                                           target)
+    if isinstance(target, dict):
+        return {k: _unflatten(target[k], leaves) for k in sorted(target)}
+    if isinstance(target, (list, tuple)):
+        return type(target)(_unflatten(t, leaves) for t in target)
+    return _like(next(leaves), target)
+
+
+def _from_skeleton(skeleton, leaves: Iterator[np.ndarray]):
+    if isinstance(skeleton, dict):
+        return {k: _from_skeleton(v, leaves) for k, v in skeleton.items()}
+    if isinstance(skeleton, list):
+        return [_from_skeleton(v, leaves) for v in skeleton]
+    return next(leaves)
+
+
+class CheckpointManager:
+    def __init__(self, cfg: CheckpointConfig):
+        self.cfg = cfg
+        os.makedirs(cfg.directory, exist_ok=True)
+        self._q: "queue.Queue" = queue.Queue()
+        self._worker: Optional[threading.Thread] = None
+        self._pending_error: Optional[BaseException] = None
+        if cfg.async_save:
+            self._worker = threading.Thread(target=self._drain, daemon=True)
+            self._worker.start()
+
+    # -- public API -----------------------------------------------------------
+    def should_save(self, step: int) -> bool:
+        return step % self.cfg.save_interval_steps == 0
+
+    def save(self, step: int, tree: Any, blocking: bool = False) -> None:
+        """Snapshot to host memory synchronously, write to disk async."""
+        if self._pending_error:
+            raise self._pending_error
+        host = ([_to_host(leaf) for leaf in _flatten(tree)],
+                self._tree_json(tree))
+        if self.cfg.async_save and not blocking:
+            self._q.put((step, host))
+        else:
+            self._write(step, host)
+
+    def emergency_save(self, step: int, tree: Any) -> None:
+        """Blocking save used from failure handlers (signal/except hooks)."""
+        self.save(step, tree, blocking=True)
+
+    def wait(self) -> None:
+        self._q.join()
+        if self._pending_error:
+            raise self._pending_error
+
+    def latest_step(self) -> Optional[int]:
+        steps = self._committed_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: Optional[int] = None, target: Any = None) -> Any:
+        """Load a checkpoint.
+
+        target: an example tree providing the structure — required to
+        restore an object node (``LearnerState``) — and the placement:
+        each tensor leaf is restored onto the device of the target's leaf,
+        a generator leaf into the target's generator. Without a target the
+        result is the saved dicts and lists of numpy arrays.
+        """
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(
+                f"no committed checkpoint in {self.cfg.directory}")
+        d = os.path.join(self.cfg.directory, f"step_{step}")
+        with open(os.path.join(d, "meta.json")) as f:
+            meta = json.load(f)
+        leaves = [np.load(os.path.join(d, f"arr_{i}.npy"))
+                  for i in range(meta["n_leaves"])]
+        if target is not None:
+            want = len(_flatten(target))
+            if want != len(leaves):
+                raise ValueError(f"checkpoint step_{step} holds "
+                                 f"{len(leaves)} leaves, the target {want}")
+            return _unflatten(target, iter(leaves))
+        if meta.get("tree") is None:
+            raise ValueError(
+                f"checkpoint step_{step} holds custom tree nodes; pass a "
+                "`target` tree to restore it")
+        return _from_skeleton(json.loads(meta["tree"]), iter(leaves))
+
+    # -- internals ---------------------------------------------------------------
+    @staticmethod
+    def _tree_json(tree) -> Optional[str]:
+        try:
+            return json.dumps(_skeleton(tree))
+        except TypeError:
+            # object nodes (e.g. learning.LearnerState) have no JSON form;
+            # such checkpoints restore via an explicit `target` tree.
+            return None
+
+    def _committed_steps(self) -> List[int]:
+        out = []
+        for name in os.listdir(self.cfg.directory):
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                try:
+                    out.append(int(name.split("_")[1]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def _write(self, step: int, host) -> None:
+        leaves, tree_json = host
+        # unique tmp dir: concurrent writers of the same step never collide;
+        # the atomic rename still publishes exactly one complete snapshot.
+        d_tmp = os.path.join(self.cfg.directory,
+                             f"step_{step}.{os.getpid()}_{id(host)}.tmp")
+        d_final = os.path.join(self.cfg.directory, f"step_{step}")
+        os.makedirs(d_tmp)
+        with open(os.path.join(d_tmp, "meta.json"), "w") as f:
+            json.dump({"step": step, "n_leaves": len(leaves),
+                       "tree": tree_json, "time": time.time()}, f)
+        for i, leaf in enumerate(leaves):
+            np.save(os.path.join(d_tmp, f"arr_{i}.npy"), leaf)
+        if os.path.exists(d_final):
+            shutil.rmtree(d_final)
+        try:
+            os.rename(d_tmp, d_final)      # atomic commit
+        except OSError:
+            shutil.rmtree(d_tmp, ignore_errors=True)   # lost the race: drop
+        self._gc()
+
+    def _gc(self) -> None:
+        steps = self._committed_steps()
+        for s in steps[: -self.cfg.keep]:
+            shutil.rmtree(os.path.join(self.cfg.directory, f"step_{s}"),
+                          ignore_errors=True)
+
+    def _drain(self) -> None:
+        while True:
+            step, host = self._q.get()
+            try:
+                self._write(step, host)
+            except Exception as e:              # surfaced on next save/wait
+                self._pending_error = e
+            finally:
+                self._q.task_done()

@@ -140,8 +140,9 @@ def scatter_theta(N: int, idx: torch.Tensor, mask: torch.Tensor,
 
     The JAX package builds one dense N x N per subset and takes the mean,
     which needs n·N² floats (400 GB at N = 10^4, n = 1000); this is the
-    same sum in N² floats. On a card the accumulation runs in atomics, so
-    the order of the sums, and the last bits of Θ, change from run to run.
+    same sum in N² floats. On an H100 two builds of the same Θ (N = 10^4,
+    n = 1000) were bitwise equal: the accumulation did not sum in a varying
+    order there (``chip_smoke.py`` phase 9 checks it on every run).
     """
     n = idx.shape[0]
     idx = idx.long()

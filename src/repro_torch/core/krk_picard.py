@@ -177,8 +177,8 @@ def theta_matrix_kron(L1: torch.Tensor, L2: torch.Tensor,
     mean: n·N² floats, 400 GB at N = 10^4 and n = 1000. Here every
     subset's masked inverse is scatter-added into one N x N buffer, which
     is divided by n (``core.dpp.scatter_theta``): the same sum in N²
-    floats, 400 MB at N = 10^4. On a card the scatter's atomics sum in an
-    order that changes from run to run.
+    floats, 400 MB at N = 10^4. On an H100 the same batch and factors gave
+    the same Θ bit for bit in two builds (``chip_smoke.py`` phase 9).
     """
     _, _, L1rr, L2uu = _subset_blocks(L1, L2, batch)
     inv, _ = masked_inv_and_logdet(identity_padded(L1rr * L2uu, batch.mask))

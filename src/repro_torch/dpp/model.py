@@ -262,22 +262,48 @@ class DPPModel:
         return kernel_ops.greedy_map_kdpp(self.dense_kernel(max_dense),
                                           int(k))
 
+    # -- learning -----------------------------------------------------------
+    def fit(self, batch: SubsetBatch, algorithm: Optional[str] = None,
+            max_dense: int = MAX_DENSE_N, **fit_kwargs):
+        """Maximum-likelihood fit through ``repro_torch.learning.fit``.
+        Returns the engine's ``FitReport`` with ``report.model`` wrapped
+        back into a facade model on the fit's device (``Kron`` for
+        krk/joint, ``Dense`` for em). ``algorithm`` defaults to "em" for
+        a ``Dense`` and "krk" for a ``Kron``. All engine kwargs (iters,
+        schedule, minibatch_size, use_dense_theta, checkpoint_dir,
+        save_every, resume, log_every, health, backend, device, ...) pass
+        through; ``device`` defaults to "cuda". ``max_dense`` bounds the
+        dense materialization a Kron model needs for ``algorithm="em"``."""
+        from ..learning.api import fit as _fit
+        if algorithm is None:
+            algorithm = self._default_algorithm
+        rep = _fit(self._fit_params(algorithm, max_dense), batch,
+                   algorithm=algorithm, **fit_kwargs)
+        if isinstance(rep.model, KronDPP):
+            fitted = Kron(rep.model.factors,
+                          device=rep.model.factors[0].device)
+        else:
+            fitted = Dense(rep.model, device=rep.model.device)
+        return dataclasses.replace(rep, model=fitted)
+
     # -- not ported yet -----------------------------------------------------
     def serving(self, config=None, **kwargs):
         _not_ported("serving (the async tier)",
                     "serving/ and the obs exporters")
-
-    def fit(self, batch: SubsetBatch, algorithm=None, **fit_kwargs):
-        _not_ported("fit of a Dense model (EM)", "The rest of learning")
 
     # -- subclass hooks -----------------------------------------------------
     def _wrap_factors(self, factors: Tuple[torch.Tensor, ...]
                       ) -> "DPPModel":
         raise NotImplementedError
 
+    def _fit_params(self, algorithm: str, max_dense: int = MAX_DENSE_N):
+        raise NotImplementedError
+
 
 class Dense(DPPModel):
     """An explicit N x N L-ensemble kernel behind the facade protocol."""
+
+    _default_algorithm = "em"
 
     def __init__(self, L, device: DeviceLike = "cuda"):
         self.L = as_float(L, device)
@@ -295,11 +321,20 @@ class Dense(DPPModel):
     def _wrap_factors(self, factors):
         return Dense(factors[0], device=self.device)
 
+    def _fit_params(self, algorithm: str, max_dense: int = MAX_DENSE_N):
+        if algorithm != "em":
+            raise ValueError(
+                f"Dense kernels learn with algorithm='em'; {algorithm!r} "
+                f"needs a factored Kron model")
+        return self.L
+
 
 class Kron(DPPModel):
     """The paper's Kronecker kernel L = L_1 ⊗ ... ⊗ L_m. ``factors`` may
     be tensors, numpy arrays or a ``core.KronDPP``; they are placed on
     ``device`` as float32."""
+
+    _default_algorithm = "krk"
 
     def __init__(self, factors, device: DeviceLike = "cuda"):
         if isinstance(factors, KronDPP):
@@ -316,21 +351,13 @@ class Kron(DPPModel):
     def to_krondpp(self) -> KronDPP:
         return KronDPP(self._factors)
 
-    def fit(self, batch: SubsetBatch, algorithm: str = "krk",
-            **fit_kwargs):
-        """Maximum-likelihood fit through ``repro_torch.learning.fit``
-        (KrK-Picard: "krk" or "krk-stochastic"). Returns the engine's
-        ``FitReport`` with ``report.model`` wrapped back into a ``Kron``.
-        All engine kwargs (iters, schedule, minibatch_size,
-        use_dense_theta, fresh_theta, log_every, health, backend, device,
-        ...) pass through; ``device`` defaults to "cuda"."""
-        from ..learning.api import fit as _fit
-        rep = _fit(self._factors, batch, algorithm=algorithm, **fit_kwargs)
-        fitted = Kron(rep.model.factors, device=rep.model.factors[0].device)
-        return dataclasses.replace(rep, model=fitted)
-
     def _wrap_factors(self, factors):
         return Kron(factors, device=self.device)
+
+    def _fit_params(self, algorithm: str, max_dense: int = MAX_DENSE_N):
+        if algorithm == "em":
+            return self.dense_kernel(max_dense)
+        return self._factors
 
 
 # ---------------------------------------------------------------------------

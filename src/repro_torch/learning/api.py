@@ -7,13 +7,15 @@
 
     rep = dpp.Kron(factors).fit(batch, algorithm="krk",
                                 use_dense_theta=True,
-                                schedule=schedules.armijo(a0=1.5), iters=5)
+                                schedule=schedules.armijo(a0=1.5), iters=5,
+                                checkpoint_dir="ck", save_every=2)
 
 Ported: KrK-Picard, batch (``"krk"``) and stochastic
-(``"krk-stochastic"``), on one device (the JAX package's ``Local``
-placement). Not ported yet, each raising ``NotImplementedError`` that
-names its ROADMAP.md item: ``"em"``, ``"joint"`` and ``"lowrank"``;
-``runtime=``/``mesh=`` placements; ``checkpoint_dir=``/``resume=``.
+(``"krk-stochastic"``), EM (``"em"``) and joint Picard (``"joint"``), on
+one device (the JAX package's ``Local`` placement), with checkpoints
+(``checkpoint_dir=``, ``save_every=``, ``resume=``) in the JAX package's
+layout. Not ported yet, each raising ``NotImplementedError`` that names
+its ROADMAP.md item: ``"lowrank"``; ``runtime=``/``mesh=`` placements.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from typing import Any, List, Optional
 import torch
 
 from .. import obs
-from .._device import DeviceLike, resolve_device
+from .._device import DeviceLike, as_float, resolve_device
+from ..checkpoint import CheckpointConfig, CheckpointManager
 from ..core.dpp import SubsetBatch
 from ..core.krondpp import KronDPP
 from . import schedules as schedules_mod
@@ -33,9 +36,11 @@ from .engine import ALGORITHMS, LearnerState, LearningEngine
 
 @dataclasses.dataclass
 class FitReport:
-    """What a fit returns. ``model`` is a ``core.KronDPP`` (``dpp.Kron.fit``
-    wraps it into a ``dpp.Kron``); ``log_likelihoods[i]`` is the tracked
-    LL after sweep ``ll_sweeps[i]`` (sweep 0 = init). ``health`` is the
+    """What a fit returns. ``model`` is a ``core.KronDPP`` for krk/joint
+    and the dense reconstruction V diag(λ) V^T for em (``dpp.Model.fit``
+    wraps it into a ``dpp.Kron`` or a ``dpp.Dense``);
+    ``log_likelihoods[i]`` is the tracked LL after sweep ``ll_sweeps[i]``
+    (sweep 0 = init). ``health`` is the
     final ``HealthMonitor.report()`` dict when health monitoring was on —
     automatic whenever a tracker is configured — else None."""
     model: Any
@@ -54,15 +59,27 @@ def _not_ported(what: str, item: str):
         f"{item})")
 
 
-def _factors(model, algorithm: str):
-    """-> the two factors of a ``core.KronDPP``, a ``dpp.Kron`` or a
-    factor tuple."""
+def _normalize_params(model, algorithm: str, dev: torch.device):
+    """-> the engine's params on ``dev``: the two factors of a
+    ``core.KronDPP``, a ``dpp.Kron`` or a factor tuple; for em, (λ, V) of
+    a dense kernel (or of a KronDPP's full matrix), λ floored at 1e-6."""
+    if algorithm == "em":
+        L0 = model.full_matrix() if isinstance(model, KronDPP) else model
+        lam, V = torch.linalg.eigh(as_float(L0, dev))
+        return (torch.clamp_min(lam, 1e-6), V)
     factors = tuple(model.factors) if hasattr(model, "factors") \
         else tuple(model)
     if len(factors) != 2:
         raise ValueError(f"{algorithm} learning needs exactly 2 factors, "
                          f"got {len(factors)}")
     return factors
+
+
+def _to_model(params, algorithm: str):
+    if algorithm == "em":
+        lam, V = params
+        return (V * lam[None, :]) @ V.T
+    return KronDPP(tuple(params))
 
 
 def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
@@ -72,14 +89,17 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
         log_every: int = 1,
         track_ll: bool = True, ll_mode: Optional[str] = None,
         use_dense_theta: bool = False, fresh_theta: bool = True,
-        checkpoint_dir: Optional[str] = None, resume: bool = False,
-        mesh=None, runtime=None, health=None,
+        checkpoint_dir: Optional[str] = None, save_every: Optional[int] = None,
+        resume: bool = False, mesh=None, runtime=None,
+        power_iters: int = 50, health=None,
         backend: Optional[str] = None,
         device: DeviceLike = "cuda") -> FitReport:
-    """Fit a KronDPP to a subset batch.
+    """Fit a (Kron)DPP to a subset batch.
 
-    algorithm: "krk" (batch Alg. 1) or "krk-stochastic" (minibatch
-        sweeps); a ``minibatch_size`` turns "krk" into "krk-stochastic".
+    algorithm: "krk" (batch Alg. 1), "krk-stochastic" (minibatch
+        sweeps; a ``minibatch_size`` turns "krk" into it), "em"
+        (Gillenwater et al. baseline; ``model`` a dense kernel or a
+        KronDPP) or "joint" (Alg. 3, no ascent guarantee).
     schedule: a ``schedules.Schedule``; default ``constant(a)``.
     seed / key / generator: the minibatch stream — the PRNG key ``key``
         (``repro_torch.random``, or the JAX package's uint32 key), else
@@ -92,6 +112,13 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
         defaults to "sweep"/"none" per ``track_ll``.
     use_dense_theta / fresh_theta: the Θ route and the block-CCCP
         refresh, as in ``core.krk_picard_step``.
+    checkpoint_dir/save_every/resume: persist ``LearnerState`` through
+        ``repro_torch.checkpoint.CheckpointManager`` every ``save_every``
+        sweeps (rounded up to chunk boundaries) and at the end, and resume
+        from the latest committed state, continuing the exact key (or
+        generator) and schedule stream: ``iters`` counts the resumed
+        sweeps too, and ``ll_sweeps[0]`` is the first new sweep.
+    power_iters: joint Picard's power-method steps.
     health: numerics sentinels (``repro_torch.obs.health``) checked at the
         start and at every chunk boundary, folded into
         ``FitReport.health``. Pass an ``obs.HealthMonitor`` (or
@@ -109,9 +136,6 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm must be one of {ALGORITHMS}, "
                          f"got {algorithm!r}")
-    if checkpoint_dir is not None or resume:
-        _not_ported("fit(checkpoint_dir=/resume=)",
-                    "The rest of learning, checkpoint/manager.py")
     dev = resolve_device(device)
     if algorithm == "krk" and minibatch_size is not None:
         algorithm = "krk-stochastic"   # a minibatch request IS stochastic
@@ -124,10 +148,22 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
                             minibatch_size=minibatch_size,
                             use_dense_theta=use_dense_theta,
                             fresh_theta=fresh_theta, ll_mode=ll_mode,
-                            backend=backend)
+                            power_iters=power_iters, backend=backend)
     batch = SubsetBatch(batch.indices.to(dev), batch.mask.to(dev))
-    state = engine.init_state(_factors(model, algorithm), batch, seed=seed,
-                              generator=generator, device=dev, key=key)
+    state = engine.init_state(_normalize_params(model, algorithm, dev),
+                              batch, seed=seed, generator=generator,
+                              device=dev, key=key)
+
+    manager = None
+    if checkpoint_dir is not None:
+        manager = CheckpointManager(CheckpointConfig(
+            directory=checkpoint_dir,
+            save_interval_steps=max(1, save_every or iters)))
+        if resume and manager.latest_step() is not None:
+            state = manager.restore(target=state)
+
+    start_sweep = int(state.sweep)
+    remaining = max(0, iters - start_sweep)
 
     if isinstance(health, obs.HealthMonitor):
         monitor = health
@@ -147,19 +183,35 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
 
     lls: List[float] = []
     ll_sweeps: List[int] = []
-    if ll_mode != "none":
+    if ll_mode != "none" and start_sweep == 0:
         lls.append(float(state.ll))
         ll_sweeps.append(0)
+
+    last_saved = start_sweep
+
+    def checkpoint_cb(st: LearnerState):
+        nonlocal last_saved
+        sweep = int(st.sweep)
+        if manager is not None and save_every and \
+                sweep - last_saved >= save_every:
+            manager.save(sweep, st)
+            last_saved = sweep
 
     with obs.spans.start_span("learning.fit", algorithm=algorithm,
                               runtime="local", iters=iters):
         state, run_lls, run_sweeps, times = engine.run(
-            state, batch, iters, log_every=log_every, health=monitor)
+            state, batch, remaining, log_every=log_every,
+            callback=checkpoint_cb, health=monitor)
     lls.extend(run_lls)
     ll_sweeps.extend(run_sweeps)
 
+    if manager is not None:
+        if remaining:
+            manager.save(int(state.sweep), state)
+        manager.wait()
+
     total_t = sum(times)
-    sweeps_per_sec = (iters / total_t) if total_t > 0 else float("inf")
+    sweeps_per_sec = (remaining / total_t) if total_t > 0 else float("inf")
     health_report = monitor.report(emit=True) if monitor is not None else None
     tracker = obs.current_tracker()
     if obs.enabled(tracker):
@@ -170,7 +222,7 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
             log_likelihood=(lls[-1] if lls else None),
             backtracks=int(state.sched.backtracks))
     return FitReport(
-        model=KronDPP(tuple(state.params)), state=state,
+        model=_to_model(state.params, algorithm), state=state,
         log_likelihoods=lls, ll_sweeps=ll_sweeps, sweep_times=times,
         sweeps=int(state.sweep), sweeps_per_sec=sweeps_per_sec,
         health=health_report)

@@ -21,8 +21,11 @@ a chunk is a Python loop over sweeps, with the same contract:
   * the host syncs with the device at each chunk's end, where metrics,
     health checks and callbacks run.
 
-Only KrK-Picard (``"krk"``, ``"krk-stochastic"``) is ported; ``"em"`` and
-``"joint"`` raise ``NotImplementedError``.
+The learners are KrK-Picard (``"krk"``, ``"krk-stochastic"``), EM
+(``"em"``, params (λ, V)) and joint Picard (``"joint"``); EM and joint
+Picard take the trial step as it comes (no Armijo backtracking).
+``LearnerState.tree_flatten`` lists a state's leaves in the JAX pytree's
+order, which is how ``repro_torch.checkpoint`` saves and restores it.
 """
 
 from __future__ import annotations
@@ -31,15 +34,18 @@ import dataclasses
 import time
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from .. import obs
 from .. import random as prng
 from .._device import DeviceLike, resolve_device
 from ..core.dpp import SubsetBatch
+from ..core.em import e_step, eigvec_ascent, m_step_eigvals
+from ..core.joint_picard import joint_picard_step
 from ..core.krk_picard import _alpha_beta, compute_AC, compute_C
 from . import schedules
-from .objective import log_likelihood_factored
+from .objective import log_likelihood_eig, log_likelihood_factored
 
 ALGORITHMS = ("krk", "krk-stochastic", "em", "joint")
 
@@ -68,8 +74,9 @@ def emit_sweep_metrics(tracker, *, algorithm: str, runtime: str,
 class LearnerState:
     """Everything a fit needs to continue.
 
-    params: (L1, L2) factors.
-    sweep:  () int32 — completed sweeps.
+    params: algorithm parameters — (L1, L2) factors for krk/joint,
+            (lam, V) eigendecomposition for em.
+    sweep:  () int32 — completed sweeps (resume offset).
     key:    the minibatch stream: a PRNG key (2,) on the factors' device,
             split once a sweep as the JAX engine splits its key; or a
             ``torch.Generator`` there, when the fit was given one.
@@ -81,6 +88,42 @@ class LearnerState:
     key: Union[torch.Tensor, torch.Generator]
     sched: schedules.ScheduleState
     ll: torch.Tensor
+
+    def tree_flatten(self) -> list:
+        """The leaves in the JAX package's pytree order: params..., sweep,
+        key, sched.t, sched.a, sched.backtracks, ll. A key leaf is its
+        uint32 words (``random.key_data``), as the JAX package holds its
+        key, so a checkpoint of either package holds the same files for
+        the same state; a generator's leaf is its ``get_state()``."""
+        key = (self.key.get_state() if isinstance(self.key, torch.Generator)
+               else prng.key_data(self.key))
+        return [*self.params, self.sweep, key, self.sched.t, self.sched.a,
+                self.sched.backtracks, self.ll]
+
+    @classmethod
+    def tree_unflatten(cls, leaves, like: "LearnerState") -> "LearnerState":
+        """A state from leaves in ``tree_flatten``'s order (numpy arrays or
+        tensors, e.g. a checkpoint's) on ``like``'s device. A generator
+        key's leaf is restored into ``like.key`` with ``set_state``."""
+        leaves = list(leaves)
+        n = len(like.params)
+        if len(leaves) != n + 6:
+            raise ValueError(f"a LearnerState of {n} params has {n + 6} "
+                             f"leaves, got {len(leaves)}")
+        dev = like.sweep.device
+
+        def tensor(x):
+            return torch.as_tensor(np.asarray(x)).to(dev)
+
+        params, (sweep, key, t, a, bt, ll) = leaves[:n], leaves[n:]
+        if isinstance(like.key, torch.Generator):
+            like.key.set_state(torch.as_tensor(np.asarray(key, np.uint8)))
+            key = like.key
+        else:
+            key = prng.as_key(np.asarray(key), dev)
+        return cls(tuple(tensor(p) for p in params), tensor(sweep), key,
+                   schedules.ScheduleState(tensor(t), tensor(a), tensor(bt)),
+                   tensor(ll))
 
 
 def select_minibatch(key, batch: SubsetBatch, size: int) -> SubsetBatch:
@@ -109,6 +152,8 @@ class LearningEngine:
     """Runs KronDPP learning sweeps in chunks; one instance per
     (algorithm, schedule, options) config.
 
+    power_iters: power-method steps of joint Picard's nearest Kronecker
+        factors (``core.kron.nearest_kron_factors``).
     backend: the engine of the dense-Θ partial traces
         (``kernels.ops.partial_trace_A/C``): None — the CUDA kernels for
         CUDA tensors, the plain versions for CPU tensors; "reference" —
@@ -119,7 +164,8 @@ class LearningEngine:
                  schedule: Optional[schedules.Schedule] = None,
                  minibatch_size: Optional[int] = None,
                  use_dense_theta: bool = False, fresh_theta: bool = True,
-                 ll_mode: str = "sweep", backend: Optional[str] = None):
+                 ll_mode: str = "sweep", power_iters: int = 50,
+                 backend: Optional[str] = None):
         if algorithm not in ALGORITHMS:
             raise ValueError(f"algorithm must be one of {ALGORITHMS}, "
                              f"got {algorithm!r}")
@@ -138,21 +184,19 @@ class LearningEngine:
                 f"minibatch_size is only consumed by krk-stochastic; "
                 f"got minibatch_size={minibatch_size} with {algorithm!r} "
                 "(api.fit auto-promotes krk to krk-stochastic)")
-        if algorithm in ("em", "joint"):
-            raise NotImplementedError(
-                f"algorithm {algorithm!r} is not ported to repro_torch yet "
-                f"(ROADMAP.md, queue 1: The rest of learning, EM and joint "
-                f"Picard)")
         self.algorithm = algorithm
         self.schedule = schedule
         self.minibatch_size = minibatch_size
         self.use_dense_theta = use_dense_theta
         self.fresh_theta = fresh_theta
         self.ll_mode = ll_mode
+        self.power_iters = power_iters
         self.backend = backend
 
     # -- objective -----------------------------------------------------------
     def _ll_value(self, params, batch) -> torch.Tensor:
+        if self.algorithm == "em":
+            return log_likelihood_eig(params[0], params[1], batch)
         return log_likelihood_factored(tuple(params), batch)
 
     # -- one chunk -----------------------------------------------------------
@@ -169,7 +213,7 @@ class LearningEngine:
             sub = (select_minibatch(k_sel, batch, self.minibatch_size)
                    if self.minibatch_size else batch)
             a_trial = schedules.trial_step(self.schedule, state.sched)
-            params, a_acc, n_bt = self._krk_sweep(state.params, sub, a_trial)
+            params, a_acc, n_bt = self._sweep(state.params, sub, a_trial)
             sched = schedules.advance(self.schedule, state.sched, a_acc, n_bt)
             ll = (self._ll_value(params, batch)
                   if self.ll_mode == "sweep" else state.ll)
@@ -182,6 +226,21 @@ class LearningEngine:
         return state, lls
 
     # -- one sweep -----------------------------------------------------------
+    def _sweep(self, params, sub: SubsetBatch, a_trial: torch.Tensor):
+        """One sweep of the engine's algorithm. Returns (params, accepted
+        a, backtracks)."""
+        if self.algorithm == "em":
+            lam, V = params
+            q = e_step(lam, V, sub)
+            lam = m_step_eigvals(q)
+            V = eigvec_ascent(lam, V, sub, a_trial)
+            return (lam, V), a_trial, 0
+        if self.algorithm == "joint":
+            L1, L2 = params
+            L1, L2 = joint_picard_step(L1, L2, sub, a_trial, self.power_iters)
+            return (L1, L2), a_trial, 0
+        return self._krk_sweep(params, sub, a_trial)
+
     def _krk_sweep(self, params, sub: SubsetBatch, a_trial: torch.Tensor):
         """Alg. 1 sweep, op-for-op the math of ``core.krk_picard_step`` but
         with the two half-updates exposed so a step size can be backtracked

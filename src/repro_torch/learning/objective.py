@@ -15,7 +15,8 @@ is evaluated without ever materializing the N x N kernel:
     sampler uses, so a huge product spectrum never overflows) and reduces
     with a softplus — O(Σ N_i³) for the factor ``eigvalsh`` plus O(N).
 
-``log_likelihood_eig`` (the EM parametrization) waits for the EM port.
+``log_likelihood_eig`` is the EM parametrization's: the subset logdets
+gather from the dense ``V diag(λ) V^T``, and log det(I + L) comes from λ.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from typing import Tuple
 
 import torch
 
-from ..core.dpp import SubsetBatch, identity_padded, masked_inv_and_logdet
+from ..core.dpp import (SubsetBatch, gather_submatrix, identity_padded,
+                        masked_inv_and_logdet)
 from ..core.krondpp import KronDPP
 from ..sampling.spectral import log_product_spectrum
 
@@ -62,3 +64,14 @@ def log_likelihood_factored(factors: Tuple[torch.Tensor, ...],
     """phi(⊗_i L_i) over a padded subset batch, on the factors' device."""
     return (subset_logdets_factored(factors, batch).mean()
             - logdet_I_plus_kron(factors))
+
+
+def log_likelihood_eig(lam: torch.Tensor, V: torch.Tensor,
+                       batch: SubsetBatch) -> torch.Tensor:
+    """phi(V diag(λ) V^T) for the EM parametrization: the subset logdets
+    gather from the (already dense) reconstruction, but log det(I + L)
+    comes free from the eigenvalues — no slogdet."""
+    L = (V * lam[None, :]) @ V.T
+    _, lds = masked_inv_and_logdet(
+        gather_submatrix(L, batch.indices, batch.mask))
+    return lds.mean() - torch.log1p(torch.clamp_min(lam, 0.0)).sum()

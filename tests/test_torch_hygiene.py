@@ -21,7 +21,7 @@ from repro_torch import random as prng
 from repro_torch.convert import (key_from_numpy, kron_from_numpy,
                                   spectrum_from_numpy,
                                   subset_batch_from_numpy)
-from repro_torch.core import SubsetBatch, random_krondpp
+from repro_torch.core import SubsetBatch, fit_picard, random_krondpp
 from repro_torch.learning import LearningEngine, fit, schedules
 from repro_torch.sampling import SamplingService
 from repro_torch.serving import TenantKeyring
@@ -42,7 +42,9 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
             "repro_torch.kernels.kron_matvec, repro_torch.core.kron, "
             "repro_torch.core.clustering, repro_torch.core.dpp, "
             "repro_torch.random, repro_torch.serving, "
-            "repro_torch.kernels.threefry\n"
+            "repro_torch.kernels.threefry, repro_torch.checkpoint, "
+            "repro_torch.checkpoint.manager, repro_torch.core.em, "
+            "repro_torch.core.picard, repro_torch.core.joint_picard\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -103,6 +105,15 @@ def test_no_jax_or_jax_package_import_in_port_sources(path):
     lambda: random_krondpp(prng.PRNGKey(0, "cpu"), (3, 3)),
     lambda: dpp.Kron((np.eye(3),), device="cpu").sample(
         prng.PRNGKey(0, "cpu"), 2),
+    lambda: fit(np.eye(6), SubsetBatch.from_lists([[0, 1]], device="cpu"),
+                algorithm="em"),
+    lambda: fit((np.eye(2), np.eye(3)),
+                SubsetBatch.from_lists([[0, 1]], device="cpu"),
+                algorithm="joint"),
+    lambda: dpp.Dense(np.eye(3), device="cpu").fit(
+        SubsetBatch.from_lists([[0, 1]], device="cpu")),
+    lambda: fit_picard(np.eye(3), SubsetBatch.from_lists([[0, 1]],
+                                                         device="cpu")),
 ])
 def test_entry_points_without_a_card_raise(call):
     """Every entry point defaults to device="cuda"; with no card it

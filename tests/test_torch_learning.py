@@ -359,7 +359,7 @@ def test_kron_fit_facade_returns_a_port_kron(data, init, jdata, jinit):
     for g, w in zip(factors_to_numpy(rep.model), jrep.model.factors):
         np.testing.assert_allclose(g, np_(w), **FACTOR_TOL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dpp.Dense(np.eye(3), device="cpu").fit(data)
+        model.fit(data, algorithm="lowrank", device="cpu")
 
 
 def dpp_jax_fit(jinit, jdata):
@@ -369,13 +369,13 @@ def dpp_jax_fit(jinit, jdata):
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    (dict(algorithm="em"), NotImplementedError),
-    (dict(algorithm="joint"), NotImplementedError),
+    (dict(algorithm="lowrank", a=0.5), NotImplementedError),
+    (dict(algorithm="joint", mesh=object()), NotImplementedError),
     (dict(algorithm="lowrank"), NotImplementedError),
     (dict(runtime=object()), NotImplementedError),
     (dict(mesh=object()), NotImplementedError),
-    (dict(checkpoint_dir="ck"), NotImplementedError),
-    (dict(resume=True), NotImplementedError),
+    (dict(checkpoint_dir="ck", algorithm="lowrank"), NotImplementedError),
+    (dict(resume=True, runtime=object()), NotImplementedError),
     (dict(algorithm="bogus"), ValueError),
     (dict(ll_mode="bogus"), ValueError),
     (dict(algorithm="em", schedule=schedules.armijo()), ValueError),

@@ -166,14 +166,15 @@ def test_facade_sample_returns_subset_batch_with_provenance():
 
 
 @pytest.mark.parametrize("call", [
-    lambda m, g: m.fit(None, algorithm="joint", device="cpu"),
+    lambda m, g: m.fit(None, algorithm="lowrank", iters=2, device="cpu"),
     lambda m, g: m.fit(None, algorithm="lowrank", device="cpu"),
-    lambda m, g: m.fit(None, resume=True, device="cpu"),
+    lambda m, g: m.fit(None, mesh=object(), iters=1, device="cpu"),
     lambda m, g: m.fit(None, runtime=object(), device="cpu"),
-    lambda m, g: dpp.from_kernel(m.dense_kernel(), device="cpu").fit(None),
-    lambda m, g: m.fit(None, algorithm="em", device="cpu"),
+    lambda m, g: dpp.from_kernel(m.dense_kernel(), device="cpu").serving(),
+    lambda m, g: m.serving(max_batch=8),
     lambda m, g: m.serving(),
-    lambda m, g: m.fit(None, checkpoint_dir="ckpt", device="cpu"),
+    lambda m, g: m.fit(None, algorithm="lowrank", checkpoint_dir="ckpt",
+                       device="cpu"),
     lambda m, g: m.serving(config=None, max_batch=4),
 ])
 def test_operations_not_ported_raise(call):
