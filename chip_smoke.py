@@ -163,7 +163,27 @@ non-zero and prints no result line.
    first eigh (of the 400 MB L) on the host clock; with CUDA events, one sweep of each learner from the raw init
    (KrK-Picard with dense Θ and per subset, full Picard, joint Picard, EM)
    and joint Picard's from ``start``;
-20. the device times of every ``kernels`` row (``fill_device_times``),
+20. the low-rank family (``dpp.LowRank``) at the width of
+   ``benchmarks/lowrank_dual.py``: N = 65536, r = 32, V = 0.7·normal, q =
+   |normal| + 0.3 from seeded keys, rescaled to E|Y| = 8, every call on the
+   card: one r x r eigh for each (V, q) pair and none N-sized (every
+   ``torch.linalg.eigh``/``eigvalsh`` size recorded, the cache's
+   ``eigh_s`` tags); ``sample(key, 16)`` and ``sample(key, 64, k=8)``
+   against a CPU copy on the card's spectrum carried across; 3000 draws'
+   inclusion frequencies against diag K; ``service(seed=0)``'s
+   ``sample(16)`` and ``sample_kdpp(8, 16)`` against the CPU copy's
+   service, ``draw_keyed`` of 512 keys in one chunk and in chunks of 64;
+   ``log_prob`` of the first 1000 draws, ``marginal`` of 20 items,
+   ``condition`` on 5 (a ``LowRank``; the inclusion identity for 3 more),
+   ``map(20)`` in float64, each against the CPU copy; a 3-sweep Armijo
+   ``fit`` at N = 65536 on the 1000 draws, and at N = 4096 on 64 subsets
+   (the benchmark's fit), with and without ``item_features``, against the
+   CPU copy; every call with all six kernels' launch counts reset before
+   and read after (``threefry2x32`` alone launches); CUDA-event times
+   beside one read of φ a step; at N = 2^20, r = 128 (φ 512 MB) the peak
+   allocation of ``sample(key, 16)`` above what was allocated before it,
+   below B·N·k_max·4 bytes;
+21. the device times of every ``kernels`` row (``fill_device_times``),
    after every host-clock time above, with the host's time of one small
    launch before and after the profiler sessions.
 
@@ -251,6 +271,20 @@ max |L| of float64 steps on the card (8e-7 seen); the first E-step's q
 rows sum to |Y_i| within 1e-3 · k_max. The resumed dense-Θ fit against
 the one-shot fit: factors within 1e-5 of max |L_i| (expected bit for bit,
 since two builds of Θ are), the same accepted step and backtracks.
+
+The low-rank family (phase 20): draws of the card against the CPU copy
+under the picks rule above (the exact chain on U = φΓ); a row whose
+phase-1 uniform lies within 1e-6 of its threshold is a different draw (the
+two devices round sigmoid(log λ) apart), counted and not compared, at
+most a tenth of a batch; the k-DPP's ESP masks are held equal. ``log_prob``
+within 1e-4 of max(1, |ref|), K[S, S] within 2e-6, the conditioned V
+within 1e-4 of max |φ|, the identity within 2e-4 of max(1, |rhs|) (both
+sides float64 log-determinants of float32 K); MAP picks in order, a first
+difference a tie of the exact residual masses within 1e-4 of max ‖φ_i‖²;
+fits: LLs within rtol 1e-4, V and q within 1e-3 of their max, the same
+backtracks, no fall of the LL past ``_ASCENT_TOL``; inclusion frequencies
+within 0.05 of diag K and the mean |Y| of 3000 draws within 0.25 of E|Y|
+(about 5 standard errors).
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 are the kernel table (all six kernels) and the timing lines as JSON,
@@ -1831,6 +1865,574 @@ def rest_of_learning(init, batch, oneshot, fit_kw, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20 helpers: the low-rank family
+# ---------------------------------------------------------------------------
+
+# benchmarks/lowrank_dual.py:39-45: N = 65536, r = 32, E|Y| = 8, 16 rows a
+# draw, the fit at N = 4096 on 64 subsets for 3 sweeps
+LR_N, LR_RANK, LR_TARGET, LR_BATCH = 65536, 32, 8.0, 16
+LR_FIT_N, LR_FIT_SUBSETS, LR_FIT_ITERS = 4096, 64, 3
+LR_BIG_N, LR_BIG_RANK = 2 ** 20, 128      # the scale check: φ is 512 MB
+LR_DRAWS = 3000                           # inclusion frequencies
+LR_MARG_ATOL = 0.05
+LR_PHASE1_TIE = 1e-6     # a uniform this close to its threshold may flip
+LR_PARAM_REL = 1e-3      # fitted V and q, card vs CPU copy, of their max
+LR_LL_RTOL = 1e-4
+
+
+class CarriedDual:
+    """A spectral cache that hands out one carried dual spectrum (the
+    card's, on the CPU copy), since the two devices' eigh choose other
+    signs for W."""
+
+    def __init__(self, spec):
+        self.spec = spec
+
+    def spectrum_lowrank(self, V, q):
+        return self.spec.phi, self.spec.lams, self.spec.W
+
+
+def lr_normal(key, shape):
+    """Standard normals from a key, built as ``jax.random.normal`` builds
+    them: sqrt(2)·erfinv of ``uniform(key, shape, nextafter(-1, 0), 1)``
+    (torch's erfinv rounds its own way)."""
+    from repro_torch import random as prng
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return math.sqrt(2.0) * torch.erfinv(prng.uniform(key, shape, lo, 1.0))
+
+
+def lr_model(N: int, r: int, dev, cache):
+    """The benchmark's family on the card: V = 0.7·normal(PRNGKey(N)),
+    q = |normal(PRNGKey(N + 1))| + 0.3, rescaled to E|Y| = 8."""
+    from repro_torch import dpp
+    from repro_torch import random as prng
+    V = lr_normal(prng.PRNGKey(N, dev), (N, r)) * 0.7
+    q = lr_normal(prng.PRNGKey(N + 1, dev), (N,)).abs() + 0.3
+    return dpp.LowRank(V, q, device=dev).rescale(LR_TARGET, cache)
+
+
+def lr_counters() -> dict:
+    """Each kernel's wrapper (or module) holding its ``launches`` count."""
+    from repro_torch.kernels import greedy_map as gm
+    from repro_torch.kernels import kron_matvec as km
+    from repro_torch.kernels import partial_trace as pt
+    from repro_torch.kernels import phase2_select as p2
+    from repro_torch.kernels import threefry as tf
+    return {"phase2_select": p2,
+            "partial_trace_A": pt.partial_trace_A_cuda,
+            "partial_trace_C": pt.partial_trace_C_cuda,
+            "greedy_map_update": gm.greedy_map_update_cuda,
+            "kron_matvec": km.kron_matvec_cuda,
+            "threefry2x32": tf.threefry2x32_cuda}
+
+
+def lr_counted(fn, label: str):
+    """Run ``fn`` with every kernel's launch count set to 0 just before
+    and read just after, under a fresh tracker: the low-rank path launches
+    ``threefry2x32`` alone (its ``kernels.threefry2x32.cuda`` counter
+    equal, nothing on the plain twin) and none of the other five.
+    Returns (fn's result, the counts)."""
+    import repro_torch.obs as obs
+    counters = lr_counters()
+    for obj in counters.values():
+        obj.launches = 0
+    tracker = obs.InMemoryTracker()
+    with obs.use(tracker):
+        out = fn()
+        torch.cuda.synchronize()
+    n = {k: obj.launches for k, obj in counters.items()}
+    check(all(v == 0 for k, v in n.items() if k != "threefry2x32"),
+          f"{label}: the low-rank path launched another kernel: {n}")
+    c = {e: int(tracker.counter_value(f"kernels.threefry2x32.{e}"))
+         for e in ("cuda", "reference")}
+    check(c == {"cuda": n["threefry2x32"], "reference": 0},
+          f"{label}: threefry2x32 launched {n['threefry2x32']} times, "
+          f"counted {c}")
+    return out, n
+
+
+class EighSizes:
+    """Records the size of every ``torch.linalg.eigh``/``eigvalsh`` call
+    while it is entered."""
+
+    def __enter__(self):
+        self.sizes = []
+        self._saved = (torch.linalg.eigh, torch.linalg.eigvalsh)
+
+        def wrap(f):
+            def g(A, *args, **kw):
+                self.sizes.append(int(A.shape[-1]))
+                return f(A, *args, **kw)
+            return g
+
+        torch.linalg.eigh, torch.linalg.eigvalsh = map(wrap, self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        torch.linalg.eigh, torch.linalg.eigvalsh = self._saved
+
+
+def lr_rows_agree(want, got, row_keys, spec_cpu, k: int, label: str,
+                  kdpp: bool = False) -> dict:
+    """Picks ``got`` (B, k) against ``want`` of the same row keys and the
+    same dual spectrum (on the CPU): the uniforms through the plain twin,
+    the phase-1 masks equal except where a uniform lies within
+    LR_PHASE1_TIE of its threshold (such a row is a different draw and
+    not compared; none for the k-DPP), each differing row a float32 tie on
+    the exact chain (``first_difference`` on U = φΓ in float64)."""
+    from repro_torch import random as prng
+    from repro_torch.kernels.phase2_select import (first_difference,
+                                                   is_roundoff_tie)
+    from repro_torch.lowrank.sample import _gamma
+    from repro_torch.sampling.batched import compact_selection
+    from repro_torch.sampling.kdpp import _phase1_kdpp_from_uniforms
+    want, got = np.asarray(want), np.asarray(got)
+    check(want.shape == got.shape, f"{label}: shapes {want.shape} vs "
+          f"{got.shape}")
+    keys = prng.as_key(row_keys, "cpu")
+    u, us = prng.split_uniform(keys, spec_cpu.rank, k, backend="reference")
+    ll = spec_cpu.log_eigenvalues()
+    if kdpp:
+        mask = _phase1_kdpp_from_uniforms(u, ll, k)
+        near = np.zeros(len(want), bool)
+    else:
+        p = torch.sigmoid(ll)
+        mask = u < p[None, :]
+        near = ((u - p[None, :]).abs() <= LR_PHASE1_TIE).any(dim=1).numpy()
+    sel, valid, _ = compact_selection(mask, k)
+    Gamma = _gamma(spec_cpu.basis(), sel, valid).double()
+    phi = spec_cpu.phi.double()
+    ones = torch.ones((1, k), dtype=torch.float64)
+    out = {"rows": len(want), "identical": 0, "ties": [], "phase1_near": 0}
+    for b in range(len(want)):
+        if (want[b] == got[b]).all():
+            out["identical"] += 1
+            continue
+        if near[b]:
+            out["phase1_near"] += 1
+            continue
+        step, kind, value = first_difference(us[b], phi @ Gamma[b], ones,
+                                             want[b], got[b])
+        check(is_roundoff_tie(kind, value), f"{label}: row {b} differs at "
+              f"step {step}: {want[b].tolist()} vs {got[b].tolist()} "
+              f"({kind} {value!r}), not a roundoff tie")
+        out["ties"].append([b, step, kind, value])
+    check(out["phase1_near"] <= len(want) // 10, f"{label}: "
+          f"{out['phase1_near']} rows on a phase-1 threshold")
+    print(f"  {label}: {json.dumps(out)}")
+    return out
+
+
+def lr_check_rows(picks, N: int, k_max: int, label: str,
+                  exact=None) -> None:
+    for row in np.asarray(picks):
+        real = row[row >= 0]
+        check(len(set(real.tolist())) == len(real), f"{label}: a row "
+              f"repeats an item: {row.tolist()}")
+        check(len(real) <= k_max and ((real >= 0) & (real < N)).all(),
+              f"{label}: row out of range or past {k_max}: {row.tolist()}")
+        check((row[len(real):] == -1).all(), f"{label}: padding is not a "
+              f"-1 tail: {row.tolist()}")
+        check(exact is None or len(real) == exact, f"{label}: a row of "
+              f"{len(real)} items, not {exact}")
+
+
+def lr_log_marginal(model, items, cache) -> float:
+    """log P(items ⊆ Y) = log det K[items, items], in float64 (a det of
+    8 entries near 1e-4 underflows float32's range of care)."""
+    K = model.marginal_kernel_submatrix(items, cache).double()
+    sign, ld = torch.linalg.slogdet(K)
+    check(float(sign) > 0, f"K[S, S] of {items} is not PD")
+    return float(ld)
+
+
+def lr_compare_maps(phi64, pk, pp, label: str) -> dict:
+    """Card picks ``pk`` against CPU picks ``pp`` of greedy MAP on the
+    same φ, in order: a first difference must be a tie of the exact
+    (float64) residual feature masses of the two candidates given the
+    common prefix, within GREEDY_TIE_TOL · max ‖φ_i‖², and both sets'
+    log det φ_Y φ_Yᵀ then agree to 1e-3 relative."""
+    def logdet_of(picks):
+        P = phi64[torch.as_tensor(np.asarray(picks, np.int64))]
+        sign, ld = torch.linalg.slogdet(P @ P.T)
+        check(float(sign) > 0, f"{label}: L_Y of the picks is not PD")
+        return float(ld)
+
+    out = {"identical": bool((pk == pp).all()),
+           "logdet_card": logdet_of(pk), "logdet_cpu": logdet_of(pp)}
+    diff = np.nonzero(pk != pp)[0]
+    if diff.size:
+        t = int(diff[0])
+        P = phi64[torch.as_tensor(np.asarray(pk[:t], np.int64))]
+        Q = torch.linalg.qr(P.T).Q if t else torch.zeros((phi64.shape[1], 0),
+                                                          dtype=phi64.dtype)
+        resid = (phi64 * phi64).sum(1) - ((phi64 @ Q) ** 2).sum(1)
+        scale = float((phi64 * phi64).sum(1).max())
+        a, b = int(pk[t]), int(pp[t])
+        gap = abs(float(resid[a]) - float(resid[b])) / scale
+        out.update(first_difference=t, candidates=[a, b], tie_gap=gap)
+        check(gap <= GREEDY_TIE_TOL, f"{label}: picks differ at step {t} "
+              f"({a} vs {b}) and the exact residual masses differ by "
+              f"{gap!r} of max ‖φ_i‖² > {GREEDY_TIE_TOL}: no tie")
+        check(abs(out["logdet_card"] - out["logdet_cpu"])
+              <= 1e-3 * abs(out["logdet_cpu"]), f"{label}: log det L_Y "
+              f"{out['logdet_card']!r} (card) vs {out['logdet_cpu']!r}")
+    print(f"  {label}: {json.dumps(out)}")
+    return out
+
+
+def lr_fit_card_vs_cpu(init, batch, cpu_init, label: str, **kw) -> dict:
+    """``fit_lowrank`` for LR_FIT_ITERS Armijo sweeps on the card and on a
+    CPU copy: LLs within rtol LR_LL_RTOL, V and q within LR_PARAM_REL of
+    their max, the same backtracks, the LL never falling by more than
+    ``_ASCENT_TOL``."""
+    from repro_torch.core import SubsetBatch
+    from repro_torch.learning.schedules import _ASCENT_TOL
+    from repro_torch.lowrank.learn import fit_lowrank
+    card = fit_lowrank(init, batch, iters=LR_FIT_ITERS, **kw)
+    cpu_kw = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+              for k, v in kw.items()}
+    cpu = fit_lowrank(cpu_init, SubsetBatch(batch.indices.cpu(),
+                                            batch.mask.cpu()),
+                      iters=LR_FIT_ITERS, device="cpu", **cpu_kw)
+    lls, lls_cpu = np.asarray(card.log_likelihoods), \
+        np.asarray(cpu.log_likelihoods)
+    out = {"lls": lls.tolist(), "lls_cpu": lls_cpu.tolist(),
+           "backtracks": int(card.state.sched.backtracks),
+           "backtracks_cpu": int(cpu.state.sched.backtracks)}
+    check(np.isfinite(lls).all() and (np.diff(lls) >= -_ASCENT_TOL).all(),
+          f"{label}: the LL falls: {lls.tolist()}")
+    check(np.allclose(lls, lls_cpu, rtol=LR_LL_RTOL, atol=0.0),
+          f"{label}: LLs {lls.tolist()} (card) vs {lls_cpu.tolist()} (CPU)")
+    check(out["backtracks"] == out["backtracks_cpu"], f"{label}: backtracks "
+          f"{out['backtracks']} vs {out['backtracks_cpu']}")
+    for name in ("V", "q"):
+        a = getattr(card.model, name).cpu()
+        b = getattr(cpu.model, name)
+        err = float((a - b).abs().max())
+        out[f"{name}_err_rel"] = err / float(b.abs().max())
+        check(out[f"{name}_err_rel"] <= LR_PARAM_REL, f"{label}: {name} "
+              f"{err!r} from the CPU copy's > {LR_PARAM_REL} of its max")
+    print(f"  {label}: {json.dumps(out)}")
+    return out
+
+
+def lowrank_path(dev) -> dict:
+    """Phase 20: the low-rank family end to end at the benchmark's width
+    (N = 65536, r = 32, E|Y| = 8), a scale check at N = 2^20, r = 128, and
+    the fits; every operation against a CPU copy, launches counted."""
+    from repro_torch import dpp
+    from repro_torch import random as prng
+    from repro_torch.core import SubsetBatch
+    from repro_torch.learning.schedules import _ASCENT_TOL
+    from repro_torch.lowrank.learn import _sweep_picard, _empirical_inclusion
+    from repro_torch.lowrank.sample import _gamma, phase2_dual
+    from repro_torch.obs import InMemoryTracker, use
+    from repro_torch.sampling import SamplingService, SpectralCache
+    from repro_torch.sampling.batched import compact_selection
+    from repro_torch.learning import schedules
+    t_phase = time.perf_counter()
+    out = {"shapes": {"N": LR_N, "rank": LR_RANK, "E_size": LR_TARGET,
+                      "big_N": LR_BIG_N, "big_rank": LR_BIG_RANK}}
+    launches = {}
+    cache = SpectralCache()
+    eigh_tracker = InMemoryTracker(keep_records=True)
+
+    # -- the model, its spectrum: one r x r eigh a (V, q) pair ---------------
+    with use(eigh_tracker), EighSizes() as eighs:
+        model = lr_model(LR_N, LR_RANK, dev, cache)
+        spec = model.spectrum(cache)
+    k_max = spec.suggested_k_max()
+    spec_cpu = spec.to("cpu")
+    cpu = dpp.LowRank(model.V.cpu(), model.q.cpu(), device="cpu")
+    cpu_cache = CarriedDual(spec_cpu)
+    out["spectrum"] = {"E_size": spec.expected_size(), "k_max": k_max,
+                       "lams_max": float(spec.lams.max()),
+                       "eigh_sizes": eighs.sizes}
+    check(eighs.sizes == [LR_RANK, LR_RANK], f"the model's spectra ran "
+          f"eighs of sizes {eighs.sizes}, not one {LR_RANK} x {LR_RANK} for "
+          f"each of the raw and the rescaled (V, q)")
+    check(abs(spec.expected_size() - LR_TARGET) <= 1e-3,
+          f"E|Y| = {spec.expected_size()} after rescale({LR_TARGET})")
+
+    # -- draws ---------------------------------------------------------------
+    key = prng.PRNGKey(1, dev)
+    with EighSizes() as eighs:
+        b16, launches["sample16"] = lr_counted(
+            lambda: model.sample(key, LR_BATCH, cache=cache), "sample(16)")
+        kd, launches["sample64_k8"] = lr_counted(
+            lambda: model.sample(key, 64, k=8, cache=cache), "sample(64, k=8)")
+    check(eighs.sizes == [], f"the draws ran eighs of sizes {eighs.sizes}")
+    check(launches["sample16"]["threefry2x32"] == 2
+          and launches["sample64_k8"]["threefry2x32"] == 2,
+          f"a keyed draw launched threefry2x32 {launches}, not 2 a call")
+    p16 = np.where(b16.mask.cpu().numpy(), b16.indices.cpu().numpy(), -1)
+    pkd = np.where(kd.mask.cpu().numpy(), kd.indices.cpu().numpy(), -1)
+    lr_check_rows(p16, LR_N, min(k_max, LR_RANK), "sample(16)")
+    lr_check_rows(pkd, LR_N, 8, "sample(64, k=8)", exact=min(8, LR_RANK))
+    c16 = cpu.sample(key.cpu(), LR_BATCH, cache=cpu_cache, device="cpu")
+    ckd = cpu.sample(key.cpu(), 64, k=8, cache=cpu_cache, device="cpu")
+    keys16 = prng.split(key.cpu(), LR_BATCH, backend="reference")
+    keys64 = prng.split(key.cpu(), 64, backend="reference")
+    out["agree"] = {
+        "sample16": lr_rows_agree(
+            np.where(c16.mask.numpy(), c16.indices.numpy(), -1), p16,
+            keys16, spec_cpu, k_max, "sample(16), card vs CPU copy"),
+        "sample64_k8": lr_rows_agree(
+            np.where(ckd.mask.numpy(), ckd.indices.numpy(), -1), pkd,
+            keys64, spec_cpu, 8, "sample(64, k=8), card vs CPU copy",
+            kdpp=True)}
+    # 3000 draws: inclusion frequencies against diag K; the first 1000 are
+    # the batch of the inference and learning checks below
+    draws = [model.sample(k_, 1000, cache=cache)
+             for k_ in prng.split(prng.PRNGKey(2, dev), LR_DRAWS // 1000)]
+    batch = draws[0]
+    freq = torch.zeros(LR_N, dtype=torch.float64, device=dev)
+    sizes = []
+    for d in draws:
+        freq += torch.bincount(d.indices[d.mask].long(),
+                               minlength=LR_N).double()
+        sizes.append(d.sizes().double())
+    freq /= LR_DRAWS
+    # diag K from marginal_kernel_submatrix, 2048 items a call
+    diag_k = torch.cat([torch.diagonal(model.marginal_kernel_submatrix(
+        np.arange(s, min(s + 2048, LR_N)), cache)).double()
+        for s in range(0, LR_N, 2048)])
+    top = torch.argsort(diag_k, descending=True)[:20]
+    marg_err = float((freq - diag_k).abs().max())
+    mean_size = float(torch.cat(sizes).mean())
+    out["marginals"] = {"draws": LR_DRAWS, "max_abs_err": marg_err,
+                        "max_diag_K": float(diag_k.max()),
+                        "mean_size": mean_size,
+                        "max_size": int(torch.cat(sizes).max())}
+    check(marg_err <= LR_MARG_ATOL, f"inclusion frequencies off diag K by "
+          f"{marg_err} > {LR_MARG_ATOL}")
+    check(abs(mean_size - spec.expected_size()) <= 0.25, f"mean |Y| "
+          f"{mean_size} of {LR_DRAWS} draws vs E|Y| {spec.expected_size()}")
+    print(f"  low-rank draws: {json.dumps(out['marginals'])}")
+
+    # -- the service ------------------------------------------------------------
+    svc = model.service(seed=0, cache=cache)
+    rows_svc, launches["svc_sample16"] = lr_counted(lambda: svc.sample(16),
+                                                    "svc.sample(16)")
+    rows_kd, launches["svc_sample_kdpp8_16"] = lr_counted(
+        lambda: svc.sample_kdpp(8, 16), "svc.sample_kdpp(8, 16)")
+    cpu_svc = SamplingService(cpu, cache=cpu_cache, seed=0, device="cpu")
+    pad = lambda rows, k: np.array([r + [-1] * (k - len(r)) for r in rows])
+    k0, sub = prng.split(prng.PRNGKey(0, "cpu"), backend="reference")
+    k0, sub_kd = prng.split(k0, backend="reference")
+    out["agree"]["svc_sample16"] = lr_rows_agree(
+        pad(cpu_svc.sample(16), svc.k_max), pad(rows_svc, svc.k_max),
+        prng.split(sub, 16, backend="reference"), spec_cpu, svc.k_max,
+        "svc.sample(16), card vs CPU copy")
+    out["agree"]["svc_sample_kdpp"] = lr_rows_agree(
+        pad(cpu_svc.sample_kdpp(8, 16), 8), pad(rows_kd, 8),
+        prng.split(sub_kd, 16, backend="reference"), spec_cpu, 8,
+        "svc.sample_kdpp(8, 16), card vs CPU copy", kdpp=True)
+    lr_check_rows(pad(rows_kd, 8), LR_N, 8, "svc.sample_kdpp", exact=8)
+    ring = prng.split(prng.PRNGKey(3, dev), 512)
+    (one, _, _), launches["draw_keyed_512"] = lr_counted(
+        lambda: svc.draw_keyed(ring), "draw_keyed, one chunk")
+    svc64 = model.service(seed=0, cache=cache, max_batch=64)
+    (chunked, _, _), launches["draw_keyed_512_by_64"] = lr_counted(
+        lambda: svc64.draw_keyed(ring), "draw_keyed, chunks of 64")
+    check(launches["svc_sample16"]["threefry2x32"] == 3
+          and launches["svc_sample_kdpp8_16"]["threefry2x32"] == 3,
+          f"a service call launched threefry2x32 {launches}, not 3")
+    check(launches["draw_keyed_512"]["threefry2x32"] == 1
+          and launches["draw_keyed_512_by_64"]["threefry2x32"] == 8,
+          f"draw_keyed launched threefry2x32 {launches}, not 1 / 8")
+    out["agree"]["draw_keyed_chunkings"] = lr_rows_agree(
+        pad(one, svc.k_max), pad(chunked, svc.k_max), ring.cpu(), spec_cpu,
+        svc.k_max, "draw_keyed, one chunk vs chunks of 64")
+    out["service_stats"] = svc.stats()
+
+    # -- inference -----------------------------------------------------------
+    b_cpu = SubsetBatch(batch.indices.cpu(), batch.mask.cpu())
+    lp, launches["log_prob"] = lr_counted(
+        lambda: model.log_prob(batch, cache), "log_prob")
+    lp = lp.cpu().double().numpy()
+    lp_cpu = cpu.log_prob(b_cpu, cpu_cache).double().numpy()
+    lp_err = np.abs(lp - lp_cpu) / np.maximum(1.0, np.abs(lp_cpu))
+    out["log_prob"] = {"n": batch.n, "k_max": batch.k_max,
+                       "max_rel_err": float(lp_err.max()),
+                       "min": float(lp.min()), "max": float(lp.max())}
+    check(np.isfinite(lp).all() and float(lp_err.max()) <= LOGP_RTOL,
+          f"log_prob, card vs CPU copy: {out['log_prob']}")
+    items = top[:20].cpu().numpy()
+    m20 = float(model.marginal(items, cache))
+    ks20 = model.marginal_kernel_submatrix(items, cache).cpu()
+    ks20_cpu = cpu.marginal_kernel_submatrix(items, cpu_cache)
+    out["marginal20"] = {"value": m20, "log_value": lr_log_marginal(
+        model, items, cache), "K_err": float((ks20 - ks20_cpu).abs().max())}
+    check(out["marginal20"]["K_err"] <= K_SUB_ATOL, f"K[S, S] of 20 items, "
+          f"card vs CPU copy: {out['marginal20']}")
+    A = [int(i) for i in items[:5]]
+    Bs = [int(i) for i in items[5:8]]
+    with EighSizes() as eighs:
+        cond, launches["condition"] = lr_counted(lambda: model.condition(A),
+                                                  "condition")
+        check(type(cond) is dpp.LowRank and cond.N == LR_N - 5
+              and cond.rank == LR_RANK, f"condition returned {cond!r}")
+        comp = np.setdiff1d(np.arange(LR_N), A)
+        B_c = np.searchsorted(comp, Bs)
+        lhs = lr_log_marginal(model, A + Bs, cache) - \
+            lr_log_marginal(model, A, cache)
+        rhs = lr_log_marginal(cond, B_c, cache)
+    check(eighs.sizes == [LR_RANK], f"conditioning ran eighs of sizes "
+          f"{eighs.sizes}, not one {LR_RANK} x {LR_RANK}")
+    cond_cpu = cpu.condition(A)
+    v_err = float((cond.V.cpu() - cond_cpu.V).abs().max()) / float(
+        model._phi().abs().max())
+    out["condition"] = {"A": A, "B": Bs, "lhs": lhs, "rhs": rhs,
+                        "V_err_rel": v_err}
+    check(abs(lhs - rhs) <= COND_ID_RTOL * max(1.0, abs(rhs)),
+          f"log P(A ∪ B) - log P(A) = {lhs!r} vs log P(B | A) = {rhs!r}")
+    check(v_err <= 1e-4, f"conditioned V, card vs CPU copy: {v_err}")
+
+    # -- MAP ---------------------------------------------------------------
+    pk, launches["map20"] = lr_counted(lambda: model.map(20), "map(20)")
+    pk = pk.cpu().numpy()
+    pp = cpu.map(20).numpy()
+    out["map20"] = lr_compare_maps(cpu._phi().double(), pk, pp,
+                                   "map(20), card vs CPU copy (float64)")
+    lr_check_rows(pk[None], LR_N, 20, "map(20)", exact=20)
+
+    # -- learning ------------------------------------------------------------
+    init = dpp.LowRank(lr_normal(prng.PRNGKey(5, dev), (LR_N, LR_RANK))
+                       * 0.5, device=dev)
+    rep, launches["fit_n65536"] = lr_counted(
+        lambda: init.fit(batch, iters=LR_FIT_ITERS), "fit at N = 65536")
+    lls = np.asarray(rep.log_likelihoods)
+    check(type(rep.model) is dpp.LowRank and np.isfinite(lls).all()
+          and (np.diff(lls) >= -_ASCENT_TOL).all(),
+          f"the fit at N = 65536 does not ascend: {lls.tolist()}")
+    check(launches["fit_n65536"]["threefry2x32"] == LR_FIT_ITERS,
+          f"the fit's key stream launched threefry2x32 "
+          f"{launches['fit_n65536']}, not once a sweep")
+    out["fit_n65536"] = {"lls": lls.tolist(),
+                         "backtracks": int(rep.state.sched.backtracks),
+                         "sweep_times_s": rep.sweep_times}
+    small_cache = SpectralCache()
+    small = lr_model(LR_FIT_N, LR_RANK, dev, small_cache)
+    data = small.sample(prng.PRNGKey(6, dev), LR_FIT_SUBSETS,
+                        cache=small_cache)
+    init_s = dpp.LowRank(lr_normal(prng.PRNGKey(7, dev),
+                                   (LR_FIT_N, LR_RANK)) * 0.5, device=dev)
+    init_cpu = dpp.LowRank(init_s.V.cpu(), device="cpu")
+    out["fit_n4096"] = lr_fit_card_vs_cpu(init_s, data, init_cpu,
+                                          "fit at N = 4096, card vs CPU")
+    X = lr_normal(prng.PRNGKey(8, dev), (LR_FIT_N, 8))
+    out["fit_n4096_features"] = lr_fit_card_vs_cpu(
+        init_s, data, init_cpu, "fit_lowrank(item_features=) at N = 4096",
+        item_features=X)
+
+    # -- times (CUDA events around the call) -------------------------------
+    phi_read_ms = LR_N * LR_RANK * 4 / HBM_BYTES_S * 1e3
+    times = {"bound_phi_read_a_step_ms": phi_read_ms}
+    times["sample16_ms"] = cuda_ms(
+        lambda: model.sample(key, LR_BATCH, cache=cache), reps=10, warmup=2)
+    rk = prng.split(key, LR_BATCH)
+    u, us = prng.split_uniform(rk, LR_RANK, k_max)
+    mask = u < torch.sigmoid(spec.log_eigenvalues())[None, :]
+    sel, valid, _ = compact_selection(mask, k_max)
+    Gam = _gamma(spec.basis(), sel, valid)
+    k_eff = torch.clamp_max(mask.sum(-1), k_max).to(torch.int32)
+    times["sample16_phase2_ms"] = cuda_ms(
+        lambda: phase2_dual(us, spec.phi, Gam, k_eff), reps=10, warmup=2)
+    times["sample16_phase2_per_step_ms"] = times["sample16_phase2_ms"] / k_max
+    times["sample16_bound_ms"] = k_max * phi_read_ms
+    times["k_max"] = k_max
+    times["sample64_k8_ms"] = cuda_ms(
+        lambda: model.sample(key, 64, k=8, cache=cache), reps=5, warmup=1)
+    times["sample64_k8_bound_ms"] = 8 * phi_read_ms
+    times["svc_sample16_ms"] = cuda_ms(lambda: svc.sample(16), reps=10,
+                                       warmup=2)
+    times["log_prob1000_ms"] = cuda_ms(lambda: model.log_prob(batch, cache),
+                                       reps=10, warmup=2)
+    times["condition5_ms"] = cuda_ms(lambda: model.condition(A), reps=10,
+                                     warmup=2)
+    times["condition5_bound_ms"] = 2 * phi_read_ms
+    times["map20_ms"] = cuda_ms(lambda: model.map(20), reps=3, warmup=1)
+    times["map20_bound_ms"] = 20 * 2 * phi_read_ms   # float64 φ, a read a step
+    p_hat = _empirical_inclusion(
+        SubsetBatch(batch.indices.long(), batch.mask), LR_N).float()
+    sched = schedules.armijo()
+    a0 = torch.tensor(sched.a0, device=dev)
+    idx_l = batch.indices.long()
+    times["sweep_n65536_ms"] = cuda_ms(
+        lambda: _sweep_picard(init.V, init.q, idx_l, batch.mask, p_hat, a0,
+                              sched, True, 0.1), reps=3, warmup=1)
+
+    # -- the scale check: N = 2^20, r = 128, φ resident ---------------------
+    big_cache = SpectralCache()
+    with EighSizes() as eighs:
+        big = lr_model(LR_BIG_N, LR_BIG_RANK, dev, big_cache)
+        big_spec = big.spectrum(big_cache)
+    check(eighs.sizes == [LR_BIG_RANK] * 2, f"the N = 2^20 model ran eighs "
+          f"of sizes {eighs.sizes}")
+    k_big = big_spec.suggested_k_max()
+    key_big = prng.PRNGKey(9, dev)
+    big.sample(key_big, LR_BATCH, cache=big_cache)            # warm
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bb, launches["sample16_n2p20"] = lr_counted(
+        lambda: big.sample(key_big, LR_BATCH, cache=big_cache),
+        "sample(16) at N = 2^20")
+    peak = torch.cuda.max_memory_allocated() - before
+    check(launches["sample16_n2p20"]["threefry2x32"] == 2,
+          f"sample(16) at N = 2^20 launched {launches['sample16_n2p20']}")
+    limit = LR_BATCH * LR_BIG_N * k_big * 4
+    pb = np.where(bb.mask.cpu().numpy(), bb.indices.cpu().numpy(), -1)
+    lr_check_rows(pb, LR_BIG_N, k_big, "sample(16) at N = 2^20")
+    out["scale_n2p20"] = {"k_max": k_big, "peak_above_before_bytes": peak,
+                          "bound_B_N_kmax_4_bytes": limit,
+                          "phi_bytes": LR_BIG_N * LR_BIG_RANK * 4,
+                          "allocated_before_bytes": before,
+                          "mean_size": float(bb.sizes().double().mean())}
+    check(peak < limit, f"sample(16) at N = 2^20 peaked {peak} bytes above "
+          f"the {before} allocated before it, not below B·N·k_max·4 = "
+          f"{limit}: the (B, N, k_max) transient formed")
+    print(f"  N = 2^20 scale check: {json.dumps(out['scale_n2p20'])}")
+    big_phi_ms = LR_BIG_N * LR_BIG_RANK * 4 / HBM_BYTES_S * 1e3
+    times["sample16_n2p20_ms"] = cuda_ms(
+        lambda: big.sample(key_big, LR_BATCH, cache=big_cache), reps=5,
+        warmup=1)
+    u, us = prng.split_uniform(prng.split(key_big, LR_BATCH), LR_BIG_RANK,
+                               k_big)
+    mask = u < torch.sigmoid(big_spec.log_eigenvalues())[None, :]
+    sel, valid, _ = compact_selection(mask, k_big)
+    Gam = _gamma(big_spec.basis(), sel, valid)
+    k_eff = torch.clamp_max(mask.sum(-1), k_big).to(torch.int32)
+    times["sample16_n2p20_phase2_ms"] = cuda_ms(
+        lambda: phase2_dual(us, big_spec.phi, Gam, k_eff), reps=5, warmup=1)
+    times["sample16_n2p20_phase2_per_step_ms"] = \
+        times["sample16_n2p20_phase2_ms"] / k_big
+    times["sample16_n2p20_bound_ms"] = k_big * big_phi_ms
+    times["k_max_n2p20"] = k_big
+    del big, big_spec, bb, big_cache, Gam, u, us
+    torch.cuda.empty_cache()
+
+    # every eigh the phase's caches ran was r x r, one a (V, q) pair
+    recs = [r for r in eigh_tracker.records
+            if r["name"] == "spectral_cache.eigh_s"]
+    check(len(recs) == 2 and all(r["tags"]["n"] == LR_RANK for r in recs),
+          f"spectral_cache.eigh_s records {recs}")
+    out["cache"] = {"main": cache.stats(), "misses_tagged_n": [
+        r["tags"]["n"] for r in recs]}
+    check(cache.stats()["misses"] == 3, f"the main cache missed "
+          f"{cache.stats()}: not once each for the raw, the rescaled and the "
+          f"conditioned (V, q)")
+    out["launches"] = launches
+    out["times"] = times
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  low-rank times (ms, CUDA events): {json.dumps(times)}; the "
+          f"phase took {out['phase_s']!r} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -2429,7 +3031,10 @@ def main() -> None:
     # -- 19. the rest of learning ---------------------------------------------
     rest = rest_of_learning(init, batch, rep, fit_kw, dev)
 
-    # -- 20. device times of every kernels row -------------------------------
+    # -- 20. the low-rank family ---------------------------------------------
+    lr = lowrank_path(dev)
+
+    # -- 21. device times of every kernels row -------------------------------
     launch_us = [host_launch_us()]
     fill_device_times()
     launch_us.append(host_launch_us())
@@ -2537,6 +3142,9 @@ def main() -> None:
         k: rest[k] for k in ("joint", "picard", "em", "small_card_vs_cpu",
                              "checkpoint")},
         "card": card, "power_limit": power_limit}))
+    tf_row["launches_per_path"]["lowrank"] = lr["launches"]
+    print(json.dumps({"lowrank": lr, "card": card,
+                      "power_limit": power_limit}))
     print(json.dumps({"kernels": [row, *pt_rows, gm_row, km_row, tf_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,
                                  "svc_sample16_median_ms":

@@ -1,7 +1,8 @@
 """Carry weights and state between the JAX package and the port as numpy
 arrays. Both packages can then sample from the *same* eigenvectors:
 ``eigh`` sign and degenerate-basis choices differ between LAPACK and
-cuSOLVER, so a spectrum is carried across rather than recomputed. PRNG
+cuSOLVER, so a spectrum (a low-rank model's dual eigenvectors too) is
+carried across rather than recomputed. PRNG
 keys cross as their uint32 words (``key_from_numpy``/``key_to_numpy``):
 the port's ``repro_torch.random`` then draws the JAX package's numbers
 from them."""
@@ -18,6 +19,7 @@ from . import random as prng
 from ._device import DeviceLike, as_float, resolve_device
 from .core.dpp import SubsetBatch
 from .dpp.model import Kron
+from .lowrank import DualSpectrum, LowRank
 from .sampling.spectral import FactorSpectrum
 
 
@@ -37,6 +39,31 @@ def spectrum_from_numpy(lams: Sequence[np.ndarray],
     return FactorSpectrum(
         tuple(as_float(np.asarray(lam, np.float32), device) for lam in lams),
         tuple(as_float(np.asarray(v, np.float32), device) for v in vecs))
+
+
+def lowrank_from_numpy(V: np.ndarray, q: Optional[np.ndarray] = None,
+                       device: DeviceLike = "cuda") -> LowRank:
+    """The port's ``LowRank`` over float32 copies of V (N, r) and q (N,)."""
+    return LowRank(np.asarray(V, np.float32),
+                   None if q is None else np.asarray(q, np.float32),
+                   device=device)
+
+
+def dual_spectrum_from_numpy(phi: np.ndarray, lams: np.ndarray,
+                             W: np.ndarray, device: DeviceLike = "cuda"
+                             ) -> DualSpectrum:
+    """The port's ``DualSpectrum`` over float32 copies of φ (N, r), the dual
+    eigenvalues (r,) and eigenvectors W (r, r), e.g. the JAX package's."""
+    return DualSpectrum(*(as_float(np.asarray(x, np.float32), device)
+                          for x in (phi, lams, W)))
+
+
+def dual_spectrum_to_numpy(spec: DualSpectrum
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """float32 numpy copies (φ, lams, W) of a ``DualSpectrum`` of either
+    package."""
+    return tuple(np.asarray(x.detach().cpu() if hasattr(x, "detach") else x,
+                            np.float32) for x in (spec.phi, spec.lams, spec.W))
 
 
 def subset_batch_to_numpy(batch: SubsetBatch

@@ -78,17 +78,20 @@ class KronDPP:
         return lds.mean() - self.logdet_L_plus_I()
 
 
-def random_krondpp(key, sizes: Sequence[int], device: DeviceLike = "cuda",
-                   scale: float = 1.0) -> KronDPP:
+def random_krondpp(key, sizes: Sequence[int], dtype: torch.dtype = FLOAT,
+                   scale: float = 1.0, *, device: DeviceLike = "cuda"
+                   ) -> KronDPP:
     """Paper Sec. 5.1 init: L_i = X^T X + 1e-3 I with X ~ U[0, sqrt(2)],
-    times ``scale``.
+    times ``scale``, as factors of ``dtype`` — the JAX package's arguments
+    in its order, ``device`` by keyword.
 
     ``key``: a PRNG key (``repro_torch.random``, or the JAX package's uint32
     key): per factor ``key, sub = split(key)``, X = uniform(sub, (s, s), 0,
     sqrt 2) * scale, so a key builds the JAX package's factors (up to the
     float32 roundoff of X^T X); X is drawn on ``device``. Or a
     ``torch.Generator``: X is drawn with ``torch.rand`` on the generator's
-    device and moved to ``device``."""
+    device and moved to ``device``. X is a float32 draw either way (the
+    JAX package runs with x64 off), cast to ``dtype``."""
     dev = resolve_device(device)
     keyed = not isinstance(key, torch.Generator)
     if keyed:
@@ -102,6 +105,7 @@ def random_krondpp(key, sizes: Sequence[int], device: DeviceLike = "cuda",
             X = torch.rand((s, s), generator=key, dtype=FLOAT,
                            device=key.device) * math.sqrt(2.0)
             X = X.to(dev) * scale
-        factors.append(X.T @ X + 1e-3 * torch.eye(s, dtype=FLOAT,
+        X = X.to(dtype)
+        factors.append(X.T @ X + 1e-3 * torch.eye(s, dtype=dtype,
                                                   device=dev))
     return KronDPP(tuple(factors))

@@ -1,6 +1,7 @@
 """repro_torch.dpp — the model-centric DPP API of the port (port of
 ``repro/dpp``)::
 
+    import torch
     from repro_torch import dpp, random
 
     key = random.PRNGKey(0)                 # the JAX package's key
@@ -12,7 +13,15 @@
     svc = model.service(seed=0)             # micro-batching front-end
     rows = svc.sample(16)
     init = dpp.random_kron(key, (100, 100))
-    rep = init.fit(batch, algorithm="krk", use_dense_theta=True)  # KrK-Picard
+    rep = init.fit(batch, algorithm="krk", use_dense_theta=True,
+                   schedule=dpp.schedules.armijo())      # KrK-Picard
+    g = torch.Generator(device="cuda").manual_seed(0)   # a low-rank family
+    V = torch.randn(65536, 32, generator=g, device="cuda") * 0.7
+    q = torch.rand(65536, generator=g, device="cuda") + 0.3
+    low = dpp.LowRank(V, q).rescale(8.0)    # L = V diag(q) Vᵀ, r = 32
+    rows = low.sample(k2, 16)               # through the r x r dual
+    best = low.map(8)
+    rep = low.fit(rows, algorithm="lowrank")
 
 The same key gives the JAX package's factors (up to float32 roundoff of
 XᵀX) and rows; a ``torch.Generator`` may stand in for any key.
@@ -21,15 +30,34 @@ Every entry point defaults to ``device="cuda"`` and raises without a card
 unless ``device="cpu"`` is passed.
 """
 
+from ..learning import schedules
 from ..sampling.service import SampleTicket, SamplingService
 from ..sampling.spectral import FactorSpectrum, SpectralCache, default_cache
 from . import functional
 from .model import (MAX_DENSE_N, Dense, DPPModel, Kron, from_factors,
                     from_kernel, random_kron)
 
+# LowRank and friends resolve lazily (PEP 562): repro_torch.lowrank
+# subclasses .model's DPPModel, so an eager import here would be circular
+# when the lowrank package is imported first.
+_LOWRANK_EXPORTS = ("LowRank", "DualSpectrum", "nystrom_features",
+                    "random_fourier_features")
+
+
+def __getattr__(name):
+    if name in _LOWRANK_EXPORTS:
+        from .. import lowrank
+        value = getattr(lowrank, name)
+        globals()[name] = value      # cache: later lookups skip this hook
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
-    "DPPModel", "Dense", "Kron", "MAX_DENSE_N",
+    "DPPModel", "Dense", "Kron", "LowRank", "MAX_DENSE_N",
     "from_kernel", "from_factors", "random_kron",
-    "FactorSpectrum", "SpectralCache", "default_cache",
-    "SamplingService", "SampleTicket", "functional",
+    "functional", "schedules",
+    "FactorSpectrum", "DualSpectrum", "SpectralCache", "default_cache",
+    "SamplingService", "SampleTicket",
+    "nystrom_features", "random_fourier_features",
 ]

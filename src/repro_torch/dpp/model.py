@@ -12,7 +12,8 @@ held in a ``SpectralCache``, the product spectrum folded in log space. Every
 call runs where the model's factors live. The port runs on one card; the
 JAX package's ``runtime=`` placement is not ported. Operations not ported
 yet raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-them.
+them. The low-rank family ``LowRank(V, q)`` lives in ``repro_torch.lowrank``
+and subclasses ``DPPModel``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .._device import DeviceLike, as_float, resolve_device
+from .._device import FLOAT, DeviceLike, as_float, resolve_device
 from ..core.dpp import SubsetBatch
 from ..core.kron import split_indices_multi
 from ..core.krondpp import KronDPP, random_krondpp
@@ -277,6 +278,11 @@ class DPPModel:
         from ..learning.api import fit as _fit
         if algorithm is None:
             algorithm = self._default_algorithm
+        if algorithm == "lowrank":
+            raise ValueError(
+                f"algorithm='lowrank' learns a LowRank(V, q) model; a "
+                f"{type(self).__name__} kernel learns with 'em' (Dense) or "
+                f"'krk', 'krk-stochastic', 'joint', 'em' (Kron)")
         rep = _fit(self._fit_params(algorithm, max_dense), batch,
                    algorithm=algorithm, **fit_kwargs)
         if isinstance(rep.model, KronDPP):
@@ -376,10 +382,11 @@ def from_factors(*factors, device: DeviceLike = "cuda") -> Kron:
     return Kron(factors, device=device)
 
 
-def random_kron(key, sizes: Sequence[int], device: DeviceLike = "cuda",
-                scale: float = 1.0) -> Kron:
+def random_kron(key, sizes: Sequence[int], dtype: torch.dtype = FLOAT,
+                scale: float = 1.0, *, device: DeviceLike = "cuda") -> Kron:
     """Paper Sec. 5.1 random init (L_i = X^T X + 1e-3 I,
     X ~ U[0, sqrt(2)]) from a PRNG key (the JAX package's factors for the
-    same key) or a ``torch.Generator`` (``core.random_krondpp``)."""
-    return Kron(random_krondpp(key, tuple(sizes), device=device,
-                               scale=scale), device=device)
+    same key) or a ``torch.Generator`` (``core.random_krondpp``); the
+    arguments in the JAX package's order, ``device`` by keyword."""
+    return Kron(random_krondpp(key, tuple(sizes), dtype, scale,
+                               device=device), device=device)

@@ -21,8 +21,9 @@ schedules.py  step-size policies for ``a``: constant, a0/sqrt(1+t), and
 api.py        ``fit(model, batch, algorithm=..., ...)`` on one device,
               with checkpoint save/resume (``repro_torch.checkpoint``).
 
-Not ported yet (ROADMAP.md queue 1, "lowrank/" and "Placement"): the
-low-rank learner, the mesh placement.
+``fit(..., algorithm="lowrank")`` dispatches to the low-rank dual learner
+(``repro_torch.lowrank.learn``). Not ported yet (ROADMAP.md queue 1,
+"Placement"): the mesh placement.
 """
 
 from . import schedules

@@ -11,11 +11,13 @@
                                 checkpoint_dir="ck", save_every=2)
 
 Ported: KrK-Picard, batch (``"krk"``) and stochastic
-(``"krk-stochastic"``), EM (``"em"``) and joint Picard (``"joint"``), on
+(``"krk-stochastic"``), EM (``"em"``), joint Picard (``"joint"``) and the
+low-rank dual learner (``"lowrank"``, ``lowrank.learn.fit_lowrank``), on
 one device (the JAX package's ``Local`` placement), with checkpoints
 (``checkpoint_dir=``, ``save_every=``, ``resume=``) in the JAX package's
-layout. Not ported yet, each raising ``NotImplementedError`` that names
-its ROADMAP.md item: ``"lowrank"``; ``runtime=``/``mesh=`` placements.
+layout for every learner but ``"lowrank"``, which ignores them as the JAX
+package does. Not ported yet, raising ``NotImplementedError`` that names
+its ROADMAP.md item: ``runtime=``/``mesh=`` placements.
 """
 
 from __future__ import annotations
@@ -99,7 +101,9 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
     algorithm: "krk" (batch Alg. 1), "krk-stochastic" (minibatch
         sweeps; a ``minibatch_size`` turns "krk" into it), "em"
         (Gillenwater et al. baseline; ``model`` a dense kernel or a
-        KronDPP) or "joint" (Alg. 3, no ascent guarantee).
+        KronDPP), "joint" (Alg. 3, no ascent guarantee) or "lowrank"
+        (``model`` a ``dpp.LowRank`` or a pair (V, q); default schedule
+        ``armijo(a0=a)``; see ``lowrank.learn.fit_lowrank``).
     schedule: a ``schedules.Schedule``; default ``constant(a)``.
     seed / key / generator: the minibatch stream — the PRNG key ``key``
         (``repro_torch.random``, or the JAX package's uint32 key), else
@@ -129,7 +133,20 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
         Raises ``RuntimeError`` for "cuda" (the default) without a card.
     """
     if algorithm == "lowrank":
-        _not_ported("fit(algorithm='lowrank')", "lowrank/")
+        # the dual-space learner for LowRank(V, q) models, dispatched before
+        # the engine's ALGORITHMS check (its state is (V, q), not square
+        # factors) with the JAX package's kwargs: as there, checkpoint_dir,
+        # save_every, resume and mesh are not passed on
+        if generator is not None:
+            raise ValueError("the lowrank learner draws its minibatches "
+                             "from key= or seed=, not a generator")
+        from ..lowrank.learn import fit_lowrank
+        return fit_lowrank(model, batch, iters=iters, a=a,
+                           schedule=schedule,
+                           minibatch_size=minibatch_size, seed=seed,
+                           key=key, log_every=log_every,
+                           track_ll=track_ll, ll_mode=ll_mode,
+                           runtime=runtime, health=health, device=device)
     if mesh is not None or runtime is not None:
         _not_ported("fit(runtime=/mesh=): placements other than one device",
                     "Placement")

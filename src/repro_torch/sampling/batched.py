@@ -20,7 +20,8 @@ test can feed it the numbers JAX drew. ``sample_krondpp_keyed`` draws them
 from per-row PRNG keys exactly as the JAX package does
 (``repro_torch.random``), so a key gives the JAX package's rows;
 ``sample_krondpp_batched`` takes one key (split into the rows' keys) or an
-explicit ``torch.Generator``.
+explicit ``torch.Generator``. A spectrum with a ``sample_rows`` hook (the
+low-rank ``DualSpectrum``) draws its rows through the hook instead.
 """
 
 from __future__ import annotations
@@ -163,6 +164,12 @@ def sample_krondpp_keyed(row_keys, spectrum: FactorSpectrum,
     Same return contract as ``sample_krondpp_batched``."""
     if k_max is None:
         k_max = spectrum.suggested_k_max()
+    # duck-typed dispatch: a spectrum that carries its own row sampler (the
+    # low-rank DualSpectrum) bypasses the Kronecker eigenvector machinery,
+    # with the same (picks, counts, truncated) contract and keying
+    rows_hook = getattr(spectrum, "sample_rows", None)
+    if rows_hook is not None:
+        return rows_hook(row_keys, int(k_max), backend=backend)
     row_keys = prng.as_key(row_keys, spectrum.device)
     u, us = keyed_uniforms(row_keys, spectrum.N, int(k_max))
     return sample_krondpp_from_uniforms(u, us, spectrum, int(k_max),
@@ -194,6 +201,10 @@ def sample_krondpp_batched(key, spectrum: FactorSpectrum,
         keys = prng.split(prng.as_key(key, dev), int(num_samples))
         return sample_krondpp_keyed(keys, spectrum, int(k_max),
                                     backend=backend)
+    rows_hook = getattr(spectrum, "sample_rows", None)
+    if rows_hook is not None:
+        return rows_hook(key, int(k_max), backend=backend,
+                         num_samples=int(num_samples))
     u = torch.rand((num_samples, spectrum.N), generator=key,
                    dtype=torch.float32, device=dev)
     us = torch.rand((num_samples, int(k_max)), generator=key,

@@ -156,11 +156,19 @@ def sample_kdpp_batched(key, spectrum: FactorSpectrum, k: int,
     row). Phase 2 for the whole batch is one ``kernels.ops.phase2_select``
     call (``backend`` forces an engine)."""
     k = int(k)
+    # duck-typed dispatch, as in sample_krondpp_batched: a low-rank dual
+    # spectrum runs the conditional draw on its r dual eigenvalues
+    kdpp_hook = getattr(spectrum, "sample_rows_kdpp", None)
     if not isinstance(key, torch.Generator):
         keys = prng.split(prng.as_key(key, spectrum.device),
                           int(num_samples))
+        if kdpp_hook is not None:
+            return kdpp_hook(keys, k, backend=backend)
         u, us = keyed_uniforms(keys, spectrum.N, k)
         return sample_kdpp_from_uniforms(u, us, spectrum, k, backend)
+    if kdpp_hook is not None:
+        return kdpp_hook(key, k, backend=backend,
+                         num_samples=int(num_samples))
     mask = _phase1_kdpp(key, spectrum.log_eigenvalues(), k, num_samples)
     us = torch.rand((int(num_samples), k), generator=key,
                     dtype=torch.float32, device=spectrum.device)

@@ -80,8 +80,14 @@ class ServiceStats:
     through the service's per-instance ``obs.InMemoryTracker`` (teed with
     the process-wide ``obs.current_tracker()``), so the numbers here and
     the numbers in a configured run log are the same stream by
-    construction. Read them as attributes (``stats.truncations``) or as
-    one plain dict (``stats()``, the key style of ``cache.stats()``).
+    construction. Read them as attributes (``stats.truncations``), by key
+    (``stats["flushes"]``, ``KeyError`` on an unknown key), or as one
+    plain dict (``stats()``, the key style of ``cache.stats()``).
+    Equality compares counter snapshots, against another view or a dict.
+
+    ``ServiceStats(flushes=1)`` builds a detached snapshot over a tracker
+    of its own (``TypeError`` on an unknown field, or on counts given
+    beside a tracker); its ``health`` reads ``"healthy"``.
 
     ``truncations`` counts draws whose |J| overflowed the static k_max
     budget and were clipped to the lowest eigen-indices — a many-sigma
@@ -92,17 +98,28 @@ class ServiceStats:
     KEYS = ("device_calls", "samples_drawn", "samples_requested",
             "flushes", "truncations")
 
-    def __init__(self, metrics: obs.InMemoryTracker,
-                 health: obs.HealthMonitor):
+    def __init__(self, metrics: Optional[obs.InMemoryTracker] = None,
+                 health: Optional[obs.HealthMonitor] = None, **counts):
+        if metrics is None:             # detached snapshot
+            metrics = obs.InMemoryTracker()
+            for k, v in counts.items():
+                if k not in self.KEYS:
+                    raise TypeError(f"unknown ServiceStats field {k!r}")
+                metrics.counter(f"service.{k}", v)
+        elif counts:
+            raise TypeError("pass either a metrics tracker or counts, "
+                            "not both")
         self._metrics = metrics
         self._health = health
 
     @property
     def health(self) -> str:
-        """The service's ``HealthMonitor`` verdict. Not part of the
+        """The service's ``HealthMonitor`` verdict; a detached snapshot
+        has no monitor and reads ``"healthy"``. Not part of the
         ``stats()`` dict — the counter snapshot keys are a pinned
         contract."""
-        return self._health.verdict
+        return self._health.verdict if self._health is not None \
+            else "healthy"
 
     def _value(self, key: str) -> int:
         return int(self._metrics.counter_value(f"service.{key}"))
@@ -110,6 +127,21 @@ class ServiceStats:
     def __call__(self) -> dict:
         """Plain-dict snapshot — the same shape as ``cache.stats()``."""
         return {k: self._value(k) for k in self.KEYS}
+
+    def __getitem__(self, key: str) -> int:
+        if key not in self.KEYS:
+            raise KeyError(key)
+        return self._value(key)
+
+    def keys(self):
+        return self.KEYS
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, ServiceStats):
+            return self() == other()
+        if isinstance(other, dict):
+            return self() == other
+        return NotImplemented
 
     def __repr__(self) -> str:
         body = ", ".join(f"{k}={v}" for k, v in self().items())

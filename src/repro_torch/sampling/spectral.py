@@ -10,7 +10,7 @@ entry is cached.
 
 ``torch.linalg.eigh`` stays a library call (cuSOLVER on the card), as the
 JAX package leaves ``eigh`` to XLA. The low-rank dual (``spectrum_lowrank``)
-is not ported yet.
+is one r×r ``eigh`` of the dual Gram, cached under the (V, q) pair.
 """
 
 from __future__ import annotations
@@ -185,6 +185,53 @@ class SpectralCache:
         pairs = [self._factor(f) for f in dpp.factors]
         return FactorSpectrum(tuple(p[0] for p in pairs),
                               tuple(p[1] for p in pairs))
+
+    def spectrum_lowrank(self, V: torch.Tensor, q: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(phi, lams, W)`` for the rank-r dual of L = V diag(q) Vᵀ.
+
+        phi = V·√q (N, r); ``lams``/``W`` eigendecompose the r×r dual Gram
+        C = φᵀφ (symmetrized), which shares its nonzero spectrum with L —
+        the only factorization on this path, so a low-rank model never
+        pays an N×N eigh. Keyed on ``(id(V), id(q))``: a q-only update
+        costs one fresh r×r eigh, repeat lookups of the same pair are
+        hits. The entry pins strong references to both tensors. A miss's
+        span and ``eigh_s`` timer are tagged ``n = r``."""
+        tracker = obs.current_tracker()
+        r = int(V.shape[1])
+        key = ("lowrank", id(V), id(q), tuple(V.shape), tuple(q.shape),
+               str(V.dtype), str(V.device))
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None:
+                self.hits += 1
+                tracker.counter("spectral_cache.hits")
+                self._entries.move_to_end(key)
+                return hit[1], hit[2], hit[3]
+            self.misses += 1
+            tracker.counter("spectral_cache.misses")
+
+            def _dual():
+                phi = V * torch.sqrt(torch.clamp_min(q, 0.0))[:, None]
+                C = phi.T @ phi
+                lam, W = torch.linalg.eigh(0.5 * (C + C.T))
+                return phi, torch.clamp_min(lam, 0.0), W
+
+            if obs.enabled(tracker):
+                with obs.spans.start_span("spectral_cache.eigh",
+                                          tracker=tracker, n=r):
+                    with tracker.timer("spectral_cache.eigh_s", n=r):
+                        phi, lam, W = _dual()
+                        if V.is_cuda:
+                            torch.cuda.synchronize(V.device)
+            else:
+                phi, lam, W = _dual()
+            self._entries[key] = ((V, q), phi, lam, W)   # pins both ids
+            while len(self._entries) > self.maxsize:
+                self._entries.popitem(last=False)
+                self.evictions += 1
+                tracker.counter("spectral_cache.evictions")
+            return phi, lam, W
 
 
 def gain_for_expected_size(log_lams, target: float,

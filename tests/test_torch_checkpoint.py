@@ -20,10 +20,14 @@ fits, against the JAX package's manager and engine.
 import json
 import os
 
-# the JAX reference runs on the CPU, never on the card
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
+# the JAX reference runs on the CPU and takes none of a card's memory, even
+# where the environment offers jax a card (JAX_PLATFORMS=cuda,cpu)
+os.environ["XLA_PYTHON_CLIENT_PREALLOCATE"] = "false"
 
 import jax
+
+jax.config.update("jax_platforms", "cpu")
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

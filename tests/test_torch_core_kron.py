@@ -4,11 +4,15 @@ plus the property tests of ``tests/test_kron.py`` run on the port."""
 
 import os
 
-# the JAX reference runs on the CPU, never on the card
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
+# the JAX reference runs on the CPU and takes none of a card's memory, even
+# where the environment offers jax a card (JAX_PLATFORMS=cuda,cpu)
+os.environ["XLA_PYTHON_CLIENT_PREALLOCATE"] = "false"
 
 from _hypothesis_compat import hypothesis, st
 import jax  # noqa: F401  (imported beside torch, as in every port test)
+
+jax.config.update("jax_platforms", "cpu")
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

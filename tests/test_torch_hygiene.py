@@ -8,21 +8,27 @@ import subprocess
 import sys
 from pathlib import Path
 
-# the JAX reference runs on the CPU, never on the card
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
+# the JAX reference runs on the CPU and takes none of a card's memory, even
+# where the environment offers jax a card (JAX_PLATFORMS=cuda,cpu)
+os.environ["XLA_PYTHON_CLIENT_PREALLOCATE"] = "false"
 
 import jax  # noqa: F401  (imported beside torch, as in every port test)
+
+jax.config.update("jax_platforms", "cpu")
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import FLOAT, INDEX, dpp
 from repro_torch import random as prng
-from repro_torch.convert import (key_from_numpy, kron_from_numpy,
+from repro_torch.convert import (dual_spectrum_from_numpy, key_from_numpy,
+                                  kron_from_numpy, lowrank_from_numpy,
                                   spectrum_from_numpy,
                                   subset_batch_from_numpy)
 from repro_torch.core import SubsetBatch, fit_picard, random_krondpp
 from repro_torch.learning import LearningEngine, fit, schedules
+from repro_torch.lowrank.learn import fit_lowrank
 from repro_torch.sampling import SamplingService
 from repro_torch.serving import TenantKeyring
 
@@ -44,7 +50,10 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
             "repro_torch.random, repro_torch.serving, "
             "repro_torch.kernels.threefry, repro_torch.checkpoint, "
             "repro_torch.checkpoint.manager, repro_torch.core.em, "
-            "repro_torch.core.picard, repro_torch.core.joint_picard\n"
+            "repro_torch.core.picard, repro_torch.core.joint_picard, "
+            "repro_torch.lowrank, repro_torch.lowrank.dual, "
+            "repro_torch.lowrank.sample, repro_torch.lowrank.model, "
+            "repro_torch.lowrank.learn, repro_torch.lowrank.features\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -114,6 +123,22 @@ def test_no_jax_or_jax_package_import_in_port_sources(path):
         SubsetBatch.from_lists([[0, 1]], device="cpu")),
     lambda: fit_picard(np.eye(3), SubsetBatch.from_lists([[0, 1]],
                                                          device="cpu")),
+    lambda: dpp.LowRank(np.ones((4, 2))),
+    lambda: dpp.LowRank(np.ones((4, 2)), device="cpu").fit(
+        SubsetBatch.from_lists([[0, 1]], device="cpu")),
+    lambda: fit((np.ones((4, 2)), np.ones(4)),
+                SubsetBatch.from_lists([[0, 1]], device="cpu"),
+                algorithm="lowrank"),
+    lambda: dpp.LowRank(np.ones((4, 2)), device="cpu").sample(
+        prng.PRNGKey(0, "cpu"), 2, k=1),
+    lambda: dpp.LowRank(np.ones((4, 2)), device="cpu").spectrum().to("cuda"),
+    lambda: dpp.LowRank(np.ones((4, 2)), device="cpu").sample(
+        prng.PRNGKey(0, "cpu"), 2),
+    lambda: dpp.LowRank(np.ones((4, 2)), device="cpu").service(),
+    lambda: lowrank_from_numpy(np.ones((4, 2)), np.ones(4)),
+    lambda: dual_spectrum_from_numpy(np.ones((4, 2)), np.ones(2), np.eye(2)),
+    lambda: fit_lowrank((np.ones((4, 2)), np.ones(4)),
+                        SubsetBatch.from_lists([[0, 1]], device="cpu")),
 ])
 def test_entry_points_without_a_card_raise(call):
     """Every entry point defaults to device="cuda"; with no card it
@@ -144,3 +169,38 @@ def test_kernel_build_is_deferred_to_first_launch():
         ["greedy_map", "kron_matvec", "partial_trace", "phase2_select",
          "threefry"]
     assert _build.library_path("phase2_select").parent == _build.BUILD_DIR
+
+
+TEST_FILES = sorted((ROOT / "tests").glob("test_torch_*.py"))
+
+
+@pytest.mark.parametrize("path", TEST_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_tests_pin_the_jax_reference_to_the_cpu(path):
+    """Every port test file stops jax's preallocation before jax's first
+    import and forces jax onto the CPU before any use of it, so that on a
+    machine whose environment offers jax a card the reference neither runs
+    there nor takes its memory."""
+    src = path.read_text()
+    prealloc = src.index('os.environ["XLA_PYTHON_CLIENT_PREALLOCATE"] = '
+                         '"false"')
+    first_import = src.index("\nimport jax")
+    pin = src.index('\njax.config.update("jax_platforms", "cpu")\n')
+    assert prealloc < first_import < pin
+    later = [src.find(m, first_import + 1)
+             for m in ("\nimport jax.", "\nfrom jax", "\nfrom repro ",
+                       "\nfrom repro.", "\nimport repro.")]
+    assert all(i < 0 or pin < i for i in later), path.name
+    assert "JAX_PLATFORMS\", \"cpu\")" not in src    # no setdefault left
+
+
+def test_the_jax_reference_computes_on_the_cpu():
+    """In a port test process the JAX package's results live on the CPU
+    device."""
+    import jax.numpy as jnp
+    from repro import dpp as jdpp
+    cpu = jax.devices("cpu")[0]
+    assert jax.default_backend() == "cpu"
+    model = jdpp.from_kernel(jnp.eye(3) * 2.0)
+    assert model.log_prob(model.sample(jax.random.PRNGKey(0), 2)).devices() \
+        == {cpu}

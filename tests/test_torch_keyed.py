@@ -23,10 +23,14 @@ Sizes: factors of 4 x 5 and 20 x 25, rescaled to a small E|Y|."""
 import collections
 import os
 
-# the JAX reference runs on the CPU, never on the card
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
+# the JAX reference runs on the CPU and takes none of a card's memory, even
+# where the environment offers jax a card (JAX_PLATFORMS=cuda,cpu)
+os.environ["XLA_PYTHON_CLIENT_PREALLOCATE"] = "false"
 
 import jax
+
+jax.config.update("jax_platforms", "cpu")
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -228,6 +232,56 @@ def test_random_kron_matches_jax(sizes):
     for g, w in zip(core.factors, jcore.factors):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-5 * float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("sizes,scale", [((4, 5), 1.0), ((6, 3, 2), 0.5)],
+                         ids=str)
+def test_random_kron_takes_the_jax_argument_order(sizes, scale):
+    """``random_kron(key, sizes, dtype, scale)`` and ``random_krondpp`` take
+    the JAX package's positional order, ``device`` by keyword only: the
+    same factors as the JAX call for the same key, float64 on request."""
+    import inspect
+    key = jax.random.PRNGKey(7)
+    tkey = key_from_numpy(np.asarray(key), "cpu")
+    want = jdpp.random_kron(key, sizes, jnp.float32, scale)
+    got = dpp.random_kron(tkey, sizes, torch.float32, scale, device="cpu")
+    core = random_krondpp(tkey, sizes, torch.float32, scale, device="cpu")
+    for g, c, w in zip(got.factors, core.factors, want.factors):
+        assert g.dtype == c.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(w).max()))
+        assert torch.equal(g, c)
+    wide = random_krondpp(tkey, sizes, torch.float64, scale, device="cpu")
+    for f, c in zip(wide.factors, core.factors):
+        assert f.dtype == torch.float64
+        np.testing.assert_allclose(f.numpy(), c.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(c.abs().max()))
+    for fn, jfn in ((dpp.random_kron, jdpp.random_kron),
+                    (random_krondpp, jax_random_krondpp)):
+        params = inspect.signature(fn).parameters
+        assert list(params)[:4] == list(inspect.signature(jfn).parameters)
+        assert params["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    with pytest.raises(TypeError):
+        dpp.random_kron(tkey, sizes, torch.float32, scale, "cpu")
+
+
+def test_facade_reexports_schedules():
+    """``dpp.schedules`` is the learning schedules module in both packages
+    (``examples/quickstart.py`` spells ``dpp.schedules.armijo()``)."""
+    from repro_torch.learning import schedules
+    assert dpp.schedules is schedules
+    assert "schedules" in dpp.__all__ and "schedules" in jdpp.__all__
+    for name in ("constant", "inv_sqrt", "armijo"):
+        assert dataclasses_fields(getattr(dpp.schedules, name)()) == \
+            dataclasses_fields(getattr(jdpp.schedules, name)())
+    assert dataclasses_fields(dpp.schedules.by_name("inv-sqrt", 0.5)) == \
+        dataclasses_fields(jdpp.schedules.by_name("inv-sqrt", 0.5))
+
+
+def dataclasses_fields(sched):
+    import dataclasses
+    return {f.name: getattr(sched, f.name)
+            for f in dataclasses.fields(sched)}
 
 
 def test_model_sample_with_a_key_matches_jax():

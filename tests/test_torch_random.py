@@ -10,10 +10,14 @@ import os
 import sys
 from pathlib import Path
 
-# the JAX reference runs on the CPU, never on the card
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
+# the JAX reference runs on the CPU and takes none of a card's memory, even
+# where the environment offers jax a card (JAX_PLATFORMS=cuda,cpu)
+os.environ["XLA_PYTHON_CLIENT_PREALLOCATE"] = "false"
 
 import jax
+
+jax.config.update("jax_platforms", "cpu")
+
 import numpy as np
 import pytest
 import torch

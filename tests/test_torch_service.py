@@ -6,10 +6,14 @@ facade's sampling contract."""
 import os
 import threading
 
-# the JAX reference runs on the CPU, never on the card
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
+# the JAX reference runs on the CPU and takes none of a card's memory, even
+# where the environment offers jax a card (JAX_PLATFORMS=cuda,cpu)
+os.environ["XLA_PYTHON_CLIENT_PREALLOCATE"] = "false"
 
 import jax
+
+jax.config.update("jax_platforms", "cpu")
+
 import numpy as np
 import pytest
 import torch
@@ -166,14 +170,15 @@ def test_facade_sample_returns_subset_batch_with_provenance():
 
 
 @pytest.mark.parametrize("call", [
-    lambda m, g: m.fit(None, algorithm="lowrank", iters=2, device="cpu"),
-    lambda m, g: m.fit(None, algorithm="lowrank", device="cpu"),
+    lambda m, g: m.serving(tenant_models={"a": m}),
+    lambda m, g: m.fit(None, algorithm="krk-stochastic", mesh=object(),
+                       device="cpu"),
     lambda m, g: m.fit(None, mesh=object(), iters=1, device="cpu"),
     lambda m, g: m.fit(None, runtime=object(), device="cpu"),
     lambda m, g: dpp.from_kernel(m.dense_kernel(), device="cpu").serving(),
     lambda m, g: m.serving(max_batch=8),
     lambda m, g: m.serving(),
-    lambda m, g: m.fit(None, algorithm="lowrank", checkpoint_dir="ckpt",
+    lambda m, g: m.fit(None, checkpoint_dir="ckpt", runtime=object(),
                        device="cpu"),
     lambda m, g: m.serving(config=None, max_batch=4),
 ])
@@ -189,3 +194,51 @@ def test_service_rejects_what_it_cannot_sample():
     svc = SamplingService(KronDPP(model().factors), device="cpu")
     with pytest.raises(ValueError):
         svc.submit(0)
+
+
+def test_service_stats_contract_matches_the_jax_view():
+    """``ServiceStats``: attributes, ``stats()``, ``stats[key]`` (KeyError
+    on an unknown key), ``keys()``, ``==`` against another view or a plain
+    dict, and the detached constructor ``ServiceStats(flushes=1)`` with its
+    TypeErrors — the same calls on both packages' views
+    (``tests/test_obs.py``'s contract)."""
+    from repro.sampling.service import ServiceStats as JaxStats
+    from repro_torch.sampling import ServiceStats
+    jm = random_krondpp(jax.random.PRNGKey(0), (3, 4))
+    with jax_obs.use(jax_obs.InMemoryTracker()):
+        jsvc = JaxService(jm, cache=JaxCache(), seed=3)
+        jsvc.sample(5)
+    with obs.use(obs.InMemoryTracker()) as t:
+        svc = SamplingService(
+            kron_from_numpy([np.asarray(f) for f in jm.factors],
+                            device="cpu"), cache=SpectralCache(), seed=3,
+            device="cpu")
+        svc.sample(5)
+    for stats, Stats in ((svc.stats, ServiceStats),
+                         (jsvc.stats, JaxStats)):
+        assert stats.samples_requested == 5 and stats.flushes == 1
+        snap = stats()
+        assert isinstance(snap, dict) and set(snap) == set(Stats.KEYS)
+        assert tuple(stats.keys()) == Stats.KEYS
+        assert snap["flushes"] == 1 == stats["flushes"]
+        with pytest.raises(KeyError):
+            stats["nope"]
+        assert stats == stats and stats == snap
+        assert stats != {**snap, "flushes": 2}
+        assert Stats(flushes=1) == Stats(flushes=1)
+        assert Stats(flushes=1) != Stats(flushes=2)
+        assert Stats(flushes=1) == {**dict.fromkeys(Stats.KEYS, 0),
+                                    "flushes": 1}
+        assert Stats(flushes=1).health == "healthy"
+        assert stats.health == "healthy"
+        with pytest.raises(TypeError, match="unknown ServiceStats field"):
+            Stats(bogus=1)
+        with pytest.raises(TypeError, match="not both"):
+            Stats(obs.InMemoryTracker(), flushes=1)
+        assert (stats == object()) is False
+    assert svc.stats == jsvc.stats()
+    assert ServiceStats(**jsvc.stats()) == jsvc.stats()
+    assert repr(ServiceStats(**jsvc.stats())) == repr(jsvc.stats)
+    # the process-wide tracker saw the same stream the view reads
+    for k in ServiceStats.KEYS:
+        assert t.counters.get(f"service.{k}", 0) == svc.stats[k]
