@@ -183,7 +183,50 @@ non-zero and prints no result line.
    beside one read of φ a step; at N = 2^20, r = 128 (φ 512 MB) the peak
    allocation of ``sample(key, 16)`` above what was allocated before it,
    below B·N·k_max·4 bytes;
-21. the device times of every ``kernels`` row (``fill_device_times``),
+21. the async serving tier (``repro_torch.serving``) at full width:
+   (a) ``benchmarks/serving_load.py``'s traffic on the phase-5 model
+   (tenants t0:2, t1..t3:1, 1-4 samples a request, open-loop Poisson
+   arrivals seeded 1000 + the tenant's index, deadline 25 ms, max_batch
+   64) at 100 req/s x 240, 400 x 600 and 800 x 800 requests through one
+   ``AsyncSamplingService`` each, after a warm-up of every power-of-two
+   batch; each load's row (samples/s, rows a device call, occupancy, p50
+   and p99 latency, the device call's p99, the bound deadline + that p99,
+   fires, rejections, truncation rate) is printed, not gated; (b) every
+   served row bit for bit the row ``svc.service.draw_keyed`` gives its
+   key alone (one row a call), and the plain phase 2 of the same
+   phase-1 inputs on a CPU copy, identical or a tie under phase 3's rule;
+   the first flush (pad rows too) against the plain phase 2 on the card;
+   no failed flush and no rejection; phase-2 launches equal to the device
+   calls, ``threefry2x32`` launches to the keyring's and the draws'; (c)
+   the lowest load again at deadline 1 ms: every (tenant, seq) the same
+   rows; (d) three ``LowRank`` tenants over phase 20's V (N = 65536, r =
+   32), their q from seeded keys, rescaled to E|Y| = 8, through
+   ``tenant_models=`` on one cache: 3 misses, every eigh r x r, only
+   ``threefry2x32`` launched; every row against a serial ``draw_keyed``
+   and against a CPU copy on the carried dual spectrum under phase 20's
+   rule, the counts printed; (e) ``KVCompactionClient`` at Mixtral-8x7B's
+   attention width (8 KV heads of dimension 128), two streams of S = 1024
+   cached tokens (valid 1024 and 960) from numpy with the run's seed,
+   budget 256, recency 64, one flush of 16 heads: (8, 256) int32 picks on
+   the card, sorted, distinct, within the valid length, the recency
+   window kept; the heads drawn apart (a client a stream) bit for bit;
+   each head's phase-2 picks, replayed from the
+   card's eigh and the plain twin's uniforms, against the plain phase 2 on
+   a CPU copy (phase 3's rule) and among the served picks; the route
+   ("global") and one phase-2 launch a head; whether a batched eigh of
+   the 16 heads is bitwise each head's own (printed); one head by
+   ``method="map"`` (k = 192 update launches, its greedy order against
+   the plain update on a CPU copy, phase 13's rule); the flush's time;
+   (f) the lowest load again under a ``JsonlTracker`` (rows equal to
+   (a)'s), exported with ``ChromeTraceExporter``: every ticket's trace is
+   ``service.request`` over ``queue-wait``, ``coalesce``, ``device-call``
+   and ``scatter``, all tagged with its tenant; ``obs.report.render`` of
+   the log; (g) ``close(drain=False)`` fails queued tickets with
+   ``CancelledRequest``, a submit past ``max_queue_depth`` raises
+   ``QueueFull`` and one after close ``ServiceClosed``. Every path is
+   driven with all six kernels' launch counts set to 0 just before and
+   read just after; the ``serving`` JSON line holds it all;
+22. the device times of every ``kernels`` row (``fill_device_times``),
    after every host-clock time above, with the host's time of one small
    launch before and after the profiler sessions.
 
@@ -2433,6 +2476,585 @@ def lowrank_path(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21 helpers: the async serving tier
+# ---------------------------------------------------------------------------
+
+# benchmarks/serving_load.py:39-48: four tenants, 1-4 samples a request,
+# open-loop Poisson arrivals seeded 1000 + the tenant's index, a 25 ms
+# deadline, flushes of up to 64 rows; (offered requests/s, requests)
+SV_TENANTS = {"t0": 2, "t1": 1, "t2": 1, "t3": 1}
+SV_DEADLINE_MS, SV_MAX_BATCH = 25.0, 64
+SV_SAMPLE_LO, SV_SAMPLE_HI = 1, 4
+SV_LOADS = ((100.0, 240), (400.0, 600), (800.0, 800))
+SV_FLEET, SV_FLEET_REQUESTS = 3, 16   # LowRank tenants over phase 20's V
+# Mixtral-8x7B's attention (src/repro/configs/mixtral_8x7b.py): 8 KV heads
+# of dimension 4096 / 32 = 128; two streams' 1024-token caches cut to 256
+# positions, 64 of them the recency window
+KV_HEADS, KV_HEAD_DIM, KV_S, KV_BUDGET, KV_RECENCY = 8, 128, 1024, 256, 64
+KV_VALID = (1024, 960)                # the two streams' valid lengths
+SV_SEED = 0
+SvTicket = collections.namedtuple("SvTicket", "tenant seq num_samples")
+SPAN_OPS = {"service.request": None, "queue-wait": "service.request",
+            "coalesce": "service.request", "device-call": "service.request",
+            "scatter": "service.request"}
+
+
+def sv_counted(fn, label: str, expect):
+    """Run ``fn`` with every kernel's launch count set to 0 just before and
+    read just after: each kernel of ``expect`` launched, no other one.
+    Returns (fn's result, the counts)."""
+    counters = lr_counters()
+    for obj in counters.values():
+        obj.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    n = {k: obj.launches for k, obj in counters.items()}
+    for k, v in n.items():
+        check((v > 0) == (k in expect), f"{label}: {k} launched {v} times; "
+              f"the path launches {sorted(expect)}")
+    return out, n
+
+
+def sv_drive_load(model, rps: float, n_requests: int, dev,
+                  deadline_ms: float = SV_DEADLINE_MS, tracker=None,
+                  record=None):
+    """``benchmarks/serving_load.py``'s ``_drive_load`` on the port: four
+    tenant threads submit open-loop at Poisson arrivals against one
+    ``AsyncSamplingService`` on the card. ``record``: a dict that gets the
+    row keys and rows of the tier's first device call. Returns (the load's
+    row, the tier, its tickets by (tenant, seq))."""
+    import threading
+    from repro_torch.serving import AsyncSamplingService, ServingConfig
+    svc = AsyncSamplingService(
+        model, ServingConfig(max_batch=SV_MAX_BATCH, deadline_ms=deadline_ms,
+                             max_queue_depth=8192),
+        tenants=SV_TENANTS, seed=SV_SEED, tracker=tracker, device=dev)
+    if record is not None:
+        draw = svc.service.draw_keyed
+
+        def recording(row_keys):
+            out = draw(row_keys)
+            if not record:
+                record.update(keys=row_keys.clone(), rows=out[0])
+            return out
+
+        svc.service.draw_keyed = recording
+    names = list(SV_TENANTS)
+    per_tenant = n_requests // len(names)
+    rate = rps / len(names)
+    tickets = []
+    tlock = threading.Lock()
+    start = time.perf_counter() + 0.05   # common epoch for all tenants
+
+    def tenant_thread(idx: int, name: str):
+        rng = np.random.default_rng(1000 + idx)
+        offsets = np.cumsum(rng.exponential(1.0 / rate, per_tenant))
+        sizes = rng.integers(SV_SAMPLE_LO, SV_SAMPLE_HI + 1, per_tenant)
+        mine = []
+        for off, n in zip(offsets, sizes):
+            delay = start + off - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            mine.append(svc.submit(int(n), tenant=name))
+        with tlock:
+            tickets.extend(mine)
+
+    threads = [threading.Thread(target=tenant_thread, args=(i, nm))
+               for i, nm in enumerate(names)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for t in tickets:
+        t.result(timeout=120.0)
+    duration = time.perf_counter() - start
+    svc.close()
+    sm, vm = svc._metrics, svc.service._metrics
+    requested = sm.counter_value("serving.requested_rows")
+    drawn = max(1.0, vm.counter_value("service.samples_drawn"))
+    calls = max(1.0, vm.counter_value("service.device_calls"))
+    dev_p99_s = vm.percentile("service.device_call_s", 99)
+    p99_ms = svc.stats.p99_latency_s * 1e3
+    row = {"offered_rps": rps, "deadline_ms": deadline_ms,
+           "requests": len(tickets), "rows": int(requested),
+           "duration_s": duration, "samples_per_s": requested / duration,
+           "rows_per_call": requested / calls,
+           "occupancy": requested / drawn,
+           "p50_ms": svc.stats.p50_latency_s * 1e3, "p99_ms": p99_ms,
+           "device_call_p50_ms":
+               vm.percentile("service.device_call_s", 50) * 1e3,
+           "device_call_p99_ms": dev_p99_s * 1e3,
+           "p99_bound_ms": deadline_ms + dev_p99_s * 1e3,
+           "p99_within_bound": bool(p99_ms <= deadline_ms + dev_p99_s * 1e3),
+           "flushes": svc.stats.flushes, "device_calls": int(calls),
+           "deadline_fires": svc.stats.deadline_fires,
+           "batch_fires": svc.stats.batch_fires,
+           "drain_fires": svc.stats.drain_fires,
+           "failed_flushes": svc.stats.failed_flushes,
+           "rejected": svc.stats.rejected,
+           "truncation_rate": vm.counter_value("service.truncations")
+           / drawn, "health": svc.service.stats.health}
+    return row, svc, {(t.tenant, t.seq): t for t in tickets}
+
+
+def sv_replay_serial(svc, tickets, dev) -> int:
+    """Every served row against ``svc.service.draw_keyed`` of its own key,
+    one row a call, bit for bit. Returns the rows replayed."""
+    from repro_torch.serving import TenantKeyring
+    ring = TenantKeyring(SV_SEED, device=dev)
+    n = 0
+    for (tenant, seq), t in sorted(tickets.items()):
+        keys = ring.row_keys([t], t.num_samples)
+        for j, row in enumerate(t.result()):
+            again = svc.service.draw_keyed(keys[j:j + 1])[0][0]
+            check(again == row, f"{tenant} seq {seq} row {j}: served "
+                  f"{row}, drawn alone {again}")
+            n += 1
+    return n
+
+
+def sv_rows_vs_plain(spec, k_max: int, row_keys, rows, label: str,
+                     cpu: bool) -> dict:
+    """Rows drawn on the card from ``row_keys`` against the plain phase 2
+    of the same phase-1 inputs (the keys' uniforms through the plain twin,
+    phase 1 on the card): on the CPU when ``cpu``, else on the card; under
+    phase 3's rule (``compare_picks``)."""
+    from repro_torch.kernels.phase2_select import phase2_select_plain
+    u, us = plain_row_uniforms(row_keys, spec.N, k_max)
+    us_m, ke_m, G1_m, Gr_m = phase1_of(spec, k_max, u, us)
+    if cpu:
+        us_m, ke_m, G1_m, Gr_m = (x.cpu() for x in (us_m, ke_m, G1_m, Gr_m))
+    pp = phase2_select_plain(us_m, ke_m, G1_m, Gr_m).cpu().numpy()
+    pk = np.full(pp.shape, -1, dtype=np.int32)
+    for b, r in enumerate(rows):
+        pk[b, :len(r)] = r
+    return compare_picks(pk, pp, us_m, ke_m, G1_m, Gr_m, label)
+
+
+def sv_check_spans(run_log: Path, tickets) -> dict:
+    """Each ticket's trace in the Chrome trace exported from ``run_log``:
+    ``service.request`` over ``queue-wait``, ``coalesce``, ``device-call``
+    and ``scatter``, every span tagged with the ticket's tenant."""
+    from repro_torch.obs.export import ChromeTraceExporter
+    trace = ChromeTraceExporter().export(str(run_log),
+                                         str(run_log.with_suffix(".json")))
+    by_trace = collections.defaultdict(list)
+    for ev in trace["traceEvents"]:
+        if ev.get("ph") == "X":
+            by_trace[ev["args"]["trace"]].append(ev)
+    for t in tickets.values():
+        evs = by_trace.get(t.trace_id, [])
+        names = {e["args"]["span"]: e["name"] for e in evs}
+        tree = {e["name"]: (names.get(e["args"]["parent"])
+                            if e["args"]["parent"] else None) for e in evs}
+        check(tree == SPAN_OPS and len(evs) == len(SPAN_OPS),
+              f"ticket {t.tenant} {t.seq}: span tree {tree}")
+        check(all(e["args"].get("tenant") == t.tenant for e in evs),
+              f"ticket {t.tenant} {t.seq}: spans not all tagged tenant "
+              f"{t.tenant}")
+    return {"events": len(trace["traceEvents"]), "traces": len(by_trace),
+            "tickets": len(tickets)}
+
+
+def sv_lowrank_fleet(dev) -> dict:
+    """(d): three ``LowRank`` tenants over phase 20's V (N = 65536, r = 32),
+    each q from a seeded key, rescaled to E|Y| = 8 (on a scratch cache),
+    served through ``tenant_models=`` on one shared cache: three misses,
+    every eigh r x r; every row against a serial ``draw_keyed`` on the card
+    and against a CPU copy on the carried dual spectrum, identical or a
+    proven tie (``lr_rows_agree``)."""
+    from repro_torch import dpp
+    from repro_torch import random as prng
+    from repro_torch.obs import InMemoryTracker, use
+    from repro_torch.sampling import SamplingService, SpectralCache
+    from repro_torch.serving import (AsyncSamplingService, ServingConfig,
+                                     TenantKeyring)
+    V = lr_normal(prng.PRNGKey(LR_N, dev), (LR_N, LR_RANK)) * 0.7
+    scratch = SpectralCache()
+    models = {}
+    for i in range(SV_FLEET):
+        q = lr_normal(prng.PRNGKey(LR_N + 10 + i, dev), (LR_N,)).abs() + 0.3
+        models[f"q{i}"] = dpp.LowRank(V, q, device=dev).rescale(LR_TARGET,
+                                                                scratch)
+    check(all(m.V is V for m in models.values()), "the fleet's V is not "
+          "one tensor")
+    cache = SpectralCache()
+    eigh_tracker = InMemoryTracker(keep_records=True)
+
+    def serve():
+        svc = AsyncSamplingService(
+            config=ServingConfig(max_batch=SV_MAX_BATCH,
+                                 deadline_ms=SV_DEADLINE_MS),
+            tenant_models=models, seed=SV_SEED, cache=cache, device=dev)
+        rng = np.random.default_rng(SV_SEED)
+        tickets = [svc.submit(int(rng.integers(SV_SAMPLE_LO,
+                                               SV_SAMPLE_HI + 1)), tenant=t)
+                   for _ in range(SV_FLEET_REQUESTS) for t in models]
+        for t in tickets:
+            t.result(timeout=120.0)
+        svc.close()
+        return svc, tickets
+
+    with use(eigh_tracker), EighSizes() as eighs:
+        (svc, tickets), launches = sv_counted(serve, "LowRank fleet",
+                                              {"threefry2x32"})
+    misses = [r["tags"]["n"] for r in eigh_tracker.records
+              if r["name"] == "spectral_cache.eigh_s"]
+    out = {"tenants": SV_FLEET, "requests": len(tickets),
+           "cache": cache.stats(), "eigh_sizes": eighs.sizes,
+           "misses_tagged_n": misses, "launches": launches,
+           "stats": svc.stats(), "agree": {}}
+    check(cache.stats()["misses"] == SV_FLEET and misses == [LR_RANK] * 3
+          and eighs.sizes == [LR_RANK] * SV_FLEET, f"the fleet's "
+          f"spectra: {out['cache']}, eigh sizes {eighs.sizes}, eigh_s "
+          f"tags {misses}, not {SV_FLEET} of {LR_RANK} x {LR_RANK}")
+    check(svc.stats.failed_flushes == 0 and svc.stats.rejected == 0,
+          f"the fleet's flushes: {svc.stats()}")
+    ring = TenantKeyring(SV_SEED, device=dev)
+    pad = lambda rows, k: np.array([r + [-1] * (k - len(r)) for r in rows])
+    for name, model in models.items():
+        engine = svc._services[name]
+        mine = [t for t in tickets if t.tenant == name]
+        keys = torch.cat([ring.row_keys([t], t.num_samples) for t in mine])
+        rows = [r for t in mine for r in t.result()]
+        k = engine.k_max
+        serial = [engine.draw_keyed(keys[j:j + 1])[0][0]
+                  for j in range(len(rows))]
+        spec_cpu = engine.spectrum.to("cpu")
+        cpu = SamplingService(dpp.LowRank(model.V.cpu(), model.q.cpu(),
+                                          device="cpu"),
+                              k_max=k, cache=CarriedDual(spec_cpu),
+                              device="cpu")
+        want = cpu.draw_keyed(keys.cpu())[0]
+        lr_check_rows(pad(rows, k), LR_N, k, f"fleet {name}")
+        out["agree"][name] = {
+            "serial": lr_rows_agree(pad(serial, k), pad(rows, k),
+                                    keys.cpu(), spec_cpu, k,
+                                    f"fleet {name}, served vs serial"),
+            "cpu": lr_rows_agree(pad(want, k), pad(rows, k), keys.cpu(),
+                                 spec_cpu, k,
+                                 f"fleet {name}, card vs CPU copy")}
+    return out
+
+
+def sv_kv(dev) -> dict:
+    """(e): two streams' Mixtral-width caches through ``KVCompactionClient``
+    in one flush, checked, drawn apart, held against the plain phase 2 on
+    a CPU copy; one head's greedy-MAP selection; the global route's time
+    on a head."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import phase2_select as p2
+    from repro_torch.sampling.batched import (compact_selection,
+                                              gather_factor_columns)
+    from repro_torch.sampling.kdpp import _phase1_kdpp_from_uniforms
+    from repro_torch.sampling.spectral import FactorSpectrum
+    from repro_torch.serve.kv_compaction import (dpp_select_tokens,
+                                                 token_kernel)
+    from repro_torch.serving import KVCompactionClient, ServingConfig
+    k = KV_BUDGET - KV_RECENCY
+    caches = np.random.default_rng(SV_SEED).standard_normal(
+        (2, KV_HEADS, KV_S, KV_HEAD_DIM), dtype=np.float32)
+    submits = [(f"s{i}", caches[i], KV_VALID[i]) for i in range(2)]
+
+    def run(subs):
+        client = KVCompactionClient(
+            KV_BUDGET, KV_RECENCY, ServingConfig(max_batch=4096,
+                                                 deadline_ms=200.0),
+            seed=SV_SEED, device=dev)
+        tickets = [client.submit(c, valid_len=v, tenant=t)
+                   for t, c, v in subs]
+        picks = [t.result(timeout=120.0) for t in tickets]
+        client.close()
+        return picks, client
+
+    (together, client), launches = sv_counted(
+        lambda: run(submits), "KV client", {"phase2_select", "threefry2x32"})
+    m = client._metrics
+    out = {"shapes": {"heads": KV_HEADS, "head_dim": KV_HEAD_DIM, "S": KV_S,
+                      "budget": KV_BUDGET, "recency": KV_RECENCY,
+                      "valid": KV_VALID},
+           "launches": launches,
+           "device_calls": int(m.counter_value("serving.device_calls")),
+           "heads_selected": int(m.counter_value("serving.heads_selected")),
+           "flush_ms": [x * 1e3 for x in m.observations["serving.flush_s"]],
+           "device_call_ms": [x * 1e3 for x in
+                              m.observations["serving.device_call_s"]]}
+    check(out["device_calls"] == 1 and out["heads_selected"] == 2 * KV_HEADS
+          and launches["phase2_select"] == 2 * KV_HEADS,
+          f"the KV flush: {out}, not one call of {2 * KV_HEADS} heads and "
+          f"one phase-2 launch a head")
+    for (t, _, vl), picks in zip(submits, together):
+        check(picks.is_cuda and picks.dtype == torch.int32
+              and tuple(picks.shape) == (KV_HEADS, KV_BUDGET),
+              f"stream {t}: picks {picks.dtype} {tuple(picks.shape)} on "
+              f"{picks.device}")
+        for h, row in enumerate(picks.cpu().numpy()):
+            check(bool((np.diff(row) > 0).all()) and row[0] >= 0
+                  and row[-1] < vl, f"stream {t} head {h}: picks not "
+                  f"sorted, distinct and within {vl}: {row.tolist()}")
+            check(set(range(vl - KV_RECENCY, vl)) <= set(row.tolist()),
+                  f"stream {t} head {h}: the recency window is not kept")
+    # drawn apart: a client a stream, one flush each
+    apart = [run([s])[0][0] for s in submits]
+    for (t, _, _), picks, alone in zip(submits, together, apart):
+        check(torch.equal(picks, alone), f"stream {t}: heads drawn "
+              f"together differ from heads drawn apart")
+    out["together_equals_apart"] = True
+    rkeys = client._keyring.row_keys(
+        [SvTicket(t, 0, KV_HEADS) for t, _, _ in submits], 2 * KV_HEADS)
+    # the phase-2 picks of every head against the plain phase 2 on a CPU
+    # copy of its inputs (the card's eigh, the plain twin's uniforms)
+    ins, pk, Ls_all, lams = [], [], [], []
+    for i, (t, c, vl) in enumerate(submits):
+        for h in range(KV_HEADS):
+            Ls = token_kernel(torch.from_numpy(c[h]).to(dev), KV_RECENCY, vl,
+                              "sample")[0]
+            Ls_all.append(Ls)
+            lam, vec = torch.linalg.eigh(Ls)
+            lams.append(lam)
+            spec = FactorSpectrum((torch.clamp_min(lam, 0.0),), (vec,))
+            u, us = plain_row_uniforms(rkeys[i * KV_HEADS + h][None], KV_S,
+                                       k)
+            mask = _phase1_kdpp_from_uniforms(u, spec.log_eigenvalues(), k)
+            sel, valid, _ = compact_selection(mask, k)
+            G1, Gr = (G.contiguous() for G in p2.canonical_pair(
+                gather_factor_columns(spec.vecs, spec.sizes, sel, valid)))
+            ke = mask.sum(dim=-1).to(torch.int32)
+            ins.append((us.contiguous(), ke, G1, Gr))
+            raw = p2.phase2_select_cuda(us.contiguous(), ke, G1, Gr)
+            served = set(together[i][h].tolist())
+            check(set(raw[raw >= 0].tolist()) <= served, f"stream {t} head "
+                  f"{h}: the replayed draw is not among the served picks")
+            pk.append(raw)
+    route = p2.phase2_select_route(KV_S, 1, k)
+    check(route == "global", f"a KV head's phase 2 takes route {route}")
+    us_c, ke_c, G1_c, Gr_c = (torch.cat([x[j] for x in ins]).cpu()
+                              for j in range(4))
+    pp = p2.phase2_select_plain(us_c, ke_c, G1_c, Gr_c).numpy()
+    out["heads_vs_cpu_plain"] = compare_picks(
+        torch.cat(pk).cpu().numpy(), pp, us_c, ke_c, G1_c, Gr_c,
+        "KV heads, kernel vs the plain phase 2 on a CPU copy")
+    out["route"] = route
+    # is a batched eigh of the 16 heads bitwise each head's own?
+    lam_b = torch.linalg.eigh(torch.stack(Ls_all))[0]
+    lam_1 = torch.stack(lams)
+    out["batched_eigh_eigenvalues_bitwise"] = bool(torch.equal(lam_b, lam_1))
+    out["batched_eigh_max_abs_diff"] = float((lam_b - lam_1).abs().max())
+    # where a head's time goes (CUDA events around the call)
+    head0 = torch.from_numpy(caches[0][0]).to(dev)
+    u0, _ = plain_row_uniforms(rkeys[0][None], KV_S, k)
+    ll0 = torch.log(torch.clamp_min(lams[0], 0.0))
+    out["head_ms"] = {
+        "select_tokens": cuda_ms(lambda: dpp_select_tokens(
+            head0, KV_BUDGET, KV_RECENCY, valid_len=KV_VALID[0],
+            method="sample", key=rkeys[0]), reps=3, warmup=1),
+        "kernel_and_eigh": cuda_ms(lambda: torch.linalg.eigh(token_kernel(
+            head0, KV_RECENCY, KV_VALID[0], "sample")[0]), reps=3,
+            warmup=1),
+        "esp_phase1": cuda_ms(lambda: _phase1_kdpp_from_uniforms(
+            u0, ll0, k), reps=3, warmup=1)}
+    # one head by greedy MAP: k launches of the update kernel, the greedy
+    # order against the plain update on a CPU copy (phase 13's rule)
+    head = torch.from_numpy(caches[0][0]).to(dev)
+    mp, out["map_launches"] = sv_counted(
+        lambda: dpp_select_tokens(head, KV_BUDGET, KV_RECENCY,
+                                  valid_len=KV_VALID[0], method="map"),
+        "KV map", {"greedy_map_update"})
+    check(out["map_launches"]["greedy_map_update"] == k, f"the KV map "
+          f"launched the update {out['map_launches']}, not {k} times")
+    Lm = token_kernel(head, KV_RECENCY, KV_VALID[0], "map")[0]
+    order_k = ops.greedy_map_kdpp(Lm, k).cpu().numpy()
+    order_p = ops.greedy_map_kdpp(Lm.cpu(), k).numpy()
+    recent = set(range(KV_VALID[0] - KV_RECENCY, KV_VALID[0]))
+    check(sorted(set(order_k.tolist()) | recent) == mp.cpu().tolist(),
+          "the KV map's picks are not its greedy order and the recency "
+          "window")
+    out["map_vs_cpu"] = compare_maps(Lm, order_k, order_p,
+                                     "KV map head, card vs CPU copy")
+    # the global route's time on a head's inputs (device times later)
+    us1, ke1, G11, Gr1 = ins[0]
+    picks1 = p2.phase2_select_cuda(us1, ke1, G11, Gr1).cpu().numpy()
+    b_ms, b_by = bound(picks1, KV_S, 1, k)
+    out["phase2_times"] = kernel_times(
+        partial(p2.phase2_select_cuda, us1, ke1, G11, Gr1),
+        partial(p2.phase2_select_plain, us1, ke1, G11, Gr1), None,
+        reps=5, plain_reps=2, expect="phase2_select_kernel", sole=True,
+        kernel_route=route, bound_ms=b_ms, bound_by=b_by,
+        bound_row_ms=bound_row(picks1, KV_S, 1, k),
+        max_row_steps=int((picks1 >= 0).sum(axis=1).max()),
+        shapes={"N1": KV_S, "Nr": 1, "k_max": k, "B": 1})
+    shown = {x: y for x, y in out.items()
+             if x not in ("heads_vs_cpu_plain", "map_vs_cpu")}
+    print(f"  KV client: {json.dumps(shown)}")
+    return out
+
+
+def serving_path(main, dev) -> dict:
+    """Phase 21: the async serving tier at full width (see the module
+    docstring). Returns what the ``serving`` line and the ``kernels`` rows
+    print."""
+    from repro_torch.obs import JsonlTracker
+    from repro_torch.obs.export import read_run_log
+    from repro_torch.obs.report import render
+    from repro_torch.serving import (AsyncSamplingService, CancelledRequest,
+                                     QueueFull, ServiceClosed, ServingConfig,
+                                     TenantKeyring)
+    import io
+    t_phase = time.perf_counter()
+    out = {"loads": [], "launches": {}}
+    # warm every power-of-two batch the round-up can give (the kernels'
+    # libraries, cuSOLVER and the allocator), through a throwaway tier
+    warm = AsyncSamplingService(main, ServingConfig(
+        max_batch=SV_MAX_BATCH, deadline_ms=1.0), seed=99, device=dev)
+    b = 1
+    while b <= SV_MAX_BATCH:
+        warm.submit(b, tenant="warmup").result(timeout=300.0)
+        b *= 2
+    warm.close()
+
+    # -- (a) + (b): the loads, their rows ---------------------------------
+    ring = TenantKeyring(SV_SEED, device=dev)
+    first = {}
+    served = {}
+    parts = collections.defaultdict(float)     # seconds by step
+    mark = time.perf_counter()
+
+    def lap(name):
+        nonlocal mark
+        now = time.perf_counter()
+        parts[name] += now - mark
+        mark = now
+
+    for i, (rps, n) in enumerate(SV_LOADS):
+        (row, svc, tickets), launches = sv_counted(
+            lambda: sv_drive_load(main, rps, n, dev,
+                                  record=first if i == 0 else None),
+            f"serving at {rps} req/s", {"phase2_select", "threefry2x32"})
+        label = f"load_{int(rps)}"
+        out["launches"][label] = launches
+        calls = svc.service.stats.device_calls
+        tf_want = 2 + len(SV_TENANTS) + 2 * svc.stats.flushes + calls
+        check(row["failed_flushes"] == 0 and row["rejected"] == 0,
+              f"{label}: {row}")
+        check(launches["phase2_select"] == calls, f"{label}: phase 2 "
+              f"launched {launches['phase2_select']} times for {calls} "
+              f"device calls")
+        check(launches["threefry2x32"] == tf_want, f"{label}: threefry2x32 "
+              f"launched {launches['threefry2x32']} times, not the keyring's "
+              f"2 + {len(SV_TENANTS)} + 2 a flush and 1 a device call = "
+              f"{tf_want}")
+        lap("loads")
+        row["serial_rows_equal"] = sv_replay_serial(svc, tickets, dev)
+        lap("serial_replay")
+        order = sorted(tickets)
+        keys = torch.cat([ring.row_keys([tickets[k_]],
+                                        tickets[k_].num_samples)
+                          for k_ in order])
+        rows = [r for k_ in order for r in tickets[k_].result()]
+        row["vs_cpu_plain"] = sv_rows_vs_plain(
+            svc.service.spectrum, svc.service.k_max, keys, rows,
+            f"{label}'s {len(rows)} rows vs the plain phase 2 on a CPU "
+            f"copy", cpu=True)
+        lap("cpu_plain")
+        print(f"  serving {label}: {json.dumps(row)}")
+        out["loads"].append(row)
+        served[label] = (svc, tickets)
+    svc0, tickets0 = served["load_100"]
+    check(bool(first), "the first device call was not recorded")
+    out["first_flush_vs_plain"] = sv_rows_vs_plain(
+        svc0.service.spectrum, svc0.service.k_max, first["keys"],
+        first["rows"], f"the first flush's {len(first['rows'])} rows vs "
+        f"the plain phase 2 (card)", cpu=False)
+
+    # -- (c): determinism across timing ---------------------------------------
+    rps0, n0 = SV_LOADS[0]
+    (row1, _, tickets1), out["launches"]["load_100_deadline_1ms"] = \
+        sv_counted(lambda: sv_drive_load(main, rps0, n0, dev,
+                                         deadline_ms=1.0),
+                   "serving at deadline 1 ms",
+                   {"phase2_select", "threefry2x32"})
+    check(tickets1.keys() == tickets0.keys() and all(
+        tickets1[k_].result() == tickets0[k_].result() for k_ in tickets0),
+        "the same (tenant, seq) drew other rows at deadline 1 ms")
+    out["deadline_1ms"] = {"row": row1, "same_rows": len(tickets0),
+                           "flushes": [row1["flushes"],
+                                       out["loads"][0]["flushes"]]}
+    print(f"  deadline 1 ms vs 25 ms: {len(tickets0)} requests, the same "
+          f"rows; flushes {row1['flushes']} vs {out['loads'][0]['flushes']}")
+    lap("deadline_1ms")
+
+    # -- (d): a LowRank fleet ---------------------------------------------------
+    out["lowrank_fleet"] = sv_lowrank_fleet(dev)
+    lap("lowrank_fleet")
+
+    # -- (e): the KV client --------------------------------------------------
+    out["kv"] = sv_kv(dev)
+    lap("kv")
+
+    # -- (f): observability -----------------------------------------------------
+    log_dir = ROOT / "build" / "serving_obs"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    run_log = log_dir / "run_log.jsonl"
+    run_log.unlink(missing_ok=True)
+    jt = JsonlTracker(str(run_log))
+    try:
+        (row_f, _, tickets_f), out["launches"]["load_100_traced"] = \
+            sv_counted(lambda: sv_drive_load(main, rps0, n0, dev,
+                                             tracker=jt),
+                       "serving, traced", {"phase2_select", "threefry2x32"})
+    finally:
+        jt.close()
+    check(all(tickets_f[k_].result() == tickets0[k_].result()
+              for k_ in tickets0), "the traced rerun drew other rows")
+    out["obs"] = sv_check_spans(run_log, tickets_f)
+    text = io.StringIO()
+    render(read_run_log(str(run_log)), traces=1, top=6, out=text)
+    report = text.getvalue()
+    check("serving.admitted" in report and "service.request" in report,
+          f"the report of the traced run: {report[:400]}")
+    out["obs"].update(traced_row=row_f, report_lines=len(
+        report.splitlines()))
+    print("  report of the traced run (first lines):")
+    for line in report.splitlines()[:14]:
+        print(f"    {line}")
+
+    # -- (g): shutdown and admission ---------------------------------------------
+    svc = AsyncSamplingService(main, ServingConfig(
+        max_batch=4096, deadline_ms=60_000.0, max_queue_depth=2),
+        seed=SV_SEED, device=dev)
+    queued = [svc.submit(1, tenant="t"), svc.submit(2, tenant="t")]
+    try:
+        svc.submit(1, tenant="t")
+        fail("a submit past max_queue_depth was admitted")
+    except QueueFull as e:
+        check(e.depth == 2 and e.limit == 2, f"QueueFull {e.depth}/{e.limit}")
+    svc.close(drain=False)
+    for t in queued:
+        try:
+            t.result(timeout=10.0)
+            fail("close(drain=False) resolved a queued ticket")
+        except CancelledRequest:
+            pass
+    try:
+        svc.submit(1, tenant="late")
+        fail("a submit after close was admitted")
+    except ServiceClosed:
+        pass
+    out["admission"] = dict(svc.stats(), queue_full=True,
+                            service_closed=True)
+    # rejected counts the QueueFull and the submit after close
+    check(svc.stats.cancelled == 2 and svc.stats.rejected == 2
+          and svc.per_tenant()["t"]["rejected"] == 1
+          and svc.stats.flushes == 0, f"admission: {svc.stats()}")
+    lap("obs_and_admission")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["phase_parts_s"] = dict(parts)
+    print(f"  serving phase took {out['phase_s']!r} s: "
+          f"{json.dumps(out['phase_parts_s'])}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -3034,7 +3656,10 @@ def main() -> None:
     # -- 20. the low-rank family ---------------------------------------------
     lr = lowrank_path(dev)
 
-    # -- 21. device times of every kernels row -------------------------------
+    # -- 21. the async serving tier -----------------------------------------
+    sv = serving_path(main, dev)
+
+    # -- 22. device times of every kernels row -------------------------------
     launch_us = [host_launch_us()]
     fill_device_times()
     launch_us.append(host_launch_us())
@@ -3046,7 +3671,8 @@ def main() -> None:
           f"{len(WINDOWS['lead_lost'])}, marks lost {WINDOWS['lead_lost']}")
 
     for t in (times[64], times[1], times["global"],
-              sel_times["kdpp_phase2"], inf["phase2"]):
+              sel_times["kdpp_phase2"], inf["phase2"],
+              sv["kv"]["phase2_times"]):
         t["per_step_ms"] = t["ms"] / t["max_row_steps"]
     row = {"name": "phase2_select", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/phase2_select.cu",
@@ -3059,6 +3685,7 @@ def main() -> None:
            "b1": times[1], "agree_rows_b1": agree[1]["agree_rows"],
            "global_300x300_b8": times["global"],
            "global_dense_9995_b64": inf["phase2"],
+           "global_kv_s1024_k192_b1": sv["kv"]["phase2_times"],
            "agree_rows_main_path": agree_main["agree_rows"],
            "card": card, "power_limit": power_limit}
     pt_rows = [{"name": f"partial_trace_{k}", "route": "cuda",
@@ -3143,6 +3770,21 @@ def main() -> None:
                              "checkpoint")},
         "card": card, "power_limit": power_limit}))
     tf_row["launches_per_path"]["lowrank"] = lr["launches"]
+    row["launches_serving"] = {
+        **{k: v["phase2_select"] for k, v in sv["launches"].items()},
+        "kv": sv["kv"]["launches"]["phase2_select"]}
+    row["agree_rows_serving"] = {
+        r_["offered_rps"]: r_["vs_cpu_plain"]["agree_rows"]
+        for r_ in sv["loads"]}
+    tf_row["launches_per_path"]["serving"] = {
+        **{k: v["threefry2x32"] for k, v in sv["launches"].items()},
+        "lowrank_fleet": sv["lowrank_fleet"]["launches"]["threefry2x32"],
+        "kv": sv["kv"]["launches"]["threefry2x32"]}
+    gm_row["launches_per_call"]["kv_map"] = \
+        sv["kv"]["map_launches"]["greedy_map_update"]
+    gm_row["kv_map_vs_cpu"] = sv["kv"]["map_vs_cpu"]
+    print(json.dumps({"serving": sv, "card": card,
+                      "power_limit": power_limit}))
     print(json.dumps({"lowrank": lr, "card": card,
                       "power_limit": power_limit}))
     print(json.dumps({"kernels": [row, *pt_rows, gm_row, km_row, tf_row]}))

@@ -39,12 +39,6 @@ from ..sampling.spectral import (FactorSpectrum, SpectralCache, default_cache,
 MAX_DENSE_N = 4096
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1: "
-        f"{item})")
-
-
 def _as_index_set(idx, n: int, device: torch.device) -> torch.Tensor:
     """Validate and canonicalize a host-side index set: 1-D, in range,
     deduplicated (inclusion events have set semantics). Returns sorted
@@ -292,10 +286,17 @@ class DPPModel:
             fitted = Dense(rep.model, device=rep.model.device)
         return dataclasses.replace(rep, model=fitted)
 
-    # -- not ported yet -----------------------------------------------------
     def serving(self, config=None, **kwargs):
-        _not_ported("serving (the async tier)",
-                    "serving/ and the obs exporters")
+        """The async continuous-batching tier over this model
+        (``repro_torch.serving.AsyncSamplingService``): background
+        deadline/max-batch flush thread, multi-tenant weighted-round-robin
+        queues with admission control, futures tickets. Draws are keyed by
+        (tenant, sequence number), so they are reproducible regardless of
+        how the background thread coalesces traffic. Takes ``tenants=``,
+        ``tenant_models=``, ``seed=``, ``k_max=``, ``cache=``,
+        ``tracker=``, ``device=`` (default "cuda")."""
+        from ..serving import AsyncSamplingService
+        return AsyncSamplingService(self, config, **kwargs)
 
     # -- subclass hooks -----------------------------------------------------
     def _wrap_factors(self, factors: Tuple[torch.Tensor, ...]

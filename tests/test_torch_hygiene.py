@@ -30,7 +30,8 @@ from repro_torch.core import SubsetBatch, fit_picard, random_krondpp
 from repro_torch.learning import LearningEngine, fit, schedules
 from repro_torch.lowrank.learn import fit_lowrank
 from repro_torch.sampling import SamplingService
-from repro_torch.serving import TenantKeyring
+from repro_torch.serving import (AsyncSamplingService, ContinuousBatcher,
+                                 KVCompactionClient, TenantKeyring)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -53,7 +54,11 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
             "repro_torch.core.picard, repro_torch.core.joint_picard, "
             "repro_torch.lowrank, repro_torch.lowrank.dual, "
             "repro_torch.lowrank.sample, repro_torch.lowrank.model, "
-            "repro_torch.lowrank.learn, repro_torch.lowrank.features\n"
+            "repro_torch.lowrank.learn, repro_torch.lowrank.features, "
+            "repro_torch.serving.service, repro_torch.serving.batcher, "
+            "repro_torch.serving.queues, repro_torch.serving.kv, "
+            "repro_torch.serve.kv_compaction, repro_torch.obs.export, "
+            "repro_torch.obs.report\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -139,6 +144,12 @@ def test_no_jax_or_jax_package_import_in_port_sources(path):
     lambda: dual_spectrum_from_numpy(np.ones((4, 2)), np.ones(2), np.eye(2)),
     lambda: fit_lowrank((np.ones((4, 2)), np.ones(4)),
                         SubsetBatch.from_lists([[0, 1]], device="cpu")),
+    lambda: dpp.Kron((np.eye(3),), device="cpu").serving(),
+    lambda: AsyncSamplingService(dpp.Kron((np.eye(3),), device="cpu")),
+    lambda: dpp.LowRank(np.ones((4, 2)), device="cpu").serving(
+        tenant_models={"a": dpp.LowRank(np.ones((4, 2)), device="cpu")}),
+    lambda: KVCompactionClient(4, 1),
+    lambda: ContinuousBatcher(),
 ])
 def test_entry_points_without_a_card_raise(call):
     """Every entry point defaults to device="cuda"; with no card it

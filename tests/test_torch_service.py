@@ -26,6 +26,7 @@ from repro_torch import dpp, obs
 from repro_torch.convert import kron_from_numpy, subset_batch_to_numpy
 from repro_torch.core import KronDPP, random_krondpp as t_random_krondpp
 from repro_torch.sampling import SamplingService, SpectralCache
+from repro_torch.serving import AsyncSamplingService
 
 
 def model(seed=0, sizes=(3, 4)):
@@ -170,17 +171,19 @@ def test_facade_sample_returns_subset_batch_with_provenance():
 
 
 @pytest.mark.parametrize("call", [
-    lambda m, g: m.serving(tenant_models={"a": m}),
+    lambda m, g: m.serving(tenant_models={"a": m}, runtime=object(),
+                           device="cpu"),
     lambda m, g: m.fit(None, algorithm="krk-stochastic", mesh=object(),
                        device="cpu"),
     lambda m, g: m.fit(None, mesh=object(), iters=1, device="cpu"),
     lambda m, g: m.fit(None, runtime=object(), device="cpu"),
-    lambda m, g: dpp.from_kernel(m.dense_kernel(), device="cpu").serving(),
-    lambda m, g: m.serving(max_batch=8),
-    lambda m, g: m.serving(),
+    lambda m, g: dpp.from_kernel(m.dense_kernel(), device="cpu").serving(
+        runtime=object(), device="cpu"),
+    lambda m, g: AsyncSamplingService(m, runtime=object(), device="cpu"),
+    lambda m, g: m.serving(runtime=object(), device="cpu"),
     lambda m, g: m.fit(None, checkpoint_dir="ckpt", runtime=object(),
                        device="cpu"),
-    lambda m, g: m.serving(config=None, max_batch=4),
+    lambda m, g: m.serving(config=None, runtime=object(), device="cpu"),
 ])
 def test_operations_not_ported_raise(call):
     m = dpp.Kron(model().factors, device="cpu")
