@@ -3055,6 +3055,386 @@ def serving_path(main, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22 helpers: placement
+# ---------------------------------------------------------------------------
+
+PL_SHARDS = 4              # Mesh(axes={"data": 4}, devices=[card] * 4)
+PL_DRAWS = (("sample64", 64, None), ("sample13", 13, None),
+            ("sample24_k20", 24, 20))
+PL_FIT_TOL = 2e-5          # tests/test_runtime.py, Mesh vs Local: constant
+PL_ARMIJO_LL_ATOL = 2e-4   # ... and Armijo LLs (rtol PL_FIT_TOL)
+PL_REPLAY_TOL = 1e-4       # the stochastic sweeps against the host replay
+PL_ITERS, PL_MINIBATCH = 3, 200
+PL_TICKETS = 60
+
+
+def pl_close(a, b, rtol: float, atol: float) -> float:
+    """The largest |a - b| - (atol + rtol·|b|) over the entries (<= 0:
+    within ``np.testing.assert_allclose``'s rule)."""
+    a, b = (np.asarray(torch.as_tensor(x).detach().cpu(), np.float64)
+            for x in (a, b))
+    return float((np.abs(a - b) - (atol + rtol * np.abs(b))).max())
+
+
+def pl_counted(fn, label: str):
+    """Run ``fn`` with the phase-2 and ``threefry2x32`` launch counts set
+    to 0 just before and read just after, under a fresh tracker (which
+    also gets the ``runtime.mesh.*`` counters); each launch counted once by
+    its ``kernels.*.cuda`` counter, phase 2 never on its plain version.
+    Returns (fn's result, the counts, the tracker); ``threefry2x32_host``
+    is the PRNG twin's plain calls, which must be none."""
+    import repro_torch.obs as obs
+    from repro_torch.kernels import phase2_select as p2
+    from repro_torch.kernels import threefry as tf
+    p2.launches = 0
+    tf.threefry2x32_cuda.launches = 0
+    tracker = obs.InMemoryTracker()
+    with obs.use(tracker):
+        out = fn()
+        torch.cuda.synchronize()
+    n = {"phase2_select": p2.launches,
+         "threefry2x32": tf.threefry2x32_cuda.launches}
+    for op, k in n.items():
+        c = int(tracker.counter_value(f"kernels.{op}.cuda"))
+        check(c == k, f"{label}: {op} launched {k} times, counted {c}")
+    check(tracker.counter_value("kernels.phase2_select.reference") == 0,
+          f"{label}: phase 2 ran its plain version")
+    n["threefry2x32_host"] = int(
+        tracker.counter_value("kernels.threefry2x32.reference"))
+    check(n["threefry2x32_host"] == 0, f"{label}: the PRNG twin ran its "
+          f"plain version {n['threefry2x32_host']} times")
+    return out, n, tracker
+
+
+def pl_mesh_counters(tracker) -> dict:
+    return {k.split(".")[-1]: int(v) for k, v in tracker.counters.items()
+            if k.startswith("runtime.mesh.")}
+
+
+def placement_path(main, batch, init, rep, dev, devices=None) -> dict:
+    """Phase 22: placement on the card — a ``Mesh`` of four shards on the
+    one card (``devices``, default ``[dev] * 4``; ``tools/placement_cards.py``
+    passes four cards) against ``Local`` for draws, both services, the
+    learner, ``Host`` and a low-rank draw, and a checkpoint restored with
+    ``shardings=``. Returns what the ``placement`` line prints."""
+    from repro_torch import dpp
+    from repro_torch import random as prng
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.core import distributed, krk_picard_step
+    from repro_torch.core.dpp import SubsetBatch
+    from repro_torch.kernels import phase2_select as p2
+    from repro_torch.kernels import threefry as tf
+    from repro_torch.learning import LearnerState, LearningEngine, schedules
+    from repro_torch.sampling import SpectralCache
+    from repro_torch.serving import ServingConfig, TenantKeyring
+    t_phase = time.perf_counter()
+    devices = tuple(devices or (dev,) * PL_SHARDS)
+    rt = dpp.Mesh(axes={"data": PL_SHARDS}, devices=devices)
+    check(rt.data_devices == devices, f"{rt!r} placed its shards on "
+          f"{rt.data_devices}, not {devices}")
+    out = {"mesh": repr(rt), "devices": [str(d) for d in devices],
+           "launches": {}}
+    launches = out["launches"]
+    cache = SpectralCache()
+    spec = main.spectrum(cache)
+    k_max = spec.suggested_k_max()
+    route = p2.phase2_select_route(*spec.sizes, k_max)
+    check(route == "on_chip", f"phase 2 takes route {route} at "
+          f"{spec.sizes}, k_max {k_max}")
+
+    # -- (a) draws: Mesh == Local bit for bit ------------------------------
+    draws = {}
+    for i, (label, n, k) in enumerate(PL_DRAWS):
+        key = prng.PRNGKey(40 + i, dev)
+        loc, n_l, _ = pl_counted(lambda: main.sample(
+            key, n, k, dpp.Local(), cache=cache, device=dev),
+            f"{label} Local")
+        msh, n_m, t_m = pl_counted(lambda: main.sample(
+            key, n, k, rt, cache=cache, device=dev), f"{label} Mesh")
+        same = (torch.equal(loc.indices, msh.indices)
+                and torch.equal(loc.mask, msh.mask)
+                and (k is not None or torch.equal(loc.truncated,
+                                                  msh.truncated)))
+        check(same, f"{label}: the Mesh's draw differs from Local's")
+        check(n_l["phase2_select"] == 1
+              and n_m["phase2_select"] == PL_SHARDS,
+              f"{label}: phase 2 launched {n_l} (Local), {n_m} (Mesh), "
+              f"not 1 and {PL_SHARDS}")
+        mc = pl_mesh_counters(t_m)
+        pad = (-n) % PL_SHARDS
+        check(mc.get("map_keys_calls") == 1 and mc.get("keys") == n
+              and mc.get("pad_rows") == pad and
+              t_m.gauges.get("runtime.mesh.data_shards") == PL_SHARDS,
+              f"{label}: runtime.mesh counters {mc}")
+        draws[label] = {"rows": n, "bitwise": True, "local": n_l,
+                        "mesh": n_m, "mesh_counters": mc,
+                        "truncated": (None if k is not None
+                                      else int(msh.truncated.sum()))}
+        launches[label] = n_m
+    again = main.sample(prng.PRNGKey(40, dev), 64, runtime=rt, cache=cache,
+                        device=dev)
+    first = main.sample(prng.PRNGKey(40, dev), 64, cache=cache, device=dev)
+    check(len(rt._mapped_cache) == 2 and torch.equal(again.indices,
+                                                     first.indices),
+          f"the mapped cache holds {list(rt._mapped_cache)} after a repeat")
+    out["mapped_cache_entries"] = len(rt._mapped_cache)
+    dflt = dpp.Mesh()
+    got, n_d, _ = pl_counted(lambda: main.sample(
+        prng.PRNGKey(43, dev), 64, runtime=dflt, cache=cache, device=dev),
+        "Mesh() default")
+    check(dflt.num_data_shards == torch.cuda.device_count()
+          and torch.equal(got.indices, main.sample(
+              prng.PRNGKey(43, dev), 64, cache=cache, device=dev).indices)
+          and n_d["phase2_select"] == dflt.num_data_shards,
+          f"Mesh() took {dflt.num_data_shards} shards, launches {n_d}")
+    draws["default_mesh"] = {"shards": dflt.num_data_shards, **n_d}
+    out["draws"] = draws
+    print(f"  placement draws: {json.dumps(draws)}")
+
+    # -- (b) services: the sync service and the async tier -----------------
+    svc_l = main.service(seed=7, k_max=3, cache=cache, device=dev)
+    svc_m = main.service(seed=7, k_max=3, cache=cache, runtime=rt,
+                         device=dev)
+    rows_l, n_l, t_l = pl_counted(lambda: svc_l.sample(20), "service Local")
+    rows_m, n_m, t_m = pl_counted(lambda: svc_m.sample(20), "service Mesh")
+    svc_keys = sorted(k for k in t_l.counters if k.startswith("service."))
+    check(rows_l == rows_m and svc_l.stats == svc_m.stats
+          and svc_m.stats.truncations > 0
+          and svc_keys == sorted(k for k in t_m.counters
+                                 if k.startswith("service."))
+          and all(t_l.counters[k] == t_m.counters[k] for k in svc_keys),
+          f"the Mesh service differs: {svc_m.stats} vs {svc_l.stats}")
+    check(n_m["phase2_select"] == PL_SHARDS * svc_m.stats.device_calls,
+          f"the Mesh service launched phase 2 {n_m}")
+    out["service"] = {"stats": svc_m.stats(), "local": n_l, "mesh": n_m}
+    launches["service"] = n_m
+
+    def serve():
+        tier = main.serving(
+            ServingConfig(max_batch=SV_MAX_BATCH, deadline_ms=SV_DEADLINE_MS),
+            tenants=SV_TENANTS, seed=SV_SEED, cache=cache, runtime=rt,
+            device=dev)
+        rng = np.random.default_rng(SV_SEED)
+        names = list(SV_TENANTS)
+        try:
+            tickets = [tier.submit(int(rng.integers(SV_SAMPLE_LO,
+                                                    SV_SAMPLE_HI + 1)),
+                                   tenant=names[i % len(names)])
+                       for i in range(PL_TICKETS)]
+            for t in tickets:
+                t.result(timeout=120.0)
+        finally:
+            tier.close()
+        return tier, tickets
+
+    (tier, tickets), n_s, t_s = pl_counted(serve, "async tier on the Mesh")
+    calls = tier.service.stats.device_calls
+    check(n_s["phase2_select"] == PL_SHARDS * calls
+          and tier.stats.failed_flushes == 0 and tier.stats.rejected == 0,
+          f"the tier on the Mesh: {calls} device calls, launches {n_s}, "
+          f"{tier.stats.failed_flushes} failed flushes")
+    alone = main.service(seed=SV_SEED, cache=cache, device=dev)
+    ring = TenantKeyring(SV_SEED, device=dev)
+    replayed = 0
+    for t in tickets:
+        keys = ring.row_keys([t], t.num_samples)
+        for j, row in enumerate(t.result()):
+            again = alone.draw_keyed(keys[j:j + 1])[0][0]
+            check(again == row, f"{t.tenant} seq {t.seq} row {j}: served "
+                  f"{row}, drawn alone (Local) {again}")
+            replayed += 1
+    out["serving"] = {"tickets": len(tickets), "rows": replayed,
+                      "device_calls": calls, "flushes": tier.stats.flushes,
+                      "launches": n_s,
+                      "mesh_counters": pl_mesh_counters(t_s)}
+    launches["serving"] = n_s
+    print(f"  placement services: {json.dumps(out['service'])}; async "
+          f"tier {json.dumps(out['serving'])}")
+
+    # -- (c) learning: the sharded sweep against Local ----------------------
+    b4 = rt.even_batch(batch)
+    check(b4.n == batch.n, f"the batch of {batch.n} does not divide "
+          f"{PL_SHARDS} shards")
+    fits = {}
+    rl = init.fit(b4, iters=PL_ITERS, a=1.0, device=dev)
+    rm, n_f, _ = pl_counted(lambda: init.fit(b4, iters=PL_ITERS, a=1.0,
+                                             runtime=rt, device=dev),
+                            "constant-step fit on the Mesh")
+    fits["constant"] = {
+        "factor_excess": [pl_close(a, b, PL_FIT_TOL, PL_FIT_TOL) for a, b
+                          in zip(rm.model.factors, rl.model.factors)],
+        "ll_excess": pl_close(rm.log_likelihoods, rl.log_likelihoods,
+                              PL_FIT_TOL, PL_FIT_TOL),
+        "lls_mesh": rm.log_likelihoods, "lls_local": rl.log_likelihoods,
+        "launches": n_f}
+    check(max(fits["constant"]["factor_excess"]) <= 0
+          and fits["constant"]["ll_excess"] <= 0
+          and rm.ll_sweeps == rl.ll_sweeps, f"constant-step fit, Mesh vs "
+          f"Local past rtol = atol = {PL_FIT_TOL}: {fits['constant']}")
+    sched = schedules.armijo(a0=64.0, max_backtracks=12)
+    al = init.fit(b4, iters=PL_ITERS, schedule=sched, device=dev)
+    am = init.fit(b4, iters=PL_ITERS, schedule=sched, runtime=rt, device=dev)
+    fits["armijo"] = {
+        "a": [float(am.state.sched.a), float(al.state.sched.a)],
+        "backtracks": [int(am.state.sched.backtracks),
+                       int(al.state.sched.backtracks)],
+        "ll_excess": pl_close(am.log_likelihoods, al.log_likelihoods,
+                              PL_FIT_TOL, PL_ARMIJO_LL_ATOL),
+        "lls_mesh": am.log_likelihoods, "lls_local": al.log_likelihoods}
+    check(fits["armijo"]["a"][0] == fits["armijo"]["a"][1]
+          and fits["armijo"]["backtracks"][0]
+          == fits["armijo"]["backtracks"][1] > 0
+          and fits["armijo"]["ll_excess"] <= 0,
+          f"Armijo fit, Mesh vs Local: {fits['armijo']}")
+    # the stochastic sweeps: record each sweep's per-shard selection, and
+    # replay it on the host's chain of keys
+    recorded = []
+    select = distributed.shard_select_no_replace
+
+    def recording(keys, n, m):
+        sel = select(keys, n, m)
+        recorded.append(sel.clone())
+        return sel
+
+    distributed.shard_select_no_replace = recording
+    try:
+        rs, n_st, _ = pl_counted(lambda: init.fit(
+            b4, algorithm="krk-stochastic", iters=PL_ITERS,
+            minibatch_size=PL_MINIBATCH, seed=2, runtime=rt, device=dev),
+            "krk-stochastic on the Mesh")
+    finally:
+        distributed.shard_select_no_replace = select
+    n_local, mb_local = b4.n // PL_SHARDS, PL_MINIBATCH // PL_SHARDS
+    # the replay runs the chain on the host, in the twin's plain version:
+    # the kernel's select mode (in the fit) held against it
+    key = prng.PRNGKey(2, "cpu")
+    L1, L2 = init.factors
+    for sweep, sel in enumerate(recorded):
+        key, k_sel = prng.split(key, backend="reference")
+        rows = []
+        for s in range(PL_SHARDS):
+            want = select(prng.fold_in(k_sel, s, backend="reference"),
+                          n_local, mb_local, backend="reference")
+            check(torch.equal(sel[s].cpu(), want), f"sweep {sweep} "
+                  f"shard {s}: rows {sel[s].tolist()} vs the host replay "
+                  f"{want.tolist()}")
+            rows.append(s * n_local + want.long())
+        rows = torch.cat(rows).to(dev)
+        L1, L2 = krk_picard_step(L1, L2, SubsetBatch(b4.indices[rows],
+                                                     b4.mask[rows]), 1.0)
+    fits["stochastic"] = {
+        "sweeps_recorded": len(recorded), "rows_per_shard": mb_local,
+        "factor_excess": [pl_close(a, b, PL_REPLAY_TOL, PL_REPLAY_TOL)
+                          for a, b in zip(rs.model.factors, (L1, L2))],
+        "launches": n_st}
+    check(len(recorded) == PL_ITERS
+          and max(fits["stochastic"]["factor_excess"]) <= 0
+          and n_st["threefry2x32"] == 3 * PL_ITERS,
+          f"krk-stochastic on the Mesh against its Local replay (a sweep "
+          f"launches split, fold_in and select once): "
+          f"{fits['stochastic']}")
+    # the select mode alone, at the sweep's shape and at 8 x 5000 of 300:
+    # kernel against the plain version on the card, bit for bit, and the
+    # times of the kernel, the plain version on the card and on the host
+    sel_ms = {}
+    for R, n, m in ((PL_SHARDS, n_local, mb_local), (8, 5000, 300)):
+        skeys = prng.split(prng.PRNGKey(R + m, dev), R)
+        got = select(skeys, n, m)
+        want = tf.threefry2x32_plain(skeys, n, "select", n2=m)
+        check(torch.equal(got, want) and torch.equal(
+            got.cpu(), tf.threefry2x32_plain(skeys.cpu(), n, "select",
+                                             n2=m)),
+              f"select {R} x {m} of {n}: the kernel differs from its "
+              f"plain version")
+        hk = skeys.cpu()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tf.threefry2x32_plain(hk, n, "select", n2=m)
+        sel_ms[f"{R}x{m}_of_{n}"] = {
+            "kernel": cuda_ms(lambda: tf.threefry2x32_cuda(
+                skeys, n, "select", n2=m), reps=20, warmup=2),
+            "plain_card": cuda_ms(lambda: tf.threefry2x32_plain(
+                skeys, n, "select", n2=m), reps=3, warmup=1),
+            "plain_host": (time.perf_counter() - t0) / 3 * 1e3}
+    fits["select_ms"] = sel_ms
+    # one sweep's time: the sharded sweep against the engine's, CUDA events
+    L1, L2 = init.factors
+    a1 = torch.ones((), device=dev)
+    k1 = prng.PRNGKey(3, dev)
+    mesh_sweep = distributed.make_distributed_krk_sweep(
+        rt, schedules.constant(1.0))
+    shards = rt.shard_batch(b4)
+    local_engine = LearningEngine()
+    fits["sweep_ms"] = {
+        "local": cuda_ms(lambda: local_engine._krk_sweep((L1, L2), b4, a1),
+                         reps=5, warmup=1),
+        "mesh": cuda_ms(lambda: mesh_sweep(L1, L2, shards, k1, a1),
+                        reps=5, warmup=1),
+        "local_again": cuda_ms(lambda: local_engine._krk_sweep(
+            (L1, L2), b4, a1), reps=5, warmup=0)}
+    out["learning"] = fits
+    launches["krk_stochastic"] = n_st
+    print(f"  placement learning: {json.dumps(fits)}")
+
+    # -- (d) Host: the numpy oracle, card model against a CPU copy ---------
+    cpu_main = dpp.Kron(tuple(f.cpu() for f in main.factors), device="cpu")
+    hb, n_h, _ = pl_counted(lambda: main.sample(
+        prng.PRNGKey(5, dev), 4, runtime=dpp.Host(), device=dev), "Host")
+    hc = cpu_main.sample(prng.PRNGKey(5, "cpu"), 4, runtime=dpp.Host(),
+                         device="cpu")
+    check(hb.indices.is_cuda and hb.to_lists() == hc.to_lists()
+          and n_h["phase2_select"] == 0, f"Host draws: card "
+          f"{hb.to_lists()} vs CPU copy {hc.to_lists()}, launches {n_h}")
+    out["host"] = {"rows": hb.to_lists(), "launches": n_h}
+
+    # -- (e) low rank: phase 20's V on the Mesh ----------------------------
+    lcache = SpectralCache()
+    lr = lr_model(LR_N, LR_RANK, dev, lcache)
+    lspec = lr.spectrum(lcache)
+    lkey = prng.PRNGKey(21, dev)
+    lw, n_lw, _ = pl_counted(lambda: lr.sample(lkey, 64, cache=lcache,
+                                               device=dev), "LowRank Local")
+    lg, n_lg, _ = pl_counted(lambda: lr.sample(lkey, 64, runtime=rt,
+                                               cache=lcache, device=dev),
+                             "LowRank Mesh")
+    lk = lspec.suggested_k_max()
+    agree = lr_rows_agree(
+        np.where(lw.mask.cpu().numpy(), lw.indices.cpu().numpy(), -1),
+        np.where(lg.mask.cpu().numpy(), lg.indices.cpu().numpy(), -1),
+        prng.split(lkey.cpu(), 64, backend="reference"), lspec.to("cpu"),
+        lk, "LowRank sample(64), Mesh vs Local")
+    check(n_lg["phase2_select"] == 0 and n_lg["threefry2x32"]
+          == 1 + PL_SHARDS, f"LowRank on the Mesh launched {n_lg}")
+    out["lowrank"] = {"agree": agree, "local": n_lw, "mesh": n_lg}
+
+    # -- (f) checkpoints: restore(shardings=) -------------------------------
+    ck = ROOT / "build" / "chip_smoke_placement_checkpoint"
+    shutil.rmtree(ck, ignore_errors=True)
+    mgr = CheckpointManager(CheckpointConfig(str(ck), async_save=False))
+    state = rep.state
+    mgr.save(int(state.sweep), state, blocking=True)
+    target = LearnerState.tree_unflatten(
+        [x.cpu() if isinstance(x, torch.Tensor) else x
+         for x in state.tree_flatten()], state, device="cpu")
+    back = mgr.restore(target=target, shardings=dev)
+    leaves = back.tree_flatten()
+    on_card = all(t.device == dev for t in (*back.params, back.sweep,
+                                            back.key, back.sched.a,
+                                            back.ll))
+    equal = all(np.array_equal(np.asarray(torch.as_tensor(a).cpu()),
+                               np.asarray(torch.as_tensor(b).cpu()))
+                for a, b in zip(leaves, state.tree_flatten()))
+    check(on_card and equal, f"restore(shardings={dev}): on the card "
+          f"{on_card}, equal to the saved state {equal}")
+    shutil.rmtree(ck)
+    out["checkpoint"] = {"leaves": len(leaves), "on_card": on_card,
+                         "equal": equal}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"placement (phase 22): {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -3659,7 +4039,10 @@ def main() -> None:
     # -- 21. the async serving tier -----------------------------------------
     sv = serving_path(main, dev)
 
-    # -- 22. device times of every kernels row -------------------------------
+    # -- 22. placement ---------------------------------------------------------
+    pl = placement_path(main, batch, init, rep, dev)
+
+    # -- 23. device times of every kernels row -------------------------------
     launch_us = [host_launch_us()]
     fill_device_times()
     launch_us.append(host_launch_us())
@@ -3786,6 +4169,12 @@ def main() -> None:
     print(json.dumps({"serving": sv, "card": card,
                       "power_limit": power_limit}))
     print(json.dumps({"lowrank": lr, "card": card,
+                      "power_limit": power_limit}))
+    row["launches_placement"] = {
+        k: v["phase2_select"] for k, v in pl["launches"].items()}
+    tf_row["launches_per_path"]["placement"] = {
+        k: v["threefry2x32"] for k, v in pl["launches"].items()}
+    print(json.dumps({"placement": pl, "card": card,
                       "power_limit": power_limit}))
     print(json.dumps({"kernels": [row, *pt_rows, gm_row, km_row, tf_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,

@@ -11,6 +11,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import numpy as np
@@ -44,3 +45,21 @@ def as_float(x, device: DeviceLike) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=dev, dtype=FLOAT)
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+
+
+def canonical_device(device: DeviceLike) -> torch.device:
+    """``device`` resolved (``RuntimeError`` for a card that is not there)
+    with a CUDA index filled in, so that equal devices compare equal."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def device_context(device: torch.device):
+    """The context a shard's work runs in: its card's for a CUDA device
+    (so that per-device choices such as phase 2's route are that card's),
+    none on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -14,8 +14,8 @@ taken in the JAX package's pytree order (a dict's keys sorted), so the
 same state gives the same files in either package. A generator's leaf is
 its ``get_state()``. The leaves are copied to the host when ``save`` is
 called (a device sync); the files are written by a background thread.
-``restore`` places each leaf where the target's leaf lives; the JAX
-package's ``shardings=`` (placement on a mesh) is not ported.
+``restore`` places each leaf where the target's leaf lives, or where
+``shardings=`` says (the JAX package's ``device_put`` targets).
 """
 
 from __future__ import annotations
@@ -81,36 +81,59 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
-def _like(arr: np.ndarray, target):
-    """One restored leaf, placed as ``target``'s leaf is."""
+def _like(arr: np.ndarray, target, device=None):
+    """One restored leaf, placed as ``target``'s leaf is, or on ``device``
+    when ``restore`` was given ``shardings``."""
     if isinstance(target, torch.Generator):
         target.set_state(torch.as_tensor(arr))
         return target
     if isinstance(target, torch.Tensor):
-        return torch.as_tensor(arr).to(target.device)
-    return arr
+        return torch.as_tensor(arr).to(device or target.device)
+    return arr if device is None else torch.as_tensor(arr).to(device)
 
 
-def _unflatten(target, leaves: Iterator[np.ndarray]):
+def _unflatten(target, leaves: Iterator[np.ndarray], devices=None):
     if target is None:
         return None
     if _is_node(target):
         n = len(target.tree_flatten())
-        return type(target).tree_unflatten([next(leaves) for _ in range(n)],
-                                           target)
+        part = [next(leaves) for _ in range(n)]
+        if devices is None:
+            return type(target).tree_unflatten(part, target)
+        devs = {next(devices) for _ in range(n)}
+        if len(devs) != 1:
+            raise ValueError(f"a {type(target).__name__} restores onto one "
+                             f"device, got shardings {sorted(map(str, devs))}")
+        return type(target).tree_unflatten(part, target, device=devs.pop())
     if isinstance(target, dict):
-        return {k: _unflatten(target[k], leaves) for k in sorted(target)}
+        return {k: _unflatten(target[k], leaves, devices)
+                for k in sorted(target)}
     if isinstance(target, (list, tuple)):
-        return type(target)(_unflatten(t, leaves) for t in target)
-    return _like(next(leaves), target)
+        return type(target)(_unflatten(t, leaves, devices) for t in target)
+    return _like(next(leaves), target,
+                 None if devices is None else next(devices))
 
 
-def _from_skeleton(skeleton, leaves: Iterator[np.ndarray]):
+def _from_skeleton(skeleton, leaves: Iterator[np.ndarray], devices=None):
     if isinstance(skeleton, dict):
-        return {k: _from_skeleton(v, leaves) for k, v in skeleton.items()}
+        return {k: _from_skeleton(v, leaves, devices)
+                for k, v in skeleton.items()}
     if isinstance(skeleton, list):
-        return [_from_skeleton(v, leaves) for v in skeleton]
-    return next(leaves)
+        return [_from_skeleton(v, leaves, devices) for v in skeleton]
+    arr = next(leaves)
+    return arr if devices is None else torch.as_tensor(arr).to(next(devices))
+
+
+def _leaf_devices(shardings, n: int) -> List[torch.device]:
+    """The device of each of ``n`` leaves: ``shardings`` is one device
+    (or its name) for all, or a tree of them holding n."""
+    if isinstance(shardings, (str, torch.device)):
+        return [torch.device(shardings)] * n
+    devs = [torch.device(d) for d in _flatten(shardings)]
+    if len(devs) != n:
+        raise ValueError(f"shardings names {len(devs)} devices for a tree "
+                         f"of {n} leaves")
+    return devs
 
 
 class CheckpointManager:
@@ -152,7 +175,8 @@ class CheckpointManager:
         steps = self._committed_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, target: Any = None) -> Any:
+    def restore(self, step: Optional[int] = None, target: Any = None,
+                shardings: Any = None) -> Any:
         """Load a checkpoint.
 
         target: an example tree providing the structure — required to
@@ -160,6 +184,12 @@ class CheckpointManager:
         each tensor leaf is restored onto the device of the target's leaf,
         a generator leaf into the target's generator. Without a target the
         result is the saved dicts and lists of numpy arrays.
+        shardings: where the leaves go, in place of the target's
+        placement (the JAX package's ``device_put`` targets): one
+        ``torch.device`` (or its name) for every leaf, or a tree of them
+        with one device a leaf (an object node's leaves on one device).
+        Each leaf becomes a tensor there; a generator's state goes into
+        the target's generator.
         """
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -170,17 +200,20 @@ class CheckpointManager:
             meta = json.load(f)
         leaves = [np.load(os.path.join(d, f"arr_{i}.npy"))
                   for i in range(meta["n_leaves"])]
+        devices = (None if shardings is None
+                   else iter(_leaf_devices(shardings, len(leaves))))
         if target is not None:
             want = len(_flatten(target))
             if want != len(leaves):
                 raise ValueError(f"checkpoint step_{step} holds "
                                  f"{len(leaves)} leaves, the target {want}")
-            return _unflatten(target, iter(leaves))
+            return _unflatten(target, iter(leaves), devices)
         if meta.get("tree") is None:
             raise ValueError(
                 f"checkpoint step_{step} holds custom tree nodes; pass a "
                 "`target` tree to restore it")
-        return _from_skeleton(json.loads(meta["tree"]), iter(leaves))
+        return _from_skeleton(json.loads(meta["tree"]), iter(leaves),
+                              devices)
 
     # -- internals ---------------------------------------------------------------
     @staticmethod

@@ -24,7 +24,19 @@
     rep = low.fit(rows, algorithm="lowrank")
 
 The same key gives the JAX package's factors (up to float32 roundoff of
-XᵀX) and rows; a ``torch.Generator`` may stand in for any key.
+XᵀX) and rows; a ``torch.Generator`` may stand in for any key on one
+device.
+
+WHERE the work runs is ``runtime=`` (``repro_torch.dpp.runtime``), taken
+by ``sample``, ``spectrum``, ``service``, ``serving`` and ``fit``:
+``Local()`` (the default), ``Mesh(axes={"data": n}, devices=[...])`` (key
+batches and training subsets cut into shards, one a device of the list;
+draws equal ``Local``'s bit for bit on shared keys) and ``Host()`` (the
+numpy oracle)::
+
+    rt = dpp.Mesh(axes={"data": 4}, devices=["cuda:0"] * 4)
+    batch = model.sample(k2, 4096, runtime=rt)
+    rep = init.fit(batch, schedule=dpp.schedules.armijo(), runtime=rt)
 
 Every entry point defaults to ``device="cuda"`` and raises without a card
 unless ``device="cpu"`` is passed.
@@ -33,9 +45,10 @@ unless ``device="cpu"`` is passed.
 from ..learning import schedules
 from ..sampling.service import SampleTicket, SamplingService
 from ..sampling.spectral import FactorSpectrum, SpectralCache, default_cache
-from . import functional
+from . import functional, runtime
 from .model import (MAX_DENSE_N, Dense, DPPModel, Kron, from_factors,
                     from_kernel, random_kron)
+from .runtime import Host, Local, Mesh, Runtime
 
 # LowRank and friends resolve lazily (PEP 562): repro_torch.lowrank
 # subclasses .model's DPPModel, so an eager import here would be circular
@@ -57,6 +70,7 @@ __all__ = [
     "DPPModel", "Dense", "Kron", "LowRank", "MAX_DENSE_N",
     "from_kernel", "from_factors", "random_kron",
     "functional", "schedules",
+    "runtime", "Runtime", "Local", "Mesh", "Host",
     "FactorSpectrum", "DualSpectrum", "SpectralCache", "default_cache",
     "SamplingService", "SampleTicket",
     "nystrom_features", "random_fourier_features",

@@ -8,12 +8,13 @@
     the paper's Kronecker kernel L = L_1 ⊗ ... ⊗ L_m.
 
 Everything dispatches through the spectrum: per-factor eigendecompositions
-held in a ``SpectralCache``, the product spectrum folded in log space. Every
-call runs where the model's factors live. The port runs on one card; the
-JAX package's ``runtime=`` placement is not ported. Operations not ported
-yet raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-them. The low-rank family ``LowRank(V, q)`` lives in ``repro_torch.lowrank``
-and subclasses ``DPPModel``.
+held in a ``SpectralCache``, the product spectrum folded in log space. WHERE
+the work runs is ``repro_torch.dpp.runtime``: ``sample`` / ``spectrum`` /
+``service`` / ``serving`` / ``fit`` take ``runtime=`` (``Local()``, the
+default, on ``device``; ``Mesh(...)`` sharded over its devices; ``Host()``
+the numpy oracle) — the pre-runtime ``backend=`` strings survive only as
+DeprecationWarning shims. The low-rank family ``LowRank(V, q)`` lives in
+``repro_torch.lowrank`` and subclasses ``DPPModel``.
 """
 
 from __future__ import annotations
@@ -29,11 +30,12 @@ from ..core.dpp import SubsetBatch
 from ..core.kron import split_indices_multi
 from ..core.krondpp import KronDPP, random_krondpp
 from ..kernels import ops as kernel_ops
-from ..sampling.batched import sample_krondpp_batched
+from ..sampling.batched import is_mesh_runtime, sample_krondpp_batched
 from ..sampling.kdpp import sample_kdpp_batched
 from ..sampling.service import SamplingService
 from ..sampling.spectral import (FactorSpectrum, SpectralCache, default_cache,
                                  gain_for_expected_size)
+from . import runtime as runtime_mod
 
 #: Guard for operations that must materialize the full N x N kernel.
 MAX_DENSE_N = 4096
@@ -49,6 +51,27 @@ def _as_index_set(idx, n: int, device: torch.device) -> torch.Tensor:
     if arr.size and (arr.min() < 0 or arr.max() >= n):
         raise ValueError(f"indices out of range [0, {n}): {idx!r}")
     return torch.from_numpy(np.unique(arr)).to(device)
+
+
+def _place_spectrum(spec: FactorSpectrum,
+                    runtime: Optional[runtime_mod.Runtime]
+                    ) -> FactorSpectrum:
+    """A spectrum's tensors on a mesh runtime's first data shard's device,
+    copied to its other devices through the mesh's identity-pinned cache
+    (``Mesh.pin_spectrum``: spectrum tensors are themselves cached, so
+    repeated sampling against one kernel pays the transfer once, not a
+    call). The identity for Local/Host/None."""
+    return runtime.pin_spectrum(spec) if is_mesh_runtime(runtime) else spec
+
+
+def _host_seed(key) -> int:
+    """The numpy seed of a Host draw: ``randint(key, (), 0, int32 max)``,
+    the JAX package's."""
+    if isinstance(key, torch.Generator):
+        raise ValueError("the Host runtime seeds numpy from a PRNG key "
+                         "(repro_torch.random.PRNGKey), not a generator")
+    from .. import random as prng
+    return int(prng.randint(key, (), 0, np.iinfo(np.int32).max))
 
 
 def _picks_to_subsets(picks: torch.Tensor,
@@ -99,12 +122,16 @@ class DPPModel:
         return KronDPP(tuple(self.factors)).full_matrix()
 
     # -- spectrum -----------------------------------------------------------
-    def spectrum(self, cache: Optional[SpectralCache] = None
+    def spectrum(self, cache: Optional[SpectralCache] = None,
+                 runtime: Optional[runtime_mod.Runtime] = None
                  ) -> FactorSpectrum:
         """Per-factor eigendecompositions off a ``SpectralCache`` —
-        O(Σ N_i³) on first touch, O(1) later for the same factors."""
+        O(Σ N_i³) on first touch, O(1) later for the same factors. Under a
+        ``Mesh`` runtime the spectrum is placed on the mesh's devices
+        (``_place_spectrum``; the cache entry itself stays where the
+        factors live)."""
         cache = cache if cache is not None else default_cache()
-        return cache.spectrum(self)
+        return _place_spectrum(cache.spectrum(self), runtime)
 
     def expected_size(self, cache: Optional[SpectralCache] = None) -> float:
         """E|Y| = Σ λ/(1+λ) off the log-space product spectrum."""
@@ -121,41 +148,81 @@ class DPPModel:
 
     # -- sampling -----------------------------------------------------------
     def sample(self, key, batch_shape: Union[int, Tuple[int, ...]] = (),
-               k: Optional[int] = None, k_max: Optional[int] = None,
+               k: Optional[int] = None,
+               runtime: Optional[runtime_mod.Runtime] = None,
+               k_max: Optional[int] = None,
                cache: Optional[SpectralCache] = None,
+               backend: Optional[str] = None, *,
                device: DeviceLike = "cuda") -> SubsetBatch:
         """Exact DPP (or, with ``k``, k-DPP) samples as a ``SubsetBatch``,
         drawn on ``device``.
 
         key: a PRNG key (``repro_torch.random``, or the JAX package's uint32
             key (2,)), moved to ``device``: the JAX package's rows for the
-            same key; or a ``torch.Generator`` living on ``device``.
+            same key; or a ``torch.Generator`` living on ``device`` (Local
+            only).
         batch_shape: n = prod(shape) rows. DPP draws carry ``truncated``
             provenance and ``k_max`` overrides their phase-2 budget
             (default E|Y| + 6σ); k-DPP rows hold exactly k items (fewer,
             -1 padded, below the kernel's rank). Phase 2 runs the CUDA
-            kernel on the card and its plain version on the CPU."""
+            kernel on the card and its plain version on the CPU.
+        runtime: execution placement (``repro_torch.dpp.runtime``):
+            ``Local()`` / None — one batched call on ``device``;
+            ``Mesh(...)`` — the same pipeline with the rows' keys cut into
+            one shard a data-axis position, each on its device (draws equal
+            Local's bit for bit on shared keys; ``device`` must be the
+            mesh's first data shard's); ``Host()`` — the numpy reference
+            oracle (k=None only), one eigh and one subset a draw, the batch
+            returned on ``device``.
+        backend: deprecated placement strings ("device"/"host"), shimmed
+            onto runtimes with a DeprecationWarning."""
+        rt = runtime_mod.resolve(runtime, backend=backend)
         dev = resolve_device(device)
         shape = (batch_shape,) if isinstance(batch_shape, int) \
             else tuple(batch_shape)
         n = 1
         for s in shape:
             n *= int(s)
-        spec = self.spectrum(cache).to(dev)
+        if rt.kind == "host":
+            if k is not None:
+                raise ValueError("the Host runtime implements the plain "
+                                 "DPP oracle only (k=None); use Local/Mesh "
+                                 "for k-DPP draws")
+            return self._sample_host(key, n, dev)
+        if rt.is_mesh:
+            rt.home(dev)
+        spec = self.spectrum(cache, runtime=rt).to(dev)
         if k is not None:
             # exact-k draws cannot overflow their k-slot budget
             return _picks_to_subsets(sample_kdpp_batched(key, spec, int(k),
-                                                         n))
+                                                         n, runtime=rt))
         if k_max is None:
             k_max = spec.suggested_k_max()
         picks, _, truncated = sample_krondpp_batched(key, spec, int(k_max),
-                                                     n)
+                                                     n, runtime=rt)
         return _picks_to_subsets(picks, truncated)
+
+    def _sample_host(self, key, n: int, device: torch.device
+                     ) -> SubsetBatch:
+        """n draws of the numpy oracle (``core.sampling``), seeded as the
+        JAX package seeds it: ``randint(key, (), 0, int32 max)`` — so a
+        key gives the JAX package's Host rows."""
+        from ..core.sampling import sample_full_dpp, sample_krondpp
+        rng = np.random.default_rng(_host_seed(key))
+        if self.m == 1:
+            L = self.dense_kernel()      # LowRank's behind the N x N guard
+            subs = [sample_full_dpp(rng, L) for _ in range(n)]
+        else:
+            krondpp = KronDPP(tuple(self.factors))
+            subs = [sample_krondpp(rng, krondpp) for _ in range(n)]
+        k_max = max(1, max((len(s) for s in subs), default=1))
+        return SubsetBatch.from_lists(subs, k_max=k_max, device=device)
 
     def service(self, **kwargs) -> SamplingService:
         """A micro-batching ``SamplingService`` over this model (submit /
         coalesce / one batched call / scatter); takes ``seed=``,
-        ``k_max=``, ``max_batch=``, ``device=`` (default "cuda")."""
+        ``k_max=``, ``max_batch=``, ``runtime=`` (a ``Mesh`` shards every
+        flush), ``device=`` (default "cuda")."""
         return SamplingService(self, **kwargs)
 
     # -- likelihood ---------------------------------------------------------
@@ -267,8 +334,11 @@ class DPPModel:
         a ``Dense`` and "krk" for a ``Kron``. All engine kwargs (iters,
         schedule, minibatch_size, use_dense_theta, checkpoint_dir,
         save_every, resume, log_every, health, backend, device, ...) pass
-        through; ``device`` defaults to "cuda". ``max_dense`` bounds the
-        dense materialization a Kron model needs for ``algorithm="em"``."""
+        through; ``device`` defaults to "cuda";
+        ``runtime=Mesh(...)`` runs krk / krk-stochastic sweeps sharded over
+        the mesh (``core.distributed.ShardedStatistics``). ``max_dense``
+        bounds the dense materialization a Kron model needs for
+        ``algorithm="em"``."""
         from ..learning.api import fit as _fit
         if algorithm is None:
             algorithm = self._default_algorithm
@@ -294,7 +364,8 @@ class DPPModel:
         (tenant, sequence number), so they are reproducible regardless of
         how the background thread coalesces traffic. Takes ``tenants=``,
         ``tenant_models=``, ``seed=``, ``k_max=``, ``cache=``,
-        ``tracker=``, ``device=`` (default "cuda")."""
+        ``tracker=``, ``runtime=`` (handed to every tenant's engine),
+        ``device=`` (default "cuda")."""
         from ..serving import AsyncSamplingService
         return AsyncSamplingService(self, config, **kwargs)
 

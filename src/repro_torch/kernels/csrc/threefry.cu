@@ -28,6 +28,12 @@
 //              and 1), out[r, i] = uniform(a)[i] for i < n and
 //              out2[r, j] = uniform(b)[j] for j < n2 — a phase-1 row's
 //              u and us in one launch (keyed_uniforms)
+//   5 select   the partial Fisher-Yates draw of m = n2 of n indices a key
+//              (core/distributed.py's shard_select_no_replace): for
+//              t < m, (key, sub) = split(key), j = randint(sub, (), t, n),
+//              swap idx[t] and idx[j]; out[r, t] = idx[t], int32. The m
+//              splits form a chain, so one thread of a block walks it for
+//              its key (6 hashes a step), on idx in a scratch row of out2
 //
 // What bounds it: integer operations. A counter takes 77 32-bit integer
 // operations (20 rounds of an add, a funnel shift and a xor; 2 + 5 x 3
@@ -45,6 +51,10 @@
 // block's stores are contiguous. Split_uniform tiles the n + n2 counters of
 // a row the same way; two threads of a block hash the row's split into
 // shared memory first, so a counter costs one hash as in the other modes.
+// Select is sequential by nature: a block a key fills its index row
+// together, then its first thread runs the m dependent steps in registers
+// (m x 6 hashes) and writes idx[t] as soon as step t settles it (no later
+// step touches a position below its own).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -159,6 +169,53 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// randint(key, (), lo, hi) of jax.random for lo < hi: split the key, 32
+// bits from each half (counter 0), combined by jax's modulus construction
+// in wrapping uint32 arithmetic
+__device__ __forceinline__ uint32_t randint_offset(uint32_t k0, uint32_t k1,
+                                                   uint32_t span) {
+  uint32_t a0 = 0u, a1 = 0u, b0 = 0u, b1 = 1u;
+  threefry2x32(k0, k1, a0, a1);
+  threefry2x32(k0, k1, b0, b1);
+  uint32_t h0 = 0u, h1 = 0u, l0 = 0u, l1 = 0u;
+  threefry2x32(a0, a1, h0, h1);
+  threefry2x32(b0, b1, l0, l1);
+  uint32_t mult = 65536u % span;
+  mult = (mult * mult) % span;
+  return (((h0 ^ h1) % span) * mult + (l0 ^ l1) % span) % span;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    threefry2x32_select_kernel(const long long* __restrict__ keys,
+                               long long R, long long n, long long m,
+                               int* __restrict__ out,
+                               int* __restrict__ scratch) {
+  for (long long r = blockIdx.x; r < R; r += gridDim.x) {
+    int* idx = scratch + r * n;
+    for (long long i = threadIdx.x; i < n; i += kThreads)
+      idx[i] = static_cast<int>(i);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      uint32_t k0 = static_cast<uint32_t>(__ldg(keys + 2 * r));
+      uint32_t k1 = static_cast<uint32_t>(__ldg(keys + 2 * r + 1));
+      for (long long t = 0; t < m; ++t) {
+        uint32_t n0 = 0u, n1 = 0u, s0 = 0u, s1 = 1u;  // (key, sub) = split
+        threefry2x32(k0, k1, n0, n1);
+        threefry2x32(k0, k1, s0, s1);
+        k0 = n0;
+        k1 = n1;
+        const long long j =
+            t + randint_offset(s0, s1, static_cast<uint32_t>(n - t));
+        const int vj = idx[j];
+        idx[j] = idx[t];
+        idx[t] = vj;
+        out[r * m + t] = vj;
+      }
+    }
+    __syncthreads();  // the next row's fill may not overtake this one
+  }
+}
+
 }  // namespace
 
 extern "C" int threefry2x32_launch(const void* keys, const void* data,
@@ -167,8 +224,17 @@ extern "C" int threefry2x32_launch(const void* keys, const void* data,
                                    void* stream, void* out2, long long n2) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* k = static_cast<const long long*>(keys);
-  if (R < 1 || mode < 0 || mode > 4) return static_cast<int>(
+  if (R < 1 || mode < 0 || mode > 5) return static_cast<int>(
       cudaErrorInvalidValue);
+  if (mode == 5) {
+    if (out2 == nullptr || n2 < 1 || n2 > n || n >= (1LL << 31))
+      return static_cast<int>(cudaErrorInvalidValue);
+    threefry2x32_select_kernel<<<static_cast<unsigned>(
+                                     R < kMaxGridY ? R : kMaxGridY),
+                                 kThreads, 0, s>>>(
+        k, R, n, n2, static_cast<int*>(out), static_cast<int*>(out2));
+    return static_cast<int>(cudaGetLastError());
+  }
   if (mode == 4) {
     if (out2 == nullptr || n < 0 || n2 < 0 || n + n2 < 1 ||
         n >= (1LL << 32) || n2 >= (1LL << 32))

@@ -22,6 +22,11 @@ shifts as a signed type). Row r hashes the counter pairs of its own key:
     "split_uniform"  the "uniform" draws of both halves (a, b) of each
                key's split, n from a and n2 from b -> ((R, n), (R, n2)):
                a phase-1 row's two uniform vectors in one launch
+    "select"   the partial Fisher-Yates draw of m = n2 of range(n) ->
+               (R, m) int32: for t < m, ``key, sub = split(key)``,
+               ``j = randint(sub, (), t, n)``, swap idx[t] and idx[j]
+               (``core.distributed.shard_select_no_replace``; one launch
+               walks every key's chain of m splits)
 
 where hi(i), lo(i) are the words of the row-major counter i (the JAX
 package's ``iota_2x32_shape`` with ``jax_threefry_partitionable``).
@@ -45,7 +50,7 @@ import torch
 MASK = 0xFFFFFFFF
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 PARITY = 0x1BD11BDA
-MODES = ("pair", "bits", "uniform", "fold", "split_uniform")
+MODES = ("pair", "bits", "uniform", "fold", "split_uniform", "select")
 MAX_COUNT = 2 ** 32           # counters are hi = 0 below this
 
 _LAUNCH_LOCK = threading.Lock()
@@ -118,6 +123,9 @@ def _check_mode(mode: str, n: int, data, n2: int = 0) -> None:
         if data is None:
             raise ValueError("threefry2x32 mode 'fold' needs data (R,)")
         return
+    if mode == "select" and not 0 <= int(n2) <= int(n) < 2 ** 31:
+        raise ValueError(f"threefry2x32 mode 'select' draws 0 <= m <= n < "
+                         f"2^31 indices, got m = {n2}, n = {n}")
     for count in (n, n2):
         if not 0 <= int(count) < MAX_COUNT:
             raise ValueError(f"threefry2x32: {count} counters out of range "
@@ -133,6 +141,8 @@ def threefry2x32_plain(keys: torch.Tensor, n: int, mode: str,
     int64 arithmetic masked to 32 bits. See the module docstring for the
     modes and the shapes they return."""
     _check_mode(mode, n, data, n2)
+    if mode == "select":
+        return _select_plain(keys, int(n), int(n2))
     if mode == "split_uniform":
         half = threefry2x32_plain(keys, 2, "pair")
         return tuple(threefry2x32_plain(half[:, h].contiguous(), c,
@@ -153,6 +163,37 @@ def threefry2x32_plain(keys: torch.Tensor, n: int, mode: str,
     if mode == "bits":
         return bits
     return bits_to_uniform(bits, minval, maxval)
+
+
+def _select_plain(keys: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """Mode "select": the chain of m splits, then the m randint draws of
+    every key in one batched hash, then the swaps on the index rows."""
+    R = int(keys.shape[0])
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device).repeat(R, 1)
+    if m == 0:
+        return idx[:, :0].to(torch.int32)
+    subs = []
+    for _ in range(m):
+        pair = threefry2x32_plain(keys, 2, "pair")            # (R, 2, 2)
+        keys, sub = pair[:, 0], pair[:, 1]
+        subs.append(sub)
+    half = threefry2x32_plain(torch.stack(subs, 1).reshape(-1, 2), 2, "pair")
+    hi, lo = (threefry2x32_plain(half[:, h], 1, "bits").reshape(R, m)
+              for h in (0, 1))
+    # randint(sub_t, (), t, n): jax's modulus construction in uint32
+    span = n - torch.arange(m, dtype=torch.int64, device=keys.device)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & MASK) % span
+    low16 = ((hi % span) * (mult & 0xFFFF))
+    high16 = ((((hi % span) * (mult >> 16)) & 0xFFFF) << 16)
+    off = ((((low16 + high16) & MASK) + lo % span) & MASK) % span
+    j = torch.arange(m, device=keys.device) + off
+    rows = torch.arange(R, device=keys.device)
+    for t in range(m):
+        vi, vj = idx[:, t].clone(), idx[rows, j[:, t]]
+        idx[:, t] = vj
+        idx[rows, j[:, t]] = vi
+    return idx[:, :m].to(torch.int32)
 
 
 def _check_cuda_inputs(keys, data, mode):
@@ -197,6 +238,11 @@ def threefry2x32_cuda(keys: torch.Tensor, n: int, mode: str,
         out2 = torch.empty((R, n2), dtype=torch.float32, device=dev)
         if R == 0 or n + n2 == 0:
             return out, out2
+    elif mode == "select":
+        out = torch.empty((R, n2), dtype=torch.int32, device=dev)
+        if out.numel() == 0:
+            return out
+        out2 = torch.empty((R, n), dtype=torch.int32, device=dev)  # idx rows
     elif mode == "fold":
         out = torch.empty((R, 2), dtype=torch.int64, device=dev)
     elif mode == "pair":
@@ -221,7 +267,7 @@ def threefry2x32_cuda(keys: torch.Tensor, n: int, mode: str,
                            f"{rc} ({msg})")
     with _LAUNCH_LOCK:
         threefry2x32_cuda.launches += 1
-    return out if out2 is None else (out, out2)
+    return out if out2 is None or mode == "select" else (out, out2)
 
 
 #: Kernel launches since import (or since a caller reset it to 0).

@@ -18,12 +18,13 @@ objective.py  factored log-likelihood: masked subset logdets plus
 schedules.py  step-size policies for ``a``: constant, a0/sqrt(1+t), and
               Armijo backtracking (PSD iterates + per-sweep ascent,
               Thm 3.2; one host sync per trial).
-api.py        ``fit(model, batch, algorithm=..., ...)`` on one device,
-              with checkpoint save/resume (``repro_torch.checkpoint``).
+api.py        ``fit(model, batch, algorithm=..., ...)`` with checkpoint
+              save/resume (``repro_torch.checkpoint``), on one device or,
+              with ``runtime=Mesh(...)``, through the sharded sweep of
+              ``core.distributed``.
 
 ``fit(..., algorithm="lowrank")`` dispatches to the low-rank dual learner
-(``repro_torch.lowrank.learn``). Not ported yet (ROADMAP.md queue 1,
-"Placement"): the mesh placement.
+(``repro_torch.lowrank.learn``).
 """
 
 from . import schedules

@@ -10,14 +10,18 @@
                                 schedule=schedules.armijo(a0=1.5), iters=5,
                                 checkpoint_dir="ck", save_every=2)
 
-Ported: KrK-Picard, batch (``"krk"``) and stochastic
-(``"krk-stochastic"``), EM (``"em"``), joint Picard (``"joint"``) and the
-low-rank dual learner (``"lowrank"``, ``lowrank.learn.fit_lowrank``), on
-one device (the JAX package's ``Local`` placement), with checkpoints
+KrK-Picard, batch (``"krk"``) and stochastic (``"krk-stochastic"``), EM
+(``"em"``), joint Picard (``"joint"``) and the low-rank dual learner
+(``"lowrank"``, ``lowrank.learn.fit_lowrank``), with checkpoints
 (``checkpoint_dir=``, ``save_every=``, ``resume=``) in the JAX package's
 layout for every learner but ``"lowrank"``, which ignores them as the JAX
-package does. Not ported yet, raising ``NotImplementedError`` that names
-its ROADMAP.md item: ``runtime=``/``mesh=`` placements.
+package does. ``runtime=`` is the ``repro_torch.dpp.runtime`` placement:
+``Local()`` (the default) runs the engine on ``device``;
+``Mesh(axes={"data": n}, devices=[...])`` runs krk / krk-stochastic
+through ``core.distributed.make_distributed_krk_sweep`` — Θ-statistics
+and Armijo acceptance log-likelihoods summed over the data shards,
+per-shard minibatches — with the engine's schedules. The pre-runtime
+``mesh=`` keyword is a DeprecationWarning shim onto ``runtime=``.
 """
 
 from __future__ import annotations
@@ -55,12 +59,6 @@ class FitReport:
     health: Optional[dict] = None
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1: "
-        f"{item})")
-
-
 def _normalize_params(model, algorithm: str, dev: torch.device):
     """-> the engine's params on ``dev``: the two factors of a
     ``core.KronDPP``, a ``dpp.Kron`` or a factor tuple; for em, (λ, V) of
@@ -82,6 +80,34 @@ def _to_model(params, algorithm: str):
         lam, V = params
         return (V * lam[None, :]) @ V.T
     return KronDPP(tuple(params))
+
+
+def _mesh_statistics(rt, algorithm: str, use_dense_theta: bool,
+                     minibatch_size: Optional[int], batch: SubsetBatch):
+    """The engine's ``core.distributed.ShardedStatistics`` for a fit on the
+    mesh ``rt``, after the JAX package's refusals: only the KrK-Picard
+    learner, only the per-subset Θ route, a batch that divides the data
+    shards, a minibatch no larger than the batch that divides them too."""
+    from ..core.distributed import ShardedStatistics
+    if algorithm not in ("krk", "krk-stochastic"):
+        raise ValueError("the mesh runtime implements the KrK-Picard "
+                         f"learner only, got {algorithm!r}")
+    if use_dense_theta:
+        raise ValueError("use_dense_theta is a single-device route (dense "
+                         "Θ is O(N²)); the mesh runtime accumulates the "
+                         "sparse per-subset statistics")
+    shards = rt.num_data_shards
+    if batch.n % shards:
+        raise ValueError(
+            f"batch of {batch.n} subsets does not divide the mesh's "
+            f"{shards} data shards; trim with runtime.even_batch(batch)")
+    stats = ShardedStatistics(rt, rt.data_axes)
+    if minibatch_size:
+        if minibatch_size > batch.n:
+            raise ValueError(f"cannot draw minibatches of {minibatch_size} "
+                             f"from a batch of {batch.n} subsets")
+        stats.share(minibatch_size)
+    return stats
 
 
 def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
@@ -128,10 +154,22 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
         ``FitReport.health``. Pass an ``obs.HealthMonitor`` (or
         ``obs.HealthThresholds``) to force it on; default None monitors
         automatically iff a tracker is configured.
+    runtime: a ``repro_torch.dpp.runtime`` placement — ``Local()``
+        (default) runs the engine on ``device``; ``Mesh(axes={"data": n},
+        devices=[...])`` runs krk / krk-stochastic through the sharded
+        sweep (``core.distributed.make_distributed_krk_sweep``):
+        Θ-statistics and Armijo acceptance LLs summed over the data
+        shards, per-shard minibatches from PRNG keys. The batch size must
+        divide the data-shard count (``runtime.even_batch`` trims), and
+        ``device`` must be the mesh's first data shard's. ``Host()`` has
+        no learner (``ValueError``).
+    mesh: deprecated — a ``Mesh``, shimmed onto ``runtime=`` with a
+        DeprecationWarning.
     backend: the engine of the dense-Θ partial traces (``LearningEngine``).
     device: where the fit runs; the factors and the batch are moved there.
         Raises ``RuntimeError`` for "cuda" (the default) without a card.
     """
+    from ..dpp import runtime as runtime_mod
     if algorithm == "lowrank":
         # the dual-space learner for LowRank(V, q) models, dispatched before
         # the engine's ALGORITHMS check (its state is (V, q), not square
@@ -147,13 +185,17 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
                            key=key, log_every=log_every,
                            track_ll=track_ll, ll_mode=ll_mode,
                            runtime=runtime, health=health, device=device)
-    if mesh is not None or runtime is not None:
-        _not_ported("fit(runtime=/mesh=): placements other than one device",
-                    "Placement")
+    rt = runtime_mod.resolve(runtime, mesh=mesh, stacklevel=3)
+    if rt.kind == "host":
+        raise ValueError("learning has no host runtime; use Local() or "
+                         "Mesh(...)")
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm must be one of {ALGORITHMS}, "
                          f"got {algorithm!r}")
-    dev = resolve_device(device)
+    dev = rt.home(device) if rt.is_mesh else resolve_device(device)
+    if rt.is_mesh and generator is not None:
+        raise ValueError("a Mesh runtime draws its minibatches from PRNG "
+                         "keys (key= or seed=), not a torch.Generator")
     if algorithm == "krk" and minibatch_size is not None:
         algorithm = "krk-stochastic"   # a minibatch request IS stochastic
     if schedule is None:
@@ -161,11 +203,16 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
     if ll_mode is None:
         ll_mode = "sweep" if track_ll else "none"
 
+    stats = None
+    if rt.is_mesh:
+        stats = _mesh_statistics(rt, algorithm, use_dense_theta,
+                                 minibatch_size, batch)
     engine = LearningEngine(algorithm=algorithm, schedule=schedule,
                             minibatch_size=minibatch_size,
                             use_dense_theta=use_dense_theta,
                             fresh_theta=fresh_theta, ll_mode=ll_mode,
-                            power_iters=power_iters, backend=backend)
+                            power_iters=power_iters, backend=backend,
+                            stats=stats)
     batch = SubsetBatch(batch.indices.to(dev), batch.mask.to(dev))
     state = engine.init_state(_normalize_params(model, algorithm, dev),
                               batch, seed=seed, generator=generator,
@@ -215,7 +262,7 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
             last_saved = sweep
 
     with obs.spans.start_span("learning.fit", algorithm=algorithm,
-                              runtime="local", iters=iters):
+                              runtime=rt.kind, iters=iters):
         state, run_lls, run_sweeps, times = engine.run(
             state, batch, remaining, log_every=log_every,
             callback=checkpoint_cb, health=monitor)
@@ -233,7 +280,7 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
     tracker = obs.current_tracker()
     if obs.enabled(tracker):
         tracker.event(
-            "learning.fit", algorithm=algorithm, runtime="local",
+            "learning.fit", algorithm=algorithm, runtime=rt.kind,
             sweeps=int(state.sweep), iters=iters,
             sweeps_per_sec=sweeps_per_sec,
             log_likelihood=(lls[-1] if lls else None),

@@ -19,7 +19,11 @@ a chunk is a Python loop over sweeps, with the same contract:
   * step sizes come from ``schedules``, including the Armijo backtracking
     loop (one host sync per trial);
   * the host syncs with the device at each chunk's end, where metrics,
-    health checks and callbacks run.
+    health checks and callbacks run;
+  * a KrK sweep takes its batch, minibatches and statistics from
+    ``stats``: ``LocalStatistics`` on one device, or
+    ``core.distributed.ShardedStatistics`` over a ``Mesh``'s data shards
+    (``fit(runtime=Mesh(...))``), so both runtimes run this one loop.
 
 The learners are KrK-Picard (``"krk"``, ``"krk-stochastic"``), EM
 (``"em"``, params (λ, V)) and joint Picard (``"joint"``); EM and joint
@@ -101,16 +105,19 @@ class LearnerState:
                 self.sched.backtracks, self.ll]
 
     @classmethod
-    def tree_unflatten(cls, leaves, like: "LearnerState") -> "LearnerState":
+    def tree_unflatten(cls, leaves, like: "LearnerState",
+                       device: Optional[DeviceLike] = None
+                       ) -> "LearnerState":
         """A state from leaves in ``tree_flatten``'s order (numpy arrays or
-        tensors, e.g. a checkpoint's) on ``like``'s device. A generator
-        key's leaf is restored into ``like.key`` with ``set_state``."""
+        tensors, e.g. a checkpoint's) on ``device``, by default ``like``'s.
+        A generator key's leaf is restored into ``like.key`` with
+        ``set_state``."""
         leaves = list(leaves)
         n = len(like.params)
         if len(leaves) != n + 6:
             raise ValueError(f"a LearnerState of {n} params has {n + 6} "
                              f"leaves, got {len(leaves)}")
-        dev = like.sweep.device
+        dev = like.sweep.device if device is None else torch.device(device)
 
         def tensor(x):
             return torch.as_tensor(np.asarray(x)).to(dev)
@@ -143,6 +150,88 @@ def select_minibatch(key, batch: SubsetBatch, size: int) -> SubsetBatch:
     return SubsetBatch(batch.indices[sel], batch.mask[sel])
 
 
+class LocalStatistics:
+    """Where a sweep's data and statistics come from on one device: the
+    batch as given, minibatches from ``select_minibatch``, A and C through
+    ``core.krk_picard`` (the per-subset route, or dense Θ with
+    ``use_dense_theta``) and the acceptance log-likelihood of
+    ``objective.log_likelihood_factored``. ``core.distributed``'s
+    ``ShardedStatistics`` is the same interface over a ``Mesh``'s data
+    shards."""
+
+    runtime = "local"            #: the ``learning.*`` metrics' runtime tag
+
+    def __init__(self, use_dense_theta: bool = False,
+                 backend: Optional[str] = None):
+        self.use_dense_theta = use_dense_theta
+        self.backend = backend
+
+    def place(self, batch: SubsetBatch) -> SubsetBatch:
+        return batch
+
+    def select(self, key, data: SubsetBatch, size: int) -> SubsetBatch:
+        return select_minibatch(key, data, size)
+
+    def AC(self, L1, L2, data: SubsetBatch):
+        return compute_AC(L1, L2, data, self.use_dense_theta, self.backend)
+
+    def C(self, L1, L2, data: SubsetBatch):
+        return compute_C(L1, L2, data, self.use_dense_theta, self.backend)
+
+    def ll(self, factors, data: SubsetBatch) -> torch.Tensor:
+        return log_likelihood_factored(tuple(factors), data)
+
+
+def krk_sweep(params, data, a_trial, schedule: schedules.Schedule, stats,
+              fresh_theta: bool = True):
+    """Alg. 1 sweep, op-for-op the math of ``core.krk_picard_step`` but
+    with the two half-updates exposed so a step size can be backtracked
+    against each precomputed ascent direction. ``stats``
+    (``LocalStatistics`` or ``core.distributed.ShardedStatistics``) gives
+    A/C, C and the acceptance log-likelihood on ``data``, so every shard
+    of a mesh takes the one branch of the global objective. Returns
+    (params, accepted a, backtracks)."""
+    L1, L2 = params
+    N1, N2 = L1.shape[0], L2.shape[0]
+    armijo = schedule.kind == "armijo"
+
+    A, C0 = stats.AC(L1, L2, data)
+    d1, P1 = torch.linalg.eigh(L1)
+    d2, P2 = torch.linalg.eigh(L2)
+    alpha, beta0 = _alpha_beta(d1, d2)
+    G1 = L1 @ A @ L1 - (P1 * (d1 ** 2 * alpha)[None, :]) @ P1.T
+
+    def upd1(a):
+        Ln = L1 + (a / N2) * G1
+        return 0.5 * (Ln + Ln.T)
+
+    if armijo:
+        ll_ref = stats.ll((L1, L2), data)
+        L1n, ll1, a1, bt1 = schedules.armijo_halfstep(
+            schedule, upd1, lambda M: stats.ll((M, L2), data), ll_ref,
+            a_trial)
+    else:
+        L1n, a1, bt1 = upd1(a_trial), a_trial, 0
+
+    if fresh_theta:
+        C = stats.C(L1n, L2, data)
+        _, beta = _alpha_beta(torch.linalg.eigvalsh(L1n), d2)
+    else:
+        C, beta = C0, beta0
+    G2 = L2 @ C @ L2 - (P2 * beta[None, :]) @ P2.T
+
+    def upd2(a):
+        Ln = L2 + (a / N1) * G2
+        return 0.5 * (Ln + Ln.T)
+
+    if armijo:
+        L2n, _, a2, bt2 = schedules.armijo_halfstep(
+            schedule, upd2, lambda M: stats.ll((L1n, M), data), ll1,
+            a_trial)
+        return (L1n, L2n), torch.minimum(a1, a2), bt1 + bt2
+    return (L1n, upd2(a_trial)), a_trial, 0
+
+
 def _sync(x: torch.Tensor) -> None:
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
@@ -158,6 +247,10 @@ class LearningEngine:
         (``kernels.ops.partial_trace_A/C``): None — the CUDA kernels for
         CUDA tensors, the plain versions for CPU tensors; "reference" —
         the plain versions on any device; "cuda" — the kernels.
+    stats: where a KrK sweep's data, minibatches and statistics come
+        from; default ``LocalStatistics(use_dense_theta, backend)``, one
+        device. ``core.distributed.ShardedStatistics`` runs the same
+        sweeps over a ``Mesh``'s data shards.
     """
 
     def __init__(self, algorithm: str = "krk",
@@ -165,7 +258,7 @@ class LearningEngine:
                  minibatch_size: Optional[int] = None,
                  use_dense_theta: bool = False, fresh_theta: bool = True,
                  ll_mode: str = "sweep", power_iters: int = 50,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, stats=None):
         if algorithm not in ALGORITHMS:
             raise ValueError(f"algorithm must be one of {ALGORITHMS}, "
                              f"got {algorithm!r}")
@@ -192,6 +285,8 @@ class LearningEngine:
         self.ll_mode = ll_mode
         self.power_iters = power_iters
         self.backend = backend
+        self.stats = stats if stats is not None else LocalStatistics(
+            use_dense_theta, backend)
 
     # -- objective -----------------------------------------------------------
     def _ll_value(self, params, batch) -> torch.Tensor:
@@ -200,18 +295,21 @@ class LearningEngine:
         return log_likelihood_factored(tuple(params), batch)
 
     # -- one chunk -----------------------------------------------------------
-    def _chunk(self, state: LearnerState, batch: SubsetBatch, chunk_len: int
-               ) -> Tuple[LearnerState, List[torch.Tensor]]:
-        """``chunk_len`` sweeps; returns the new state and the per-sweep
-        tracked log-likelihoods (device tensors, not yet read)."""
+    def _chunk(self, state: LearnerState, batch: SubsetBatch, chunk_len: int,
+               data=None) -> Tuple[LearnerState, List[torch.Tensor]]:
+        """``chunk_len`` sweeps on ``data`` (``stats.place(batch)``, made
+        here when not given); returns the new state and the per-sweep
+        tracked log-likelihoods on ``batch`` (device tensors, not yet
+        read)."""
+        data = self.stats.place(batch) if data is None else data
         lls = []
         for _ in range(chunk_len):
             key = state.key
             k_sel = key
             if not isinstance(key, torch.Generator):
                 key, k_sel = prng.split(key)
-            sub = (select_minibatch(k_sel, batch, self.minibatch_size)
-                   if self.minibatch_size else batch)
+            sub = (self.stats.select(k_sel, data, self.minibatch_size)
+                   if self.minibatch_size else data)
             a_trial = schedules.trial_step(self.schedule, state.sched)
             params, a_acc, n_bt = self._sweep(state.params, sub, a_trial)
             sched = schedules.advance(self.schedule, state.sched, a_acc, n_bt)
@@ -241,52 +339,11 @@ class LearningEngine:
             return (L1, L2), a_trial, 0
         return self._krk_sweep(params, sub, a_trial)
 
-    def _krk_sweep(self, params, sub: SubsetBatch, a_trial: torch.Tensor):
-        """Alg. 1 sweep, op-for-op the math of ``core.krk_picard_step`` but
-        with the two half-updates exposed so a step size can be backtracked
-        against each precomputed ascent direction. Returns
-        (params, accepted a, backtracks)."""
-        L1, L2 = params
-        N1, N2 = L1.shape[0], L2.shape[0]
-        armijo = self.schedule.kind == "armijo"
-
-        A, C0 = compute_AC(L1, L2, sub, self.use_dense_theta, self.backend)
-        d1, P1 = torch.linalg.eigh(L1)
-        d2, P2 = torch.linalg.eigh(L2)
-        alpha, beta0 = _alpha_beta(d1, d2)
-        G1 = L1 @ A @ L1 - (P1 * (d1 ** 2 * alpha)[None, :]) @ P1.T
-
-        def upd1(a):
-            Ln = L1 + (a / N2) * G1
-            return 0.5 * (Ln + Ln.T)
-
-        if armijo:
-            ll_ref = log_likelihood_factored((L1, L2), sub)
-            L1n, ll1, a1, bt1 = schedules.armijo_halfstep(
-                self.schedule, upd1,
-                lambda M: log_likelihood_factored((M, L2), sub),
-                ll_ref, a_trial)
-        else:
-            L1n, a1, bt1 = upd1(a_trial), a_trial, 0
-
-        if self.fresh_theta:
-            C = compute_C(L1n, L2, sub, self.use_dense_theta, self.backend)
-            _, beta = _alpha_beta(torch.linalg.eigvalsh(L1n), d2)
-        else:
-            C, beta = C0, beta0
-        G2 = L2 @ C @ L2 - (P2 * beta[None, :]) @ P2.T
-
-        def upd2(a):
-            Ln = L2 + (a / N1) * G2
-            return 0.5 * (Ln + Ln.T)
-
-        if armijo:
-            L2n, _, a2, bt2 = schedules.armijo_halfstep(
-                self.schedule, upd2,
-                lambda M: log_likelihood_factored((L1n, M), sub),
-                ll1, a_trial)
-            return (L1n, L2n), torch.minimum(a1, a2), bt1 + bt2
-        return (L1n, upd2(a_trial)), a_trial, 0
+    def _krk_sweep(self, params, sub, a_trial: torch.Tensor):
+        """Alg. 1 sweep on this engine's statistics (``krk_sweep``).
+        Returns (params, accepted a, backtracks)."""
+        return krk_sweep(params, sub, a_trial, self.schedule, self.stats,
+                         self.fresh_theta)
 
     # -- state / run loop ----------------------------------------------------
     def init_state(self, params: Sequence[torch.Tensor],
@@ -354,12 +411,13 @@ class LearningEngine:
         track = obs.enabled(tracker)
         need_bt = track or health is not None
         prev_bt = int(state.sched.backtracks) if need_bt else 0
+        data = self.stats.place(batch)
         while done < iters:
             n = min(log_every, iters - done)
             t0 = time.perf_counter()
             with obs.spans.start_span("learning.chunk", tracker=tracker,
                                       sweeps=n, algorithm=self.algorithm):
-                state, chunk_lls = self._chunk(state, batch, n)
+                state, chunk_lls = self._chunk(state, batch, n, data)
                 _sync(state.params[0])
             times.append(time.perf_counter() - t0)
             done += n
@@ -375,7 +433,8 @@ class LearningEngine:
             bt_now = int(state.sched.backtracks) if need_bt else 0
             if track:
                 emit_sweep_metrics(
-                    tracker, algorithm=self.algorithm, runtime="local",
+                    tracker, algorithm=self.algorithm,
+                    runtime=self.stats.runtime,
                     seconds=times[-1], sweeps=n, state=state,
                     prev_backtracks=prev_bt, lls=chunk_track_lls,
                     first_sweep=start + done - len(chunk_track_lls) + 1)

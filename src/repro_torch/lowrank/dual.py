@@ -90,28 +90,37 @@ class DualSpectrum:
     # these instead of gathering N-dimensional eigenvectors.
     def sample_rows(self, row_keys, k_max: int,
                     backend: Optional[str] = None,
-                    num_samples: Optional[int] = None):
+                    num_samples: Optional[int] = None, runtime=None):
         """DPP rows from per-row keys (B, 2), or ``num_samples`` rows from
-        a ``torch.Generator``: (picks, counts, truncated)."""
+        a ``torch.Generator``: (picks, counts, truncated). A ``Mesh``
+        ``runtime`` shards the keys (``sample.sample_dual_keyed``) and
+        refuses a generator."""
+        from ..sampling.batched import refuse_generator_on_mesh
         from .sample import sample_dual_generator, sample_dual_keyed
         if isinstance(row_keys, torch.Generator):
+            refuse_generator_on_mesh(runtime)
             return sample_dual_generator(row_keys, self, int(k_max),
                                          int(num_samples), backend=backend)
-        return sample_dual_keyed(row_keys, self, int(k_max), backend=backend)
+        return sample_dual_keyed(row_keys, self, int(k_max), backend=backend,
+                                 runtime=runtime)
 
     def sample_rows_kdpp(self, row_keys, k: int,
                          backend: Optional[str] = None,
-                         num_samples: Optional[int] = None) -> torch.Tensor:
+                         num_samples: Optional[int] = None,
+                         runtime=None) -> torch.Tensor:
         """k-DPP rows from per-row keys (B, 2), or ``num_samples`` rows
-        from a ``torch.Generator``: (B, k) picks."""
+        from a ``torch.Generator``: (B, k) picks; ``runtime`` as in
+        ``sample_rows``."""
+        from ..sampling.batched import refuse_generator_on_mesh
         from .sample import (sample_dual_kdpp_generator,
                              sample_dual_kdpp_keyed)
         if isinstance(row_keys, torch.Generator):
+            refuse_generator_on_mesh(runtime)
             return sample_dual_kdpp_generator(row_keys, self, int(k),
                                               int(num_samples),
                                               backend=backend)
         return sample_dual_kdpp_keyed(row_keys, self, int(k),
-                                      backend=backend)
+                                      backend=backend, runtime=runtime)
 
 
 def dual_spectrum(V: torch.Tensor, q: torch.Tensor, cache) -> DualSpectrum:

@@ -197,15 +197,18 @@ def fit_lowrank(model, batch: SubsetBatch, iters: int = 10, a: float = 1.0,
 
     schedule: default ``armijo(a0=a)``. key / seed: the minibatch stream, a
     PRNG key (``repro_torch.random``, or the JAX package's uint32 key),
-    else ``PRNGKey(seed)``. ``runtime``: the port runs on one device; any
-    placement raises, as the JAX learner refuses non-Local runtimes."""
+    else ``PRNGKey(seed)``. ``runtime``: ``Local()`` (or None) only; any
+    other placement raises ``ValueError``, as the JAX learner refuses it."""
+    from ..dpp import runtime as runtime_mod
     from ..learning.api import FitReport
     from .model import LowRank
 
-    if runtime is not None:
+    rt = runtime_mod.resolve(runtime)
+    if rt.kind != "local":
         raise ValueError(
-            "the lowrank learner runs on one device (the JAX package's Local "
-            f"runtime); got runtime={runtime!r}")
+            "the lowrank learner runs on the Local runtime (its updates "
+            "are O(Nr²); item-axis sharding is an open ROADMAP item), "
+            f"got {rt.kind!r}")
     dev = resolve_device(device)
     if isinstance(model, LowRank):
         V, q = model.V, model.q

@@ -22,6 +22,7 @@ import torch
 from .._device import DeviceLike, as_float
 from ..core.dpp import SubsetBatch
 from ..dpp.model import MAX_DENSE_N, DPPModel, _as_index_set
+from ..sampling.batched import is_mesh_runtime
 from ..sampling.spectral import (SpectralCache, default_cache,
                                  gain_for_expected_size)
 from .dual import DualSpectrum, dual_spectrum
@@ -108,12 +109,17 @@ class LowRank(DPPModel):
         return phi @ phi.T
 
     # -- spectrum -----------------------------------------------------------
-    def spectrum(self, cache: Optional[SpectralCache] = None
-                 ) -> DualSpectrum:
+    def spectrum(self, cache: Optional[SpectralCache] = None,
+                 runtime=None) -> DualSpectrum:
         """The rank-r dual spectrum off a ``SpectralCache`` — one r×r eigh
-        on first touch of this (V, q) pair, O(1) after."""
+        on first touch of this (V, q) pair, O(1) after. Under a ``Mesh``
+        runtime φ, λ and W are placed on the mesh's devices (pinned,
+        ``Mesh.pin_spectrum``, so the transfer is paid once a cache
+        entry)."""
         cache = cache if cache is not None else default_cache()
-        return dual_spectrum(self._V, self._q, cache)
+        spec = dual_spectrum(self._V, self._q, cache)
+        return runtime.pin_spectrum(spec) if is_mesh_runtime(runtime) \
+            else spec
 
     def rescale(self, expected_size: float,
                 cache: Optional[SpectralCache] = None) -> "LowRank":
@@ -125,7 +131,8 @@ class LowRank(DPPModel):
 
     # sample() and service() are inherited: the batched samplers dispatch
     # to the dual engine through the DualSpectrum's sample_rows /
-    # sample_rows_kdpp hooks.
+    # sample_rows_kdpp hooks, and the Host oracle (m = 1) runs on the
+    # guarded dense kernel.
 
     # -- likelihood ---------------------------------------------------------
     def log_prob(self, batch: SubsetBatch,

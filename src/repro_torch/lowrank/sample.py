@@ -37,7 +37,8 @@ import torch
 
 from .. import random as prng
 from ..kernels.phase2_select import EPS, MASS_EPS
-from ..sampling.batched import compact_selection, keyed_uniforms
+from ..sampling.batched import (compact_selection, is_mesh_runtime,
+                                keyed_uniforms)
 from ..sampling.kdpp import _phase1_kdpp_from_uniforms
 from .dual import DualSpectrum
 
@@ -133,29 +134,55 @@ def sample_dual_kdpp_from_uniforms(u: torch.Tensor, us: torch.Tensor,
     return phase2_dual(us, dual.phi, Gamma, mask.sum(dim=-1))
 
 
+def _dual_keyed_rows(row_keys: torch.Tensor, dual: DualSpectrum,
+                     k_max: int):
+    u, us = keyed_uniforms(row_keys, dual.rank, k_max)
+    return sample_dual_from_uniforms(u, us, dual, k_max)
+
+
+def _dual_kdpp_keyed_rows(row_keys: torch.Tensor, dual: DualSpectrum,
+                          k: int) -> torch.Tensor:
+    u, us = keyed_uniforms(row_keys, dual.rank, k)
+    return sample_dual_kdpp_from_uniforms(u, us, dual, k)
+
+
 def sample_dual_keyed(row_keys, dual: DualSpectrum, k_max: int,
-                      backend: Optional[str] = None
+                      backend: Optional[str] = None, runtime=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact low-rank DPP draws from per-row PRNG keys (B, 2) (twin keys or
     the JAX package's uint32 keys, moved to the spectrum's device).
 
     Same contract as ``sample_krondpp_keyed``. Row i is a function of
-    ``row_keys[i]`` alone, whatever else shares the call."""
+    ``row_keys[i]`` alone, whatever else shares the call, up to the
+    rounding of the batched products (a roundoff tie at a CDF boundary).
+    Under a ``Mesh`` runtime the keys are cut into shards
+    (``runtime.map_keys``) with φ, λ and W as operands."""
     _check_backend(backend)
     k_max = int(k_max)
-    u, us = keyed_uniforms(prng.as_key(row_keys, dual.device), dual.rank,
-                           k_max)
-    return sample_dual_from_uniforms(u, us, dual, k_max)
+    row_keys = prng.as_key(row_keys, dual.device)
+    if is_mesh_runtime(runtime):
+        return runtime.map_keys(
+            lambda ks, ops: _dual_keyed_rows(ks, DualSpectrum(*ops), k_max),
+            row_keys, operands=(dual.phi, dual.lams, dual.W),
+            static_key=("sample_dual", k_max))
+    return _dual_keyed_rows(row_keys, dual, k_max)
 
 
 def sample_dual_kdpp_keyed(row_keys, dual: DualSpectrum, k: int,
-                           backend: Optional[str] = None) -> torch.Tensor:
+                           backend: Optional[str] = None, runtime=None
+                           ) -> torch.Tensor:
     """Exact low-rank k-DPP draws from per-row keys: (B, k) int32 picks,
-    exactly min(k, dual rank) distinct items a row, -1 padded."""
+    exactly min(k, dual rank) distinct items a row, -1 padded; ``runtime``
+    as in ``sample_dual_keyed``."""
     _check_backend(backend)
-    u, us = keyed_uniforms(prng.as_key(row_keys, dual.device), dual.rank,
-                           int(k))
-    return sample_dual_kdpp_from_uniforms(u, us, dual, int(k))
+    k = int(k)
+    row_keys = prng.as_key(row_keys, dual.device)
+    if is_mesh_runtime(runtime):
+        return runtime.map_keys(
+            lambda ks, ops: _dual_kdpp_keyed_rows(ks, DualSpectrum(*ops), k),
+            row_keys, operands=(dual.phi, dual.lams, dual.W),
+            static_key=("sample_dual_kdpp", k))
+    return _dual_kdpp_keyed_rows(row_keys, dual, k)
 
 
 def _generator_uniforms(gen: torch.Generator, dual: DualSpectrum,

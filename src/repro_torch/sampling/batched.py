@@ -21,7 +21,8 @@ from per-row PRNG keys exactly as the JAX package does
 (``repro_torch.random``), so a key gives the JAX package's rows;
 ``sample_krondpp_batched`` takes one key (split into the rows' keys) or an
 explicit ``torch.Generator``. A spectrum with a ``sample_rows`` hook (the
-low-rank ``DualSpectrum``) draws its rows through the hook instead.
+low-rank ``DualSpectrum``) draws its rows through the hook instead. Both
+take ``runtime=``: a ``Mesh`` shards the rows' keys (``map_keys``).
 """
 
 from __future__ import annotations
@@ -150,9 +151,34 @@ def keyed_uniforms(row_keys: torch.Tensor, n: int, k: int
     return prng.split_uniform(row_keys, n, k)
 
 
+def is_mesh_runtime(runtime) -> bool:
+    # duck-typed, as the JAX package dispatches: importing dpp.runtime here
+    # would import the facade, which imports this module
+    return runtime is not None and getattr(runtime, "is_mesh", False)
+
+
+def refuse_generator_on_mesh(runtime) -> None:
+    """``ValueError`` under a ``Mesh``: a ``torch.Generator`` draws one
+    stream for every row, so cutting the rows into shards would change the
+    draws; a mesh shards PRNG keys only."""
+    if is_mesh_runtime(runtime):
+        raise ValueError(
+            "a Mesh runtime shards a batch of PRNG keys; a torch.Generator "
+            "draws one stream for every row — pass a key "
+            "(repro_torch.random.PRNGKey) instead")
+
+
+def _keyed_rows(row_keys: torch.Tensor, spectrum: FactorSpectrum,
+                k_max: int, backend: Optional[str]):
+    """The rows of keys already on the spectrum's device."""
+    u, us = keyed_uniforms(row_keys, spectrum.N, k_max)
+    return sample_krondpp_from_uniforms(u, us, spectrum, k_max,
+                                        backend=backend)
+
+
 def sample_krondpp_keyed(row_keys, spectrum: FactorSpectrum,
                          k_max: Optional[int] = None,
-                         backend: Optional[str] = None
+                         backend: Optional[str] = None, runtime=None
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
     """Exact KronDPP draws, row i from ``row_keys[i]`` alone ((B, 2) twin
@@ -160,6 +186,11 @@ def sample_krondpp_keyed(row_keys, spectrum: FactorSpectrum,
     device). The result for a key does not depend on which other keys
     share the call: the batching-invariance the keyed service
     (``SamplingService.draw_keyed``) builds on.
+
+    ``runtime`` (``repro_torch.dpp.runtime``): under a ``Mesh`` the keys
+    are cut into one shard a data-axis position (``runtime.map_keys``),
+    each drawn by this pipeline on its shard's device with the spectrum
+    as operands, so the rows equal the one-device call's bit for bit.
 
     Same return contract as ``sample_krondpp_batched``."""
     if k_max is None:
@@ -169,17 +200,24 @@ def sample_krondpp_keyed(row_keys, spectrum: FactorSpectrum,
     # with the same (picks, counts, truncated) contract and keying
     rows_hook = getattr(spectrum, "sample_rows", None)
     if rows_hook is not None:
-        return rows_hook(row_keys, int(k_max), backend=backend)
+        return rows_hook(row_keys, int(k_max), backend=backend,
+                         runtime=runtime)
     row_keys = prng.as_key(row_keys, spectrum.device)
-    u, us = keyed_uniforms(row_keys, spectrum.N, int(k_max))
-    return sample_krondpp_from_uniforms(u, us, spectrum, int(k_max),
-                                        backend=backend)
+    if is_mesh_runtime(runtime):
+        # the spectrum flows through operands (not a closure), so the mesh
+        # caches one shard plan per (k_max, backend)
+        return runtime.map_keys(
+            lambda ks, ops: _keyed_rows(ks, FactorSpectrum(*ops),
+                                        int(k_max), backend),
+            row_keys, operands=(tuple(spectrum.lams), tuple(spectrum.vecs)),
+            static_key=("sample_krondpp_batched", int(k_max), backend))
+    return _keyed_rows(row_keys, spectrum, int(k_max), backend)
 
 
 def sample_krondpp_batched(key, spectrum: FactorSpectrum,
                            k_max: Optional[int] = None,
                            num_samples: int = 1,
-                           backend: Optional[str] = None
+                           backend: Optional[str] = None, runtime=None
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Draw ``num_samples`` exact KronDPP samples in one batched call on
@@ -191,6 +229,11 @@ def sample_krondpp_batched(key, spectrum: FactorSpectrum,
     ``torch.Generator`` on the spectrum's device, whose uniforms are drawn
     with ``torch.rand``.
 
+    ``runtime``: under a ``Mesh`` the rows' keys are sharded as in
+    ``sample_krondpp_keyed`` (draws equal the one-device call's bit for
+    bit). A generator draws one stream for every row, so a ``Mesh`` takes
+    keys only and refuses one with ``ValueError``.
+
     Returns (picks (num_samples, k_max) int32 with -1 padding,
     counts (num_samples,) int32, truncated (num_samples,) bool — True
     for draws whose |J| overflowed k_max and were clipped)."""
@@ -200,11 +243,12 @@ def sample_krondpp_batched(key, spectrum: FactorSpectrum,
     if not isinstance(key, torch.Generator):
         keys = prng.split(prng.as_key(key, dev), int(num_samples))
         return sample_krondpp_keyed(keys, spectrum, int(k_max),
-                                    backend=backend)
+                                    backend=backend, runtime=runtime)
     rows_hook = getattr(spectrum, "sample_rows", None)
     if rows_hook is not None:
         return rows_hook(key, int(k_max), backend=backend,
-                         num_samples=int(num_samples))
+                         num_samples=int(num_samples), runtime=runtime)
+    refuse_generator_on_mesh(runtime)
     u = torch.rand((num_samples, spectrum.N), generator=key,
                    dtype=torch.float32, device=dev)
     us = torch.rand((num_samples, int(k_max)), generator=key,

@@ -43,7 +43,8 @@ import torch
 
 from .. import random as prng
 from ..kernels import ops as kernel_ops
-from .batched import compact_selection, gather_factor_columns, keyed_uniforms
+from .batched import (is_mesh_runtime, compact_selection, gather_factor_columns,
+                      keyed_uniforms, refuse_generator_on_mesh)
 from .spectral import FactorSpectrum, log_product_spectrum
 
 
@@ -143,9 +144,17 @@ def sample_kdpp_from_uniforms(u: torch.Tensor, us: torch.Tensor,
     return _select_kdpp(mask, us, spectrum, int(k), backend)
 
 
+def _keyed_kdpp_rows(keys: torch.Tensor, spectrum: FactorSpectrum,
+                     k: int, backend: Optional[str]) -> torch.Tensor:
+    """The k-DPP rows of keys already on the spectrum's device."""
+    u, us = keyed_uniforms(keys, spectrum.N, k)
+    return sample_kdpp_from_uniforms(u, us, spectrum, k, backend)
+
+
 def sample_kdpp_batched(key, spectrum: FactorSpectrum, k: int,
                         num_samples: int = 1,
-                        backend: Optional[str] = None) -> torch.Tensor:
+                        backend: Optional[str] = None,
+                        runtime=None) -> torch.Tensor:
     """``num_samples`` exact k-DPP samples in one batched call on the
     spectrum's device, from a PRNG key (the JAX package's rows for the same
     key) or a ``torch.Generator`` on that device.
@@ -154,7 +163,10 @@ def sample_kdpp_batched(key, spectrum: FactorSpectrum, k: int,
     when the kernel has rank >= k; below rank exactly rank distinct items
     and trailing -1 padding (never duplicates, never an empty degenerate
     row). Phase 2 for the whole batch is one ``kernels.ops.phase2_select``
-    call (``backend`` forces an engine)."""
+    call (``backend`` forces an engine). Under a ``repro_torch.dpp.runtime``
+    ``Mesh`` the rows' keys are cut into shards (``runtime.map_keys``), one
+    phase-2 call a shard, and the draws equal the one-device call's bit
+    for bit; a generator is refused there (``ValueError``)."""
     k = int(k)
     # duck-typed dispatch, as in sample_krondpp_batched: a low-rank dual
     # spectrum runs the conditional draw on its r dual eigenvalues
@@ -163,12 +175,18 @@ def sample_kdpp_batched(key, spectrum: FactorSpectrum, k: int,
         keys = prng.split(prng.as_key(key, spectrum.device),
                           int(num_samples))
         if kdpp_hook is not None:
-            return kdpp_hook(keys, k, backend=backend)
-        u, us = keyed_uniforms(keys, spectrum.N, k)
-        return sample_kdpp_from_uniforms(u, us, spectrum, k, backend)
+            return kdpp_hook(keys, k, backend=backend, runtime=runtime)
+        if is_mesh_runtime(runtime):
+            return runtime.map_keys(
+                lambda ks, ops: _keyed_kdpp_rows(ks, FactorSpectrum(*ops), k,
+                                                 backend),
+                keys, operands=(tuple(spectrum.lams), tuple(spectrum.vecs)),
+                static_key=("sample_kdpp_batched", k, backend))
+        return _keyed_kdpp_rows(keys, spectrum, k, backend)
     if kdpp_hook is not None:
         return kdpp_hook(key, k, backend=backend,
-                         num_samples=int(num_samples))
+                         num_samples=int(num_samples), runtime=runtime)
+    refuse_generator_on_mesh(runtime)
     mask = _phase1_kdpp(key, spectrum.log_eigenvalues(), k, num_samples)
     us = torch.rand((int(num_samples), k), generator=key,
                     dtype=torch.float32, device=spectrum.device)

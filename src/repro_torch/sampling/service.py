@@ -163,6 +163,14 @@ class SamplingService:
     services by default). ``device`` is where the draws run; the spectrum
     is moved there once.
 
+    ``runtime`` (``repro_torch.dpp.runtime``) picks the placement:
+    ``Local()`` / None runs each flush as one batched call; a ``Mesh``
+    cuts every flush's keys into one shard a data-axis position (the
+    service's key, its results and ``device`` are on the mesh's first
+    data shard's device), with identical draws and identical
+    ``ServiceStats`` (truncations are counted over ALL shards, pad rows
+    never). ``Host()`` has no service (``ValueError``).
+
     Observability: every flush emits ``service.*`` metrics — the
     ``ServiceStats`` counters plus ``service.queue_wait_s``,
     ``service.flush_s`` / ``service.device_call_s`` timer samples,
@@ -176,9 +184,16 @@ class SamplingService:
 
     def __init__(self, dpp, k_max: Optional[int] = None,
                  cache: Optional[SpectralCache] = None, seed: int = 0,
-                 max_batch: int = 1024, tracker=None,
+                 max_batch: int = 1024, runtime=None, tracker=None,
                  device: DeviceLike = "cuda"):
+        from ..dpp import runtime as runtime_mod
         self.cache = cache if cache is not None else default_cache()
+        rt = runtime_mod.resolve(runtime)
+        if rt.kind == "host":
+            raise ValueError("SamplingService is the batched device "
+                             "front-end; the host oracle has no service — "
+                             "use model.sample(runtime=Host()) directly")
+        self.runtime = rt
         if isinstance(dpp, KronDPP):
             spectrum = self.cache.spectrum(dpp)
         elif hasattr(dpp, "spectrum"):          # facade DPPModel
@@ -187,6 +202,9 @@ class SamplingService:
             raise TypeError(
                 f"SamplingService wants a repro_torch.dpp model or "
                 f"core.KronDPP, got {type(dpp).__name__}")
+        if rt.is_mesh:                          # pinned on every shard
+            device = rt.home(device)
+            spectrum = rt.pin_spectrum(spectrum)
         self.spectrum = spectrum.to(device)
         self.k_max = int(k_max) if k_max is not None \
             else self.spectrum.suggested_k_max()
@@ -243,7 +261,7 @@ class SamplingService:
                 self._key, sub = prng.split(self._key)
                 with tr.timer("service.device_call_s", kind="kdpp"):
                     picks = sample_kdpp_batched(sub, self.spectrum, int(k),
-                                                batch)
+                                                batch, runtime=self.runtime)
                     rows = picks_to_lists(picks)   # synchronizes the card
                 tr.counter("service.device_calls")
                 tr.counter("service.samples_drawn", batch)
@@ -277,7 +295,8 @@ class SamplingService:
                 chunk = row_keys[off: off + self.max_batch]
                 with tr.timer("service.device_call_s", kind="dpp"):
                     picks, counts, truncated = sample_krondpp_keyed(
-                        chunk, self.spectrum, self.k_max)
+                        chunk, self.spectrum, self.k_max,
+                        runtime=self.runtime)
                     part = picks_to_lists(picks)   # synchronizes the card
                 tr.counter("service.device_calls")
                 tr.counter("service.samples_drawn", int(chunk.shape[0]))
@@ -342,11 +361,15 @@ class SamplingService:
                 self._key, sub = prng.split(self._key)
                 with tr.timer("service.device_call_s", kind="dpp"):
                     picks, counts, truncated = sample_krondpp_batched(
-                        sub, self.spectrum, self.k_max, batch)
+                        sub, self.spectrum, self.k_max, batch,
+                        runtime=self.runtime)
                     rows = picks_to_lists(picks)   # synchronizes the card
                 tr.counter("service.device_calls")
                 tr.counter("service.samples_drawn", batch)
                 batched += batch
+                # under a mesh `truncated` is the GLOBAL (all-shard) row
+                # vector with the shards' pad rows already sliced off, so
+                # this sum counts every shard's clipped draws once
                 n_trunc = int(truncated.sum())
                 tr.counter("service.truncations", n_trunc)
                 truncations += n_trunc

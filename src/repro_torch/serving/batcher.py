@@ -35,7 +35,9 @@ Devices: a batcher serves one device (``device=``, default "cuda", which
 raises without a card unless "cpu" is passed). The flush thread runs each
 flush inside ``torch.cuda.device(device)`` when that device is a card, so
 anything a flush asks of "the current device" (a kernel's route query,
-say) sees the device its tensors live on, not the thread's default one.
+say) sees the device its tensors live on, not the thread's default one;
+under a ``Mesh`` runtime each shard's draw enters its own device's context
+(``Mesh.map_keys``).
 """
 
 from __future__ import annotations
@@ -46,22 +48,11 @@ import time
 from collections import OrderedDict
 from typing import Any, List, Optional
 
-import torch
 
 from .. import obs
-from .._device import DeviceLike, resolve_device
+from .._device import DeviceLike, canonical_device, device_context
 from .queues import (CancelledRequest, QueueFull, ServiceClosed,
                      _TenantState, drain_weighted, parse_tenants)
-
-
-def serving_device(device: DeviceLike) -> torch.device:
-    """``device`` resolved (``resolve_device``), a card pinned to its
-    index: "cuda" names the current device of the calling thread, which a
-    flush thread would not share."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,7 +161,7 @@ class ContinuousBatcher:
                  tenants=None, tracker=None,
                  thread_name: str = "repro-serving-flush",
                  device: DeviceLike = "cuda"):
-        self.device = serving_device(device)
+        self.device = canonical_device(device)
         self.config = config if config is not None else ServingConfig()
         self._tracker = tracker
         self._metrics = obs.InMemoryTracker()
@@ -295,10 +286,7 @@ class ContinuousBatcher:
             tr.gauge("serving.queue_depth", depth)
             fstart = time.perf_counter()
             try:
-                if self.device.type == "cuda":
-                    with torch.cuda.device(self.device):
-                        self._flush(batch, trigger)
-                else:
+                with device_context(self.device):
                     self._flush(batch, trigger)
                 tr.counter("serving.flushes")
                 cost = time.perf_counter() - fstart

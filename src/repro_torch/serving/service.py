@@ -37,9 +37,11 @@ shared service's sentinels.
 
 Devices: the tier, its engines and its keyring live on ``device``
 (default "cuda"; raises without a card unless "cpu" is passed), and the
-flush thread runs its draws inside that device's context. ``runtime=``
-placement (``Mesh``/``Host``) is not ported: any value but None raises
-``NotImplementedError``.
+flush thread runs its draws inside that device's context. ``runtime=`` is
+handed to every engine (``SamplingService(runtime=)``): under a ``Mesh``
+each flush's keys are cut into shards, each drawn on its own device
+inside that device's context (``Mesh.map_keys``), ``device`` being the
+mesh's first data shard's; ``Host()`` has no service (``ValueError``).
 """
 
 from __future__ import annotations
@@ -48,10 +50,9 @@ import time
 from typing import List, Optional, Tuple
 
 from .. import obs
-from .._device import DeviceLike
+from .._device import DeviceLike, canonical_device
 from ..sampling.service import SamplingService, emit_flush_spans
-from .batcher import (AsyncTicket, ContinuousBatcher, ServingConfig,
-                      serving_device)
+from .batcher import AsyncTicket, ContinuousBatcher, ServingConfig
 from .keys import TenantKeyring
 
 
@@ -135,12 +136,7 @@ class AsyncSamplingService(ContinuousBatcher):
                  tenant_models=None, seed: int = 0,
                  k_max: Optional[int] = None, cache=None,
                  runtime=None, tracker=None, device: DeviceLike = "cuda"):
-        if runtime is not None:
-            raise NotImplementedError(
-                "AsyncSamplingService(runtime=...) is not ported to "
-                "repro_torch yet (ROADMAP.md, queue 1: #7 placement); the "
-                "port serves on one device")
-        dev = serving_device(device)
+        dev = canonical_device(device)
         if service is not None and service.spectrum.device != dev:
             raise ValueError(f"service= draws on {service.spectrum.device}, "
                              f"not on device={str(dev)!r}")
@@ -152,8 +148,8 @@ class AsyncSamplingService(ContinuousBatcher):
         elif dpp is not None:
             self.service = SamplingService(
                 dpp, k_max=k_max, cache=cache, seed=seed,
-                max_batch=self.config.max_batch, tracker=tracker,
-                device=dev)
+                max_batch=self.config.max_batch, runtime=runtime,
+                tracker=tracker, device=dev)
         # per-tenant kernels (the low-rank "shared basis V, per-tenant
         # quality q" pattern): each tenant gets its own engine over its
         # model, all sharing one SpectralCache / runtime / tracker, so a
@@ -164,8 +160,8 @@ class AsyncSamplingService(ContinuousBatcher):
         for name, model in (tenant_models or {}).items():
             self._services[name] = SamplingService(
                 model, k_max=k_max, cache=cache, seed=seed,
-                max_batch=self.config.max_batch, tracker=tracker,
-                device=dev)
+                max_batch=self.config.max_batch, runtime=runtime,
+                tracker=tracker, device=dev)
             self.register_tenant(name)
         if self.service is None and not self._services:
             raise TypeError("AsyncSamplingService needs a dpp model, an "

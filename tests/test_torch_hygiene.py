@@ -58,7 +58,8 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
             "repro_torch.serving.service, repro_torch.serving.batcher, "
             "repro_torch.serving.queues, repro_torch.serving.kv, "
             "repro_torch.serve.kv_compaction, repro_torch.obs.export, "
-            "repro_torch.obs.report\n"
+            "repro_torch.obs.report, repro_torch.dpp.runtime, "
+            "repro_torch.core.distributed\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -150,6 +151,12 @@ def test_no_jax_or_jax_package_import_in_port_sources(path):
         tenant_models={"a": dpp.LowRank(np.ones((4, 2)), device="cpu")}),
     lambda: KVCompactionClient(4, 1),
     lambda: ContinuousBatcher(),
+    lambda: dpp.Mesh(axes={"data": 2}, devices=["cuda"] * 2).mesh,
+    lambda: dpp.Kron((np.eye(3),), device="cpu").sample(
+        prng.PRNGKey(0, "cpu"), 2, runtime=dpp.Host()),
+    lambda: dpp.Kron((np.eye(2), np.eye(3)), device="cpu").fit(
+        SubsetBatch.from_lists([[0, 1]], device="cpu"),
+        runtime=dpp.Mesh(axes={"data": 1}, devices=["cpu"])),
 ])
 def test_entry_points_without_a_card_raise(call):
     """Every entry point defaults to device="cuda"; with no card it

@@ -94,6 +94,9 @@ def np_(x):
     return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
 
 
+MESH1 = dpp.Mesh(axes={"data": 1}, devices=["cpu"])
+
+
 # ---------------------------------------------------------------------------
 # Θ statistics and one step
 # ---------------------------------------------------------------------------
@@ -374,12 +377,13 @@ def dpp_jax_fit(jinit, jdata):
 
 @pytest.mark.parametrize("kwargs,exc", [
     (dict(algorithm="lowrank", a=0.5), ValueError),
-    (dict(algorithm="joint", mesh=object()), NotImplementedError),
-    (dict(algorithm="em", runtime=object()), NotImplementedError),
-    (dict(runtime=object()), NotImplementedError),
-    (dict(mesh=object()), NotImplementedError),
-    (dict(checkpoint_dir="ck", mesh=object()), NotImplementedError),
-    (dict(resume=True, runtime=object()), NotImplementedError),
+    (dict(algorithm="joint", runtime=MESH1), ValueError),
+    (dict(algorithm="krk-stochastic", minibatch_size=999, runtime=MESH1),
+     ValueError),
+    (dict(runtime=object()), TypeError),
+    (dict(runtime=dpp.Host()), ValueError),
+    (dict(use_dense_theta=True, runtime=MESH1), ValueError),
+    (dict(resume=True, runtime="tpu"), TypeError),
     (dict(algorithm="bogus"), ValueError),
     (dict(ll_mode="bogus"), ValueError),
     (dict(algorithm="em", schedule=schedules.armijo()), ValueError),
@@ -387,6 +391,9 @@ def dpp_jax_fit(jinit, jdata):
     (dict(algorithm="krk-stochastic", minibatch_size=99), ValueError),
 ])
 def test_fit_refuses_what_is_not_ported_or_invalid(data, init, kwargs, exc):
+    """Invalid configurations, and the placements the JAX package refuses
+    (a non-KrK learner, dense Θ or an oversized minibatch on a ``Mesh``;
+    ``Host()``; a runtime that is not a ``Runtime``)."""
     with pytest.raises(exc):
         fit(init, data, iters=1, device="cpu", **kwargs)
 

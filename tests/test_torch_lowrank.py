@@ -599,9 +599,9 @@ def test_fit_through_the_facade_and_api(train):
     with pytest.raises(ValueError, match="generator"):
         fit(model, tbatch, algorithm="lowrank", device="cpu",
             generator=torch.Generator())
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(ValueError, match="Local runtime"):
         fit(model, tbatch, algorithm="lowrank", device="cpu",
-            runtime=object())
+            runtime=dpp.Mesh(axes={"data": 1}, devices=["cpu"]))
     with pytest.raises(ValueError, match="minibatches of 99"):
         fit(model, tbatch, algorithm="lowrank", device="cpu",
             minibatch_size=99)

@@ -5,6 +5,7 @@ facade's sampling contract."""
 
 import os
 import threading
+import types
 
 # the JAX reference runs on the CPU and takes none of a card's memory, even
 # where the environment offers jax a card (JAX_PLATFORMS=cuda,cpu)
@@ -171,24 +172,49 @@ def test_facade_sample_returns_subset_batch_with_provenance():
 
 
 @pytest.mark.parametrize("call", [
-    lambda m, g: m.serving(tenant_models={"a": m}, runtime=object(),
-                           device="cpu"),
-    lambda m, g: m.fit(None, algorithm="krk-stochastic", mesh=object(),
-                       device="cpu"),
-    lambda m, g: m.fit(None, mesh=object(), iters=1, device="cpu"),
-    lambda m, g: m.fit(None, runtime=object(), device="cpu"),
-    lambda m, g: dpp.from_kernel(m.dense_kernel(), device="cpu").serving(
-        runtime=object(), device="cpu"),
-    lambda m, g: AsyncSamplingService(m, runtime=object(), device="cpu"),
-    lambda m, g: m.serving(runtime=object(), device="cpu"),
-    lambda m, g: m.fit(None, checkpoint_dir="ckpt", runtime=object(),
-                       device="cpu"),
-    lambda m, g: m.serving(config=None, runtime=object(), device="cpu"),
+    lambda p: p.m.serving(tenant_models={"a": p.m}, runtime=p.d.Host(),
+                          **p.kw),
+    lambda p: p.m.fit(p.batch, algorithm="krk-stochastic",
+                      runtime=p.d.Host(), **p.kw),
+    lambda p: p.m.fit(p.batch, algorithm="joint", runtime=p.mesh, iters=1,
+                      **p.kw),
+    lambda p: p.m.fit(p.batch, runtime=object(), **p.kw),
+    lambda p: p.d.from_kernel(p.m.dense_kernel(), **p.kw).serving(
+        runtime=p.d.Host(), **p.kw),
+    lambda p: p.m.service(runtime=p.d.Host(), **p.kw),
+    lambda p: p.m.serving(runtime=p.d.Host(), **p.kw),
+    lambda p: p.m.fit(p.batch, checkpoint_dir="ckpt", runtime=p.d.Host(),
+                      **p.kw),
+    lambda p: p.m.sample(p.key, 2, k=2, runtime=p.d.Host(), **p.kw),
 ])
 def test_operations_not_ported_raise(call):
-    m = dpp.Kron(model().factors, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(m, torch.Generator())
+    """Placements the JAX package refuses, refused by the port with the
+    same exception and message: ``Host()`` in a service, the async tier,
+    a fit or a k-DPP draw; a non-KrK learner on a ``Mesh``; a runtime that
+    is not a ``Runtime``. (Before placement was ported each of these calls
+    raised ``NotImplementedError``.)"""
+    from repro import dpp as jdpp
+    jm = jdpp.Kron(tuple(np.asarray(f) for f in model().factors))
+    tm = dpp.Kron(model().factors, device="cpu")
+    jbatch = jm.sample(jax.random.PRNGKey(1), 8)
+    packages = [
+        types.SimpleNamespace(d=jdpp, m=jm, kw={}, batch=jbatch,
+                              key=jax.random.PRNGKey(0),
+                              mesh=jdpp.Mesh(axes={"data": 1})),
+        types.SimpleNamespace(
+            d=dpp, m=tm, kw=dict(device="cpu"),
+            batch=tm.sample(torch.Generator(), 8, device="cpu"),
+            key=np.asarray(jax.random.PRNGKey(0)),
+            mesh=dpp.Mesh(axes={"data": 1}, devices=["cpu"]))]
+    raised = []
+    for p in packages:
+        with pytest.raises((TypeError, ValueError)) as err:
+            call(p)
+        raised.append(err.value)
+    want, got = raised
+    assert type(got) is type(want)
+    assert str(got).replace("repro_torch.", "repro.") == str(want)
+    assert not os.path.exists("ckpt")
 
 
 def test_service_rejects_what_it_cannot_sample():
