@@ -226,7 +226,37 @@ non-zero and prints no result line.
    ``QueueFull`` and one after close ``ServiceClosed``. Every path is
    driven with all six kernels' launch counts set to 0 just before and
    read just after; the ``serving`` JSON line holds it all;
-22. the device times of every ``kernels`` row (``fill_device_times``),
+22. placement: a ``Mesh`` of four shards on the card against ``Local``
+   (draws, both services, the learner, ``Host``, a low-rank draw, a
+   checkpoint restored with ``shardings=``);
+23. LM serving: qwen2-0.5b (``src/repro/configs/qwen2_0_5b.py``) at full
+   width through the port's ``models`` and ``ServeEngine``, weights from
+   ``init_params(PRNGKey(0))`` (``threefry2x32`` launches only), two
+   seeded prompts of 512 tokens: (1) float32 at 2 of the 24 layers, the
+   card against a CPU copy (prefill logits and caches, 4 decode steps);
+   (2) the config's bfloat16 against float32 on the card at full depth
+   (logits; the first greedy tokens agree wherever float32's top-2 margin
+   exceeds twice the row's error; ``torch.argmax`` takes the first of
+   equal bfloat16 maxima); (3) decode against forward over the prompts'
+   first 64 tokens, float32, full depth; (4) ``generate(max_new=32)``
+   greedy four times, each with every kernel's launch count set to 0
+   just before and read just after: no compaction (no kernel launched),
+   inline ``kv_budget=128, kv_recency=8`` by ``"sample"`` (one
+   ``phase2_select`` launch a KV head, 96, and 1 + 2 a unit + 1 a head
+   ``threefry2x32`` launches) and by ``"map"`` (120 update launches a
+   head), and two tenant streams in threads through one
+   ``KVCompactionClient`` (192 phase-2 launches); every compaction's
+   kept positions, found by matching the compacted rows to the prefill
+   cache's, sorted, distinct, below pos, the recency window kept, k and v
+   gathered together; (5) four ``"sample"`` heads (and two of each client
+   stream) replayed from the card's eigh and the plain twin's uniforms,
+   the kernel's draw among the served positions and against the plain
+   phase 2 on a CPU copy (phase 3's rule); four ``"map"`` heads' greedy
+   orders against the plain update on a CPU copy (phase 13's rule); a
+   head's time by part (CUDA events) and phase 2's at its shape; (6) an
+   ``lm_serve`` JSON line, and ``launches_per_path.lm_serve`` in the
+   ``kernels`` rows of phase 2, the greedy update and ``threefry2x32``;
+24. the device times of every ``kernels`` row (``fill_device_times``),
    after every host-clock time above, with the host's time of one small
    launch before and after the profiler sessions.
 
@@ -328,6 +358,13 @@ fits: LLs within rtol 1e-4, V and q within 1e-3 of their max, the same
 backtracks, no fall of the LL past ``_ASCENT_TOL``; inclusion frequencies
 within 0.05 of diag K and the mean |Y| of 3000 draws within 0.25 of E|Y|
 (about 5 standard errors).
+
+LM serving (phase 23): the float32 card against its CPU copy within 1e-4
+of max(1, max |logits|) (the same float32 ops in other orders; the logits
+are sums of 896 products); bfloat16 against float32 within 5% of max
+|float32| (bfloat16 rounds every product and activation, 24 layers deep);
+decode against forward within 1e-3 of max |forward| (the reference's test
+allows 2e-2; in float32 the two differ by summation order only).
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 are the kernel table (all six kernels) and the timing lines as JSON,
@@ -2738,6 +2775,38 @@ def sv_lowrank_fleet(dev) -> dict:
     return out
 
 
+def kv_head_replay(keys, recency: int, vl: int, row_key, served,
+                   label: str):
+    """One KV head's k-DPP selection replayed on the keys' card: its kernel
+    (``token_kernel``) and the card's eigh, the plain twin's uniforms of
+    its row key, phase 1, then ``phase2_select``'s kernel, whose picks must
+    be among the ``served`` positions (budget of them). Returns phase 2's
+    inputs (us, k_eff, G1, Gr), its picks, the head's kernel and its
+    eigenvalues."""
+    from repro_torch.kernels import phase2_select as p2
+    from repro_torch.sampling.batched import (compact_selection,
+                                              gather_factor_columns)
+    from repro_torch.sampling.kdpp import _phase1_kdpp_from_uniforms
+    from repro_torch.sampling.spectral import FactorSpectrum
+    from repro_torch.serve.kv_compaction import token_kernel
+    k = len(served) - recency
+    Ls = token_kernel(keys, recency, vl, "sample")[0]
+    lam, vec = torch.linalg.eigh(Ls)
+    spec = FactorSpectrum((torch.clamp_min(lam, 0.0),), (vec,))
+    u, us = plain_row_uniforms(torch.as_tensor(row_key).to(keys.device)[None],
+                               keys.shape[0], k)
+    mask = _phase1_kdpp_from_uniforms(u, spec.log_eigenvalues(), k)
+    sel, valid, _ = compact_selection(mask, k)
+    G1, Gr = (G.contiguous() for G in p2.canonical_pair(
+        gather_factor_columns(spec.vecs, spec.sizes, sel, valid)))
+    ke = mask.sum(dim=-1).to(torch.int32)
+    us = us.contiguous()
+    raw = p2.phase2_select_cuda(us, ke, G1, Gr)
+    check(set(raw[raw >= 0].tolist()) <= set(served.tolist()),
+          f"{label}: the replayed draw is not among the served picks")
+    return (us, ke, G1, Gr), raw, Ls, lam
+
+
 def sv_kv(dev) -> dict:
     """(e): two streams' Mixtral-width caches through ``KVCompactionClient``
     in one flush, checked, drawn apart, held against the plain phase 2 on
@@ -2745,10 +2814,7 @@ def sv_kv(dev) -> dict:
     on a head."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import phase2_select as p2
-    from repro_torch.sampling.batched import (compact_selection,
-                                              gather_factor_columns)
     from repro_torch.sampling.kdpp import _phase1_kdpp_from_uniforms
-    from repro_torch.sampling.spectral import FactorSpectrum
     from repro_torch.serve.kv_compaction import (dpp_select_tokens,
                                                  token_kernel)
     from repro_torch.serving import KVCompactionClient, ServingConfig
@@ -2808,25 +2874,14 @@ def sv_kv(dev) -> dict:
     ins, pk, Ls_all, lams = [], [], [], []
     for i, (t, c, vl) in enumerate(submits):
         for h in range(KV_HEADS):
-            Ls = token_kernel(torch.from_numpy(c[h]).to(dev), KV_RECENCY, vl,
-                              "sample")[0]
-            Ls_all.append(Ls)
-            lam, vec = torch.linalg.eigh(Ls)
-            lams.append(lam)
-            spec = FactorSpectrum((torch.clamp_min(lam, 0.0),), (vec,))
-            u, us = plain_row_uniforms(rkeys[i * KV_HEADS + h][None], KV_S,
-                                       k)
-            mask = _phase1_kdpp_from_uniforms(u, spec.log_eigenvalues(), k)
-            sel, valid, _ = compact_selection(mask, k)
-            G1, Gr = (G.contiguous() for G in p2.canonical_pair(
-                gather_factor_columns(spec.vecs, spec.sizes, sel, valid)))
-            ke = mask.sum(dim=-1).to(torch.int32)
-            ins.append((us.contiguous(), ke, G1, Gr))
-            raw = p2.phase2_select_cuda(us.contiguous(), ke, G1, Gr)
-            served = set(together[i][h].tolist())
-            check(set(raw[raw >= 0].tolist()) <= served, f"stream {t} head "
-                  f"{h}: the replayed draw is not among the served picks")
+            inputs, raw, Ls, lam = kv_head_replay(
+                torch.from_numpy(c[h]).to(dev), KV_RECENCY, vl,
+                rkeys[i * KV_HEADS + h], together[i][h],
+                f"stream {t} head {h}")
+            ins.append(inputs)
             pk.append(raw)
+            Ls_all.append(Ls)
+            lams.append(lam)
     route = p2.phase2_select_route(KV_S, 1, k)
     check(route == "global", f"a KV head's phase 2 takes route {route}")
     us_c, ke_c, G1_c, Gr_c = (torch.cat([x[j] for x in ins]).cpu()
@@ -3433,6 +3488,448 @@ def placement_path(main, batch, init, rep, dev, devices=None) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"placement (phase 22): {out['phase_s']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 23 helpers: LM serving
+# ---------------------------------------------------------------------------
+
+# src/repro/configs/qwen2_0_5b.py at full width: 24 layers, d_model 896, 14
+# query heads and 2 KV heads of 64, d_ff 4864, vocab 151936 (152064 padded),
+# QKV bias, tied embeddings; weights from init_params(PRNGKey(0)). Two
+# seeded prompts of 512 tokens, 32 new tokens, inline compaction to 128
+# slots with the 8 most recent kept (k = 120 diverse tokens a head).
+LM_ARCH = "qwen2-0.5b"
+LM_SEED = 0
+LM_BATCH, LM_PROMPT, LM_NEW = 2, 512, 32
+LM_BUDGET, LM_RECENCY = 128, 8
+LM_CPU_LAYERS = 2          # the CPU copy's depth (float32 card vs CPU)
+LM_DECODE_STEPS = 4        # decode steps held against the CPU copy
+LM_DVF_TOKENS = 64         # decode against forward: the prompts' first 64
+LM_F32_TOL = 1e-4          # card vs CPU copy, of max(1, max |CPU|)
+LM_DVF_TOL = 1e-3          # decode vs forward (float32), of max |forward|
+LM_BF16_TOL = 0.05         # bfloat16 vs float32 logits, of max |float32|
+LM_REPLAY = ((0, 0, 0), (5, 1, 0), (11, 0, 1), (23, 1, 1))  # (unit, b, h)
+LM_TENANTS = ("s0", "s1")
+
+
+def lm_rel(got, want) -> float:
+    """max |got - want| over max(1, max |want|), in float32 on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+def lm_params_slice(params, n_layers: int, dev):
+    """The first ``n_layers`` units of an LM parameter tree, on ``dev``."""
+    from repro_torch.models.transformer import tree_map
+    out = {k: v.to(dev) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = tree_map(lambda a: a[:n_layers].to(dev),
+                             params["blocks"])
+    return out
+
+
+def lm_capture(engine) -> list:
+    """Record every ``engine.compact_kv`` call of a run as (tenant, state
+    before, state after): the main path's own compaction, checked after
+    the run."""
+    seen, inner = [], engine.compact_kv
+
+    def compact_kv(state, *args, **kw):
+        out = inner(state, *args, **kw)
+        seen.append((kw.get("tenant", "default"), state, out))
+        return out
+    engine.compact_kv = compact_kv
+    return seen
+
+
+def lm_kept_positions(before, after, label: str) -> np.ndarray:
+    """The positions (U, B, KV, budget) of the prefill cache ``before``
+    whose rows the compacted cache ``after`` holds, k and v alike, found
+    by matching each head's rows bit for bit (they are distinct: rope
+    differs by position); every head sorted, distinct, below pos and with
+    the recency window kept."""
+    cb, ca = (s.caches["head"]["layer0"] for s in (before, after))
+    kb, vb, ka, va = (x.cpu().view(torch.int16).numpy()
+                      for x in (cb.k, cb.v, ca.k, ca.v))
+    pos = cb.pos.cpu().numpy()
+    check(ka.shape[2] == LM_BUDGET and torch.equal(ca.pos.cpu(),
+                                                   cb.pos.cpu()),
+          f"{label}: compacted cache {ka.shape}, pos {ca.pos.tolist()}")
+    U, B, _, KV, _ = kb.shape
+    out = np.zeros((U, B, KV, LM_BUDGET), np.int64)
+    for u, b, h in np.ndindex(U, B, KV):
+        rows = {r.tobytes(): i for i, r in enumerate(kb[u, b, :, h])}
+        check(len(rows) == kb.shape[2], f"{label}: unit {u} b {b} h {h} "
+              f"holds equal key rows")
+        got = [rows.get(r.tobytes(), -1) for r in ka[u, b, :, h]]
+        vl = int(pos[u])
+        check(min(got) >= 0 and got == sorted(set(got)) and got[-1] < vl
+              and set(range(vl - LM_RECENCY, vl)) <= set(got),
+              f"{label}: unit {u} b {b} h {h} keeps {got}: not sorted, "
+              f"distinct, below {vl} with the recency window")
+        check(np.array_equal(va[u, b, :, h], vb[u, b, got, h]),
+              f"{label}: unit {u} b {b} h {h}: v rows not gathered with k")
+        out[u, b, h] = got
+    return out
+
+
+def lm_sample_head_keys(seed: int, n_units: int, B: int, KV: int):
+    """The inline "sample" compaction's head keys (U, B, KV, 2) of a new
+    engine of ``seed`` with greedy decoding, through the plain twin: one
+    split of the engine key, one a unit, then ``split(sub, (B, KV))``."""
+    from repro_torch import random as prng
+    key = prng.split(prng.PRNGKey(seed, "cpu"), backend="reference")[1]
+    out = []
+    for _ in range(n_units):
+        key, sub = prng.split(key, backend="reference")
+        out.append(prng.split(sub, (B, KV), backend="reference"))
+    return torch.stack(out)
+
+
+def lm_generate(engine, prompts, label: str, expect, **kw):
+    """One ``generate`` of the main path, every kernel's launch count set
+    to 0 just before and read just after (``sv_counted``). Returns (the
+    result, the counts, the compactions it made)."""
+    seen = lm_capture(engine)
+    out, n = sv_counted(lambda: engine.generate(prompts, LM_NEW, **kw),
+                        label, expect)
+    tok = out["tokens"]
+    check(tok.shape == (LM_BATCH, LM_NEW) and (tok >= 0).all()
+          and (tok < engine.lm.cfg.vocab).all(), f"{label}: tokens "
+          f"{tok.shape}, range [{tok.min()}, {tok.max()}]")
+    return out, n, seen
+
+
+def lm_clients(engine, streams: dict, dev):
+    """Two decode streams in threads through one ``KVCompactionClient``
+    (as ``launch.serve --tenants``). Returns ({tenant: result}, client)."""
+    import threading
+    from repro_torch.serving import KVCompactionClient, ServingConfig
+    client = KVCompactionClient(
+        LM_BUDGET, LM_RECENCY, ServingConfig(max_batch=4096,
+                                             deadline_ms=50.0),
+        tenants={t: 1 for t in streams}, seed=LM_SEED, device=dev)
+    results, errors = {}, {}
+
+    def stream(name):
+        try:
+            results[name] = engine.generate(streams[name], LM_NEW,
+                                            kv_client=client,
+                                            kv_tenant=name)
+        except Exception as e:            # raised after the join
+            errors[name] = e
+    threads = [threading.Thread(target=stream, args=(t,)) for t in streams]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+        check(not th.is_alive(), "a client stream did not finish")
+    client.close()
+    for name, e in errors.items():
+        raise RuntimeError(f"client stream {name} failed") from e
+    return results, client
+
+
+@torch.inference_mode()
+def lm_serve_path(dev) -> dict:
+    """Phase 23: qwen2-0.5b at full width through the port's LM stack and
+    ``ServeEngine`` (see the module docstring). Returns what the
+    ``lm_serve`` line prints and the ``kernels`` rows take."""
+    import dataclasses
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import phase2_select as p2
+    from repro_torch.models import LM
+    from repro_torch.sampling.kdpp import _phase1_kdpp_from_uniforms
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.kv_compaction import (dpp_select_tokens,
+                                                 token_kernel)
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    lm, lm32 = LM(cfg, device=dev), LM(cfg32, device=dev)
+    U, KV, k = cfg.n_layers, cfg.n_kv_heads, LM_BUDGET - LM_RECENCY
+    heads = U * LM_BATCH * KV
+    out = {"arch": LM_ARCH, "shapes": {
+        "layers": U, "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "kv_heads": KV, "head_dim": cfg.hd, "d_ff": cfg.d_ff,
+        "vocab_padded": cfg.vocab_padded, "batch": LM_BATCH,
+        "prompt": LM_PROMPT, "new": LM_NEW, "budget": LM_BUDGET,
+        "recency": LM_RECENCY, "heads_a_run": heads}}
+    t0 = time.perf_counter()
+    params, n = sv_counted(lambda: lm.init_params(prng.PRNGKey(0, dev)),
+                           "LM init", {"threefry2x32"})
+    out["init_s"] = time.perf_counter() - t0
+    out["init_launches"] = n
+    out["params"] = sum(int(a.numel()) for a in lm_leaves(params))
+    check(all(a.is_cuda and a.dtype == torch.float32
+              for a in lm_leaves(params)), "the init's leaves are not float32 "
+          "on the card")
+    rng = np.random.default_rng(LM_SEED)
+    prompts = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           dtype=np.int32)
+    print(f"  LM: {LM_ARCH} at full width, {out['params']} parameters "
+          f"(float32), init {out['init_s']:.1f} s")
+
+    # (1) float32, the card against a CPU copy, at 2 of the 24 layers
+    cfg2 = dataclasses.replace(cfg32, n_layers=LM_CPU_LAYERS)
+    card2, cpu2 = LM(cfg2, device=dev), LM(cfg2, device="cpu")
+    p_card, p_cpu = (lm_params_slice(params, LM_CPU_LAYERS, d)
+                     for d in (dev, "cpu"))
+    live = slice(0, cfg.vocab)            # the padded vocab is -1e30
+    lg, sg = card2.prefill(p_card, prompts)
+    lc, sc = cpu2.prefill(p_cpu, prompts)
+    errs = [lm_rel(lg[..., live], lc[..., live])]
+    errs_k = [lm_rel(sg.caches["head"]["layer0"].k,
+                     sc.caches["head"]["layer0"].k)]
+    for _ in range(LM_DECODE_STEPS):
+        nxt = lc[:, -1].argmax(-1).to(torch.int32)[:, None].numpy()
+        lg, sg = card2.decode_step(p_card, nxt, sg)
+        lc, sc = cpu2.decode_step(p_cpu, nxt, sc)
+        errs.append(lm_rel(lg[..., live], lc[..., live]))
+    errs_k.append(lm_rel(sg.caches["head"]["layer0"].k,
+                         sc.caches["head"]["layer0"].k))
+    out["card_vs_cpu_f32"] = {"layers": LM_CPU_LAYERS,
+                              "logits_rel": errs, "cache_k_rel": errs_k}
+    check(max(errs + errs_k) <= LM_F32_TOL, f"float32 card vs CPU copy: "
+          f"logits {errs}, caches {errs_k} > {LM_F32_TOL}")
+    del p_cpu, lc, sc
+    print(f"  LM float32 card vs CPU copy at {LM_CPU_LAYERS} layers: "
+          f"prefill and {LM_DECODE_STEPS} decode steps within "
+          f"{max(errs):.2e}, caches {max(errs_k):.2e}")
+
+    # (2) bfloat16 (the config's) against float32, full depth, the card
+    l16, _ = lm.prefill(params, prompts)
+    l32, _ = lm32.prefill(params, prompts)
+    check(l16.dtype == torch.bfloat16 and l32.dtype == torch.float32,
+          f"prefill logits {l16.dtype} / {l32.dtype}")
+    a, b = (x[:, 0, :cfg.vocab].float().cpu() for x in (l16, l32))
+    err_row = (a - b).abs().amax(-1)
+    rel = float(err_row.max()) / float(b.abs().max())
+    top2 = b.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > 2 * err_row
+    agree = a.argmax(-1) == b.argmax(-1)
+    out["bf16_vs_f32"] = {"logits_rel": rel,
+                          "max_abs_err_rows": err_row.tolist(),
+                          "f32_top2_margin": margin.tolist(),
+                          "first_tokens_agree": agree.tolist()}
+    check(rel <= LM_BF16_TOL, f"bfloat16 vs float32 logits: {rel} of max "
+          f"|float32| > {LM_BF16_TOL}")
+    check(bool((agree | ~decided).all()), f"bfloat16 and float32 first "
+          f"tokens differ where float32's top-2 margin {margin.tolist()} "
+          f"exceeds twice the error {err_row.tolist()}")
+    # argmax on the card takes the first of equal bfloat16 maxima, as the
+    # CPU and jnp.argmax do
+    tie = torch.zeros((2, cfg.vocab_padded), dtype=torch.bfloat16,
+                      device=dev)
+    tie[:, [7, cfg.vocab // 2, cfg.vocab - 1]] = 3.0
+    check(tie.argmax(-1).tolist() == [7, 7] and torch.equal(
+        l16[:, 0].argmax(-1).cpu(), l16[:, 0].cpu().argmax(-1)),
+        "torch.argmax on the card does not take the first maximum")
+    print(f"  LM bfloat16 vs float32 (full depth): {rel:.3e} of max "
+          f"|float32|; first tokens agree {agree.tolist()}, float32 "
+          f"margins {margin.tolist()}")
+    del l32
+
+    # (3) decode against forward, float32, full depth, the card
+    toks = prompts[:, :LM_DVF_TOKENS]
+    full = lm32.forward(params, toks)[..., :cfg.vocab]
+    state = lm32.init_decode_state(LM_BATCH, LM_DVF_TOKENS)
+    outs = []
+    for t in range(LM_DVF_TOKENS):
+        lg_t, state = lm32.decode_step(params, toks[:, t:t + 1], state)
+        outs.append(lg_t[:, 0, :cfg.vocab])
+    dvf = float((torch.stack(outs, 1) - full).abs().max()) / \
+        float(full.abs().max())
+    out["decode_vs_forward_rel"] = dvf
+    check(dvf <= LM_DVF_TOL, f"decode vs forward: {dvf} > {LM_DVF_TOL}")
+    print(f"  LM decode vs forward over {LM_DVF_TOKENS} tokens (float32): "
+          f"{dvf:.2e} of max |forward|")
+    del full, outs, state
+
+    # (4) the serving path: ServeEngine.generate, greedy, four ways
+    params16 = lm._cast(params)
+    engine = ServeEngine(lm, params16, seed=LM_SEED, device=dev)
+    engine.generate(prompts[:, :16], 2)                      # warm-up
+    # a decode step and a draw (greedy, and at T = 0.7 in bfloat16) wait
+    # for nothing on the host: in torch.cuda's sync debug mode "error" an
+    # operation that synchronizes with the card raises
+    warm = ServeEngine(lm, params16, temperature=0.7, seed=LM_SEED,
+                       device=dev)
+    lg0, st0 = lm.prefill(params16, prompts[:, :16])
+    tok0 = engine._sample(lg0[:, -1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg1, _ = lm.decode_step(params16, tok0[:, None], st0)
+        engine._sample(lg1[:, -1])
+        warm._sample(lg1[:, -1])
+        synced = None
+    except RuntimeError as e:
+        synced = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(synced is None, f"a decode step or a draw synchronized with the "
+          f"card: {synced}")
+    out["decode_step_waits_for_the_card"] = synced is not None
+    runs, launches = {}, {}
+    res, launches["plain"], _ = lm_generate(engine, prompts, "LM generate",
+                                            set())
+    runs["plain"] = res
+    inline = {}
+    for method, expect in (("sample", {"phase2_select", "threefry2x32"}),
+                           ("map", {"greedy_map_update"})):
+        eng = ServeEngine(lm, params16, seed=LM_SEED, device=dev)
+        res, launches[method], seen = lm_generate(
+            eng, prompts, f"LM generate, {method} compaction", expect,
+            kv_budget=LM_BUDGET, kv_recency=LM_RECENCY, kv_method=method)
+        check(len(seen) == 1, f"{method}: {len(seen)} compactions")
+        inline[method] = (seen[0][1], lm_kept_positions(
+            seen[0][1], seen[0][2], f"{method} compaction"))
+        runs[method] = res
+        check(np.array_equal(res["tokens"][:, 0],
+                              runs["plain"]["tokens"][:, 0]),
+              f"{method}: the first token differs from the plain run's")
+    n_s, n_m = launches["sample"], launches["map"]
+    want_tf = 1 + 2 * U + heads
+    check(n_s["phase2_select"] == heads and n_s["threefry2x32"] == want_tf,
+          f"sample compaction launched phase 2 {n_s['phase2_select']} and "
+          f"threefry2x32 {n_s['threefry2x32']} times, not {heads} (one a "
+          f"head) and {want_tf} (1 + 2 a unit + 1 a head)")
+    check(n_m["greedy_map_update"] == heads * k, f"map compaction launched "
+          f"the update {n_m['greedy_map_update']} times, not {heads * k}")
+    # the client path: two tenant streams, one KVCompactionClient
+    streams = {t: np.random.default_rng(LM_SEED + 1 + i).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+        for i, t in enumerate(LM_TENANTS)}
+    eng = ServeEngine(lm, params16, seed=LM_SEED, device=dev)
+    seen = lm_capture(eng)
+    (cres, client), launches["client"] = sv_counted(
+        lambda: lm_clients(eng, streams, dev), "LM client streams",
+        {"phase2_select", "threefry2x32"})
+    check(launches["client"]["phase2_select"] == heads * len(streams),
+          f"the client path launched phase 2 "
+          f"{launches['client']['phase2_select']} times, not "
+          f"{heads * len(streams)}")
+    kept_client = {t: lm_kept_positions(b, a, f"client stream {t}")
+                   for t, b, a in seen}
+    check(sorted(kept_client) == sorted(streams), f"client compactions "
+          f"{sorted(kept_client)}")
+    m = client._metrics
+    out["client"] = {
+        "device_calls": int(m.counter_value("serving.device_calls")),
+        "heads_selected": int(m.counter_value("serving.heads_selected")),
+        "flush_ms": [x * 1e3 for x in m.observations["serving.flush_s"]]}
+    for t, r in cres.items():
+        runs[f"client_{t}"] = r
+
+    # (5) kernel checks: heads replayed against the plain versions
+    hkeys = lm_sample_head_keys(LM_SEED, U, LM_BATCH, KV)
+    state0, kept = inline["sample"]
+    cache0 = state0.caches["head"]["layer0"]
+    ins = []
+    for u, b, h in LM_REPLAY:
+        ins.append(kv_head_replay(
+            cache0.k[u, b, :, h], LM_RECENCY, LM_PROMPT, hkeys[u, b, h],
+            kept[u, b, h], f"sample head (unit {u}, b {b}, h {h})"))
+    rkeys = {t: client._keyring.row_keys([SvTicket(t, 0, heads)], heads)
+             for t in streams}
+    for t, before, _ in seen:
+        c = before.caches["head"]["layer0"]
+        for u, b, h in LM_REPLAY[:2]:
+            j = (u * LM_BATCH + b) * KV + h
+            ins.append(kv_head_replay(
+                c.k[u, b, :, h], LM_RECENCY, LM_PROMPT, rkeys[t][j],
+                kept_client[t][u, b, h],
+                f"client {t} head (unit {u}, b {b}, h {h})"))
+    route = p2.phase2_select_route(LM_PROMPT, 1, k)
+    us_c, ke_c, G1_c, Gr_c = (torch.cat([x[0][j] for x in ins]).cpu()
+                              for j in range(4))
+    pp = p2.phase2_select_plain(us_c, ke_c, G1_c, Gr_c).numpy()
+    out["sample_heads_vs_cpu_plain"] = compare_picks(
+        torch.cat([x[1] for x in ins]).cpu().numpy(), pp, us_c, ke_c, G1_c,
+        Gr_c, "LM KV heads, kernel vs the plain phase 2 on a CPU copy")
+    out["phase2_route"] = route
+    state_m, kept_m = inline["map"]
+    recent = set(range(LM_PROMPT - LM_RECENCY, LM_PROMPT))
+    out["map_heads_vs_cpu"] = []
+    for u, b, h in LM_REPLAY:
+        Lm = token_kernel(state_m.caches["head"]["layer0"].k[u, b, :, h],
+                          LM_RECENCY, LM_PROMPT, "map")[0]
+        order_k = ops.greedy_map_kdpp(Lm, k).cpu().numpy()
+        order_p = ops.greedy_map_kdpp(Lm.cpu(), k).numpy()
+        check(sorted(set(order_k.tolist()) | recent) ==
+              kept_m[u, b, h].tolist(), f"map head (unit {u}, b {b}, h "
+              f"{h}): the kept positions are not its greedy order and the "
+              f"recency window")
+        out["map_heads_vs_cpu"].append(compare_maps(
+            Lm, order_k, order_p, f"LM map head (unit {u}, b {b}, h {h})"))
+
+    # where a head's compaction time goes (CUDA events), and phase 2's
+    # device time at the head's shape (filled in phase 24)
+    head0 = cache0.k[0, 0, :, 0]
+    lam0 = ins[0][3]
+    u0, _ = plain_row_uniforms(hkeys[0, 0, 0].to(dev)[None], LM_PROMPT, k)
+    ll0 = torch.log(torch.clamp_min(lam0, 0.0))
+    out["head_ms"] = {
+        "select_tokens_sample": cuda_ms(lambda: dpp_select_tokens(
+            head0, LM_BUDGET, LM_RECENCY, valid_len=LM_PROMPT,
+            method="sample", key=hkeys[0, 0, 0].to(dev)), reps=3, warmup=1),
+        "kernel_and_eigh": cuda_ms(lambda: torch.linalg.eigh(token_kernel(
+            head0, LM_RECENCY, LM_PROMPT, "sample")[0]), reps=3, warmup=1),
+        "esp_phase1": cuda_ms(lambda: _phase1_kdpp_from_uniforms(
+            u0, ll0, k), reps=3, warmup=1),
+        "select_tokens_map": cuda_ms(lambda: dpp_select_tokens(
+            head0, LM_BUDGET, LM_RECENCY, valid_len=LM_PROMPT,
+            method="map"), reps=3, warmup=1)}
+    (us1, ke1, G11, Gr1), raw1 = ins[0][:2]
+    picks1 = raw1.cpu().numpy()
+    b_ms, b_by = bound(picks1, LM_PROMPT, 1, k)
+    out["phase2_times"] = kernel_times(
+        partial(p2.phase2_select_cuda, us1, ke1, G11, Gr1),
+        partial(p2.phase2_select_plain, us1, ke1, G11, Gr1), None,
+        reps=5, plain_reps=2, expect="phase2_select_kernel", sole=True,
+        kernel_route=route, bound_ms=b_ms, bound_by=b_by,
+        bound_row_ms=bound_row(picks1, LM_PROMPT, 1, k),
+        max_row_steps=int((picks1 >= 0).sum(axis=1).max()),
+        shapes={"N1": LM_PROMPT, "Nr": 1, "k_max": k, "B": 1})
+    # the greedy update at a "map" head's shape (N = S, k = 120)
+    from repro_torch.kernels import greedy_map as gm
+    lcol, C, cj, dj, d = greedy_inputs(
+        LM_PROMPT, k, torch.Generator(device=dev).manual_seed(LM_SEED), dev)
+    args = (lcol, C.t().contiguous().t(), cj, dj, d)
+    b_ms, b_by = greedy_bound(LM_PROMPT, k)
+    out["greedy_times"] = kernel_times(
+        partial(gm.greedy_map_update_cuda, *args),
+        partial(gm.greedy_map_update_plain, *args),
+        partial(greedy_library, *args), reps=200, plain_reps=100,
+        expect="greedy_map_update_kernel", bound_ms=b_ms, bound_by=b_by,
+        shapes={"N": LM_PROMPT, "k": k})
+
+    # (6) the numbers of the runs
+    out["runs"] = {name: {key: r[key] for key in
+                          ("prefill_s", "compact_s", "decode_s",
+                           "decode_tok_per_s")}
+                   for name, r in runs.items()}
+    for name in ("sample", "map"):
+        out["runs"][name]["compact_per_head_ms"] = \
+            runs[name]["compact_s"] * 1e3 / heads
+    out["launches_per_request"] = launches
+    out["tokens_first_row"] = {name: r["tokens"][0, :8].tolist()
+                               for name, r in runs.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  LM runs: {json.dumps(out['runs'])}")
+    print(f"LM serving (phase 23): {out['phase_s']:.1f} s")
+    return out
+
+
+def lm_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in lm_leaves(v)]
+    return [tree]
 
 
 def main() -> None:
@@ -4042,7 +4539,10 @@ def main() -> None:
     # -- 22. placement ---------------------------------------------------------
     pl = placement_path(main, batch, init, rep, dev)
 
-    # -- 23. device times of every kernels row -------------------------------
+    # -- 23. LM serving ---------------------------------------------------------
+    lms = lm_serve_path(dev)
+
+    # -- 24. device times of every kernels row -------------------------------
     launch_us = [host_launch_us()]
     fill_device_times()
     launch_us.append(host_launch_us())
@@ -4055,7 +4555,7 @@ def main() -> None:
 
     for t in (times[64], times[1], times["global"],
               sel_times["kdpp_phase2"], inf["phase2"],
-              sv["kv"]["phase2_times"]):
+              sv["kv"]["phase2_times"], lms["phase2_times"]):
         t["per_step_ms"] = t["ms"] / t["max_row_steps"]
     row = {"name": "phase2_select", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/phase2_select.cu",
@@ -4069,6 +4569,7 @@ def main() -> None:
            "global_300x300_b8": times["global"],
            "global_dense_9995_b64": inf["phase2"],
            "global_kv_s1024_k192_b1": sv["kv"]["phase2_times"],
+           "global_lm_kv_s512_k120_b1": lms["phase2_times"],
            "agree_rows_main_path": agree_main["agree_rows"],
            "card": card, "power_limit": power_limit}
     pt_rows = [{"name": f"partial_trace_{k}", "route": "cuda",
@@ -4176,6 +4677,19 @@ def main() -> None:
         k: v["threefry2x32"] for k, v in pl["launches"].items()}
     print(json.dumps({"placement": pl, "card": card,
                       "power_limit": power_limit}))
+    lm_launch = lms["launches_per_request"]
+    row["launches_per_path"] = {"lm_serve": {
+        k: v["phase2_select"] for k, v in lm_launch.items()}}
+    gm_row["launches_per_path"] = {"lm_serve": {
+        k: v["greedy_map_update"] for k, v in lm_launch.items()}}
+    tf_row["launches_per_path"]["lm_serve"] = {
+        "init": lms["init_launches"]["threefry2x32"],
+        **{k: v["threefry2x32"] for k, v in lm_launch.items()}}
+    gm_row["lm_kv_n512_k120"] = lms["greedy_times"]
+    print(json.dumps({"lm_serve": {k: v for k, v in lms.items()
+                                   if k not in ("phase2_times",
+                                                "greedy_times")},
+                      "card": card, "power_limit": power_limit}))
     print(json.dumps({"kernels": [row, *pt_rows, gm_row, km_row, tf_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,
                                  "svc_sample16_median_ms":

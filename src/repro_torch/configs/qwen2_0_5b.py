@@ -1,0 +1,9 @@
+"""qwen2-0.5b [arXiv:2407.10671] — GQA kv=2, QKV bias, tied embeddings."""
+from ..config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-0.5b", family="dense",
+    n_layers=24, d_model=896, n_heads=14, n_kv_heads=2,
+    d_ff=4864, vocab=151936,
+    qkv_bias=True, tie_embeddings=True, rope_theta=1000000.0,
+)

@@ -20,6 +20,8 @@ from ._device import DeviceLike, as_float, resolve_device
 from .core.dpp import SubsetBatch
 from .dpp.model import Kron
 from .lowrank import DualSpectrum, LowRank
+from .models import DecodeState, KVCache
+from .models.transformer import tree_map
 from .sampling.spectral import FactorSpectrum
 
 
@@ -105,3 +107,61 @@ def key_to_numpy(key: torch.Tensor) -> np.ndarray:
     """The uint32 words (..., 2) of a port key, which
     ``jnp.asarray(..., jnp.uint32)`` turns into the JAX package's key."""
     return prng.key_data(key)
+
+
+def _leaf_from_numpy(x, dev: torch.device) -> torch.Tensor:
+    """An array (numpy, or anything ``np.asarray`` takes) as a tensor on
+    ``dev`` in its own dtype; a bfloat16 array (JAX's ``ml_dtypes`` type,
+    which ``torch.from_numpy`` refuses) goes through float32, exactly."""
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            dev, torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def lm_params_from_numpy(params, device: DeviceLike = "cuda"):
+    """The port's LM parameter tree from the JAX package's, carried as
+    numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``): the same
+    nested dict paths and stacked ``(U, …)`` shapes, each leaf a tensor on
+    ``device`` in its own dtype."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _leaf_from_numpy(a, dev), params)
+
+
+def lm_params_to_numpy(params):
+    """numpy copies of an LM parameter tree's leaves, the nesting kept
+    (bfloat16 leaves as float32, exactly)."""
+    return tree_map(_leaf_to_numpy, params)
+
+
+def decode_state_from_numpy(state, device: DeviceLike = "cuda"
+                            ) -> DecodeState:
+    """The port's ``DecodeState`` from a decode state of either package
+    whose leaves are numpy arrays (or anything ``np.asarray`` takes): every
+    cache with fields ``k``, ``v`` and ``pos`` becomes a ``KVCache`` on
+    ``device``, the dict nesting kept. A state with whisper's cross-attention
+    or encoder output is refused (not ported)."""
+    dev = resolve_device(device)
+    if state.cross is not None or state.enc_out is not None:
+        raise NotImplementedError("encoder-decoder decode states are not "
+                                  "ported (ROADMAP.md, queue 1)")
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return KVCache(*(_leaf_from_numpy(x, dev)
+                         for x in (tree.k, tree.v, tree.pos)))
+
+    return DecodeState(walk(state.caches))
+
+
+def decode_state_to_numpy(state: DecodeState) -> DecodeState:
+    """A ``DecodeState`` whose ``KVCache`` leaves are numpy copies
+    (bfloat16 caches as float32, exactly)."""
+    return tree_map(_leaf_to_numpy, state)

@@ -21,9 +21,23 @@ on the CPU (``backend`` forces one, as for the other kernels).
     fold_in(key, data)      the hash of the pair (0, data)
     bits(key, shape)        x0 ^ x1 of the counters, 32-bit values
     uniform(key, shape, minval, maxval)   float32 in [minval, maxval)
+                            (``dtype=torch.bfloat16``: from 8 of the bits,
+                            as ``jax.random.uniform`` makes bfloat16)
     split_uniform(key, n, n2)  uniform of both halves of split(key), fused
     randint(key, shape, minval, maxval)   two draws of 32 bits, modulus
     permutation(key, n), choice(key, n, shape, replace)
+    normal(key, shape, dtype)   sqrt(2)·erfinv of a uniform in (-1, 1)
+    gumbel(key, shape, dtype)   -log(-log(u)), u uniform in [tiny, 1)
+    categorical(key, logits, axis)   argmax of gumbel + logits
+
+``normal`` and ``gumbel`` take the JAX package's uniforms bit for bit but
+PyTorch's ``erfinv`` (in float64) and ``log``, not XLA's polynomials: in
+float32 ``normal`` agrees to about 6e-6 relative (at most 91 units in the
+last place over 2·10⁵ draws, the largest in the tails), ``gumbel`` to a few
+units in the last place, so ``categorical`` can differ only where two
+categories' scores lie that close. In bfloat16 each operation rounds to bfloat16 as XLA's does,
+and ``gumbel`` and ``categorical`` give the JAX package's values
+(``tests/test_torch_random.py``).
 """
 
 from __future__ import annotations
@@ -130,15 +144,28 @@ def bits(key, shape: Shape = (), backend: Optional[str] = None
 
 
 def uniform(key, shape: Shape = (), minval: float = 0.0,
-            maxval: float = 1.0, backend: Optional[str] = None
-            ) -> torch.Tensor:
-    """float32 uniforms in [minval, maxval), (..., *shape)
-    (``jax.random.uniform``: the top 23 bits of ``bits`` as a mantissa,
-    scaled and shifted, clamped below at minval)."""
+            maxval: float = 1.0, backend: Optional[str] = None, *,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Uniforms in [minval, maxval), (..., *shape) of ``dtype``
+    (``jax.random.uniform``). float32: the top 23 bits of ``bits`` as a
+    mantissa, scaled and shifted, clamped below at minval (one kernel
+    launch). bfloat16: JAX draws 8 bits for a type of fewer than 8 mantissa
+    bits, so the low byte of ``bits`` gives 7 mantissa bits; minus 1, times
+    (maxval - minval), plus minval and the clamp each round to bfloat16."""
     shape = _shape(shape)
-    out, batch = _hash(key, math.prod(shape), "uniform", backend,
-                       minval=minval, maxval=maxval)
-    return out.reshape(batch + shape)
+    if dtype == torch.float32:
+        out, batch = _hash(key, math.prod(shape), "uniform", backend,
+                           minval=minval, maxval=maxval)
+        return out.reshape(batch + shape)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"uniform draws float32 or bfloat16, not {dtype}")
+    b = bits(key, shape, backend)
+    f = (((b & 0xFF) >> 1) | 0x3F80).to(torch.int16).view(torch.bfloat16)
+    # the bounds as JAX forms them (a Python float is float32 first), and
+    # their span, in bfloat16 on the host; as Python floats they are exact
+    # scalars of each bfloat16 operation
+    lo, hi = (torch.tensor(np.float32(v)).to(dtype) for v in (minval, maxval))
+    return torch.clamp_min((f - 1.0) * float(hi - lo) + float(lo), float(lo))
 
 
 def split_uniform(key, n: int, n2: int, minval: float = 0.0,
@@ -224,3 +251,51 @@ def choice(key, n: int, shape: Shape = (), replace: bool = True,
         raise ValueError(f"Cannot take a larger sample (size {size}) than "
                          f"population (size {n}) when 'replace=False'")
     return permutation(flat, n, backend)[:, :size].reshape(batch + shape)
+
+
+def _float_dtype(dtype: torch.dtype) -> torch.dtype:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"draws are float32 or bfloat16, not {dtype}")
+    return dtype
+
+
+def normal(key, shape: Shape = (), dtype: torch.dtype = torch.float32,
+           backend: Optional[str] = None) -> torch.Tensor:
+    """Standard normals (..., *shape) (``jax.random.normal``):
+    sqrt(2)·erfinv(u) for u uniform in [nextafter(-1, 0), 1) of ``dtype``.
+    ``torch.erfinv`` is not XLA's polynomial (see the module docstring)."""
+    dtype = _float_dtype(dtype)
+    lo = float(torch.nextafter(torch.tensor(-1.0, dtype=dtype),
+                               torch.tensor(0.0, dtype=dtype)))
+    u = uniform(key, shape, lo, 1.0, backend, dtype=dtype)
+    sqrt2 = float(torch.tensor(np.float32(np.sqrt(2.0))).to(dtype))
+    # erfinv in float64, rounded once: the float32 CPU kernel of erfinv
+    # is not reproducible from one process to the next (a worker thread's
+    # share of the tensor now and then takes a less accurate path)
+    return torch.erfinv(u.double()).to(dtype) * sqrt2
+
+
+def gumbel(key, shape: Shape = (), dtype: torch.dtype = torch.float32,
+           backend: Optional[str] = None) -> torch.Tensor:
+    """Standard Gumbel draws (..., *shape) (``jax.random.gumbel``, its
+    default "low" mode): -log(-log(u)) for u uniform in [tiny, 1) of
+    ``dtype``, each operation rounded to ``dtype``."""
+    dtype = _float_dtype(dtype)
+    u = uniform(key, shape, torch.finfo(dtype).tiny, 1.0, backend,
+                dtype=dtype)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key, logits: torch.Tensor, axis: int = -1,
+                backend: Optional[str] = None) -> torch.Tensor:
+    """One draw a row from softmax(logits) along ``axis``, int64 of
+    logits' shape without ``axis`` (``jax.random.categorical`` with one
+    key: the Gumbel-max trick, ``gumbel`` of logits' shape and dtype added
+    to the logits; ``torch.argmax`` takes the first maximum, as
+    ``jnp.argmax``). ``key`` is one key (2,)."""
+    key = as_key(key, logits.device)
+    if key.dim() != 1:
+        raise ValueError(f"categorical takes one key (2,), got "
+                         f"{tuple(key.shape)}")
+    g = gumbel(key, tuple(logits.shape), logits.dtype, backend)
+    return torch.argmax(g + logits, dim=axis)

@@ -10,21 +10,20 @@ phase 1 and one ``phase2_select`` call at m = 1). Diversity-preserving
 eviction retains long-range anchors that recency-only eviction drops.
 
 One head a call: the JAX function is vmapped over heads inside a trace,
-while eager PyTorch runs one call per head (``serving.kv`` does so for a
-coalesced flush). The selection runs on the keys' device.
-
-Only ``dpp_select_tokens`` is ported. ``compact_kv_cache`` gathers a
-layer's cache through the LM stack's ``models.attention.KVCache`` and
-waits for it (ROADMAP.md, queue 1: #8 consumers).
+while eager PyTorch runs one call per head (``compact_kv_cache`` loops over
+a layer's (batch, KV head) pairs; ``serving.kv`` does so for a coalesced
+flush). The selection runs on the keys' device.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from .. import random as prng
 from ..dpp.functional import greedy_map_kdpp, sample_kdpp_dense
+from ..models.attention import KVCache
 
 
 def token_kernel(keys: torch.Tensor, recency: int = 0,
@@ -96,3 +95,32 @@ def dpp_select_tokens(keys: torch.Tensor, budget: int, recency: int = 0,
         recent = vl - 1 - torch.arange(recency, device=dev)
         picks = torch.cat([picks, recent.to(torch.int32)])
     return torch.sort(picks).values
+
+
+def compact_kv_cache(cache: KVCache, budget: int, recency: int = 64,
+                     method: str = "map", key=None
+                     ) -> Tuple[KVCache, torch.Tensor]:
+    """Compact one layer's cache (B, S, KV, hd) down to (B, budget, KV, hd).
+
+    Selection is per (batch, kv-head) on the key vectors; returns the new
+    cache and the kept positions (B, KV, budget) int32 for position
+    bookkeeping. method="sample" draws an exact k-DPP per head (needs
+    ``key``; head (b, h) takes ``split(key, (B, KV))[b, h]``, the JAX
+    package's key) instead of the deterministic greedy MAP.
+    """
+    B, S, KV, hd = cache.k.shape
+    hkeys = None
+    if method == "sample":
+        if key is None:
+            raise ValueError("method='sample' needs a PRNG key")
+        hkeys = prng.split(prng.as_key(key, cache.k.device), (B, KV))
+    vl = int(cache.pos)
+    picks = torch.stack([torch.stack([
+        dpp_select_tokens(cache.k[b, :, h], budget, recency, valid_len=vl,
+                          method=method,
+                          key=None if hkeys is None else hkeys[b, h])
+        for h in range(KV)]) for b in range(B)])             # (B, KV, bud)
+    # (B, S, KV, hd) gathered along S at picks (B, KV, budget)
+    idx = picks.transpose(1, 2).long()[..., None].expand(B, budget, KV, hd)
+    return KVCache(k=torch.gather(cache.k, 1, idx),
+                   v=torch.gather(cache.v, 1, idx), pos=cache.pos), picks

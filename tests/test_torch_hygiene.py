@@ -28,7 +28,12 @@ from repro_torch.convert import (dual_spectrum_from_numpy, key_from_numpy,
                                   subset_batch_from_numpy)
 from repro_torch.core import SubsetBatch, fit_picard, random_krondpp
 from repro_torch.learning import LearningEngine, fit, schedules
+from repro_torch.configs import smoke_config
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.launch.serve import main as serve_main
 from repro_torch.lowrank.learn import fit_lowrank
+from repro_torch.models import LM
+from repro_torch.serve import ServeEngine
 from repro_torch.sampling import SamplingService
 from repro_torch.serving import (AsyncSamplingService, ContinuousBatcher,
                                  KVCompactionClient, TenantKeyring)
@@ -59,7 +64,14 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
             "repro_torch.serving.queues, repro_torch.serving.kv, "
             "repro_torch.serve.kv_compaction, repro_torch.obs.export, "
             "repro_torch.obs.report, repro_torch.dpp.runtime, "
-            "repro_torch.core.distributed\n"
+            "repro_torch.core.distributed, repro_torch.config, "
+            "repro_torch.configs, repro_torch.models, "
+            "repro_torch.models.common, repro_torch.models.attention, "
+            "repro_torch.models.transformer, repro_torch.serve, "
+            "repro_torch.serve.engine, repro_torch.launch, "
+            "repro_torch.launch.serve\n"
+            "import repro_torch.configs as c\n"
+            "[c.get_config(a) for a in c.list_archs()]\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -157,6 +169,10 @@ def test_no_jax_or_jax_package_import_in_port_sources(path):
     lambda: dpp.Kron((np.eye(2), np.eye(3)), device="cpu").fit(
         SubsetBatch.from_lists([[0, 1]], device="cpu"),
         runtime=dpp.Mesh(axes={"data": 1}, devices=["cpu"])),
+    lambda: LM(smoke_config("qwen2-0.5b")),
+    lambda: ServeEngine(LM(smoke_config("qwen2-0.5b"), device="cpu"), {}),
+    lambda: serve_main(["--arch", "qwen2-0.5b", "--smoke"]),
+    lambda: lm_params_from_numpy({"w": np.zeros(2, np.float32)}),
 ])
 def test_entry_points_without_a_card_raise(call):
     """Every entry point defaults to device="cuda"; with no card it
