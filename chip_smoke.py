@@ -64,7 +64,15 @@ non-zero and prints no result line.
    clock (both fits run after a 1-sweep warm-up fit);
 12. the greedy-MAP step kernel (``csrc/greedy_map.cu``) against its plain
    version at N in {1, 33, 4097, 10^4} x k in {1, 20, 200}, with C
-   row-major and as the transposed (k, N) buffer the MAP loop keeps; the
+   row-major and as the transposed (k, N) buffer the plain loop keeps; the
+   fused selection (``greedy_map_kdpp_kernel``, same file) against the
+   plain loop on the card at N in {1, 33, 512, 4097, 10^4} x k in {1, 20,
+   120, 200} (k <= N) x H in {1, 4, 7}, and on a rank-deficient L with k
+   past its rank, an L of exact zero rows past its rank, an all-equal
+   diagonal and a NaN on the diagonal (``kdpp_special``): one launch a
+   call, every head's picks equal or a first difference at a float64 tie
+   (the rule of phase 13), identical where exact ties decide, and every head
+   of a batched launch its own single launch bit for bit; the
    Kronecker matvec kernel (``csrc/kron_matvec.cu``) in float32 and
    bfloat16 at (N1, N2, batch) = (3, 4, 2), (64, 96, 7), (1, 1, 1),
    (100, 100, 64), on inputs with all-zero rows of mat(X[b]) (a one-hot
@@ -80,12 +88,15 @@ non-zero and prints no result line.
    instructions of its bfloat16 one-launch kernel (``cuobjdump -sass``);
 13. the MAP path at full width: ``main.map(k, max_dense=10_000)`` on the
    phase-5 model (N = 10^4, the dense L is 400 MB) for k = 20 and 200,
-   launch count and ``kernels.greedy_map_update.cuda`` reset before and
-   read after each call (k each); the same selection through the plain
-   update (``backend="reference"``); where the two lists first differ, the
-   float64 conditional variances of the two candidates given the common
-   prefix; log det L_Y of both pick sets; one ``map(20)`` on a 64 x 64
-   model under the default guard;
+   every kernel's launch count and the ``kernels.greedy_map_update.*``
+   counters reset before and read after each call: one fused launch, no
+   step launch, ``.cuda`` 1 and ``.reference`` 0 (``map_counted``); the
+   same selection through the plain loop (``backend="reference"``); where
+   the two lists first differ, the float64 conditional variances of the
+   two candidates given the common prefix; log det L_Y of both pick sets;
+   one ``map(20)`` on a 64 x 64 model under the default guard (one
+   launch); the public step op ``ops.greedy_map_update`` on map(200)'s
+   first step (one step launch, against the plain step);
 14. the eigenvector path at full width: ``assemble_eigvecs`` of a phase-1
    selection (k_max 46) of the phase-5 spectrum through one
    ``kron_matvec`` launch (counted), VᵀV = I on the valid columns, equal to
@@ -101,7 +112,10 @@ non-zero and prints no result line.
    library yardstick, beside its bound (``kron_matvec``: at 100 x 100,
    batch 64, float32 and bfloat16, and the one-hot batch of 46, each call
    one ``kron_matvec_fused_kernel`` and nothing else on the profiler, the
-   route beside them as ``kernel_route``); with CUDA events around a loop,
+   route beside them as ``kernel_route``); ``kernel_times`` of the fused
+   selection and the plain loop on map(20)'s and map(200)'s L, beside the
+   bound of the live steps (``greedy_live_steps``, ``kdpp_bound``), each
+   call one ``greedy_map_kdpp_kernel``; with CUDA events around a loop,
    one ``map(20)`` and one ``map(200)``, ``assemble_eigvecs``, the k-DPP
    call and its phase 1 (ESP table, backward draw, compaction, gather);
    ``kernel_times`` of its phase 2; ``svc.sample_kdpp(20, 16)`` on the
@@ -178,7 +192,7 @@ non-zero and prints no result line.
    ``map(20)`` in float64, each against the CPU copy; a 3-sweep Armijo
    ``fit`` at N = 65536 on the 1000 draws, and at N = 4096 on 64 subsets
    (the benchmark's fit), with and without ``item_features``, against the
-   CPU copy; every call with all six kernels' launch counts reset before
+   CPU copy; every call with all seven kernels' launch counts reset before
    and read after (``threefry2x32`` alone launches); CUDA-event times
    beside one read of φ a step; at N = 2^20, r = 128 (φ 512 MB) the peak
    allocation of ``sample(key, 16)`` above what was allocated before it,
@@ -215,8 +229,9 @@ non-zero and prints no result line.
    a CPU copy (phase 3's rule) and among the served picks; the route
    ("global") and one phase-2 launch a head; whether a batched eigh of
    the 16 heads is bitwise each head's own (printed); one head by
-   ``method="map"`` (k = 192 update launches, its greedy order against
-   the plain update on a CPU copy, phase 13's rule); the flush's time;
+   ``method="map"`` (one fused launch, no step launch, no plain dispatch;
+   its greedy order against the plain loop on a CPU copy, phase 13's
+   rule); the flush's time;
    (f) the lowest load again under a ``JsonlTracker`` (rows equal to
    (a)'s), exported with ``ChromeTraceExporter``: every ticket's trace is
    ``service.request`` over ``queue-wait``, ``coalesce``, ``device-call``
@@ -224,7 +239,7 @@ non-zero and prints no result line.
    the log; (g) ``close(drain=False)`` fails queued tickets with
    ``CancelledRequest``, a submit past ``max_queue_depth`` raises
    ``QueueFull`` and one after close ``ServiceClosed``. Every path is
-   driven with all six kernels' launch counts set to 0 just before and
+   driven with all seven kernels' launch counts set to 0 just before and
    read just after; the ``serving`` JSON line holds it all;
 22. placement: a ``Mesh`` of four shards on the card against ``Local``
    (draws, both services, the learner, ``Host``, a low-rank draw, a
@@ -243,8 +258,9 @@ non-zero and prints no result line.
    just before and read just after: no compaction (no kernel launched),
    inline ``kv_budget=128, kv_recency=8`` by ``"sample"`` (one
    ``phase2_select`` launch a KV head, 96, and 1 + 2 a unit + 1 a head
-   ``threefry2x32`` launches) and by ``"map"`` (120 update launches a
-   head), and two tenant streams in threads through one
+   ``threefry2x32`` launches) and by ``"map"`` (one fused launch a unit of
+   B·KV = 4 heads, 24, no step launch, ``kernels.greedy_map_update.cuda``
+   24 and ``.reference`` 0), and two tenant streams in threads through one
    ``KVCompactionClient`` (192 phase-2 launches); every compaction's
    kept positions, found by matching the compacted rows to the prefill
    cache's, sorted, distinct, below pos, the recency window kept, k and v
@@ -252,10 +268,13 @@ non-zero and prints no result line.
    stream) replayed from the card's eigh and the plain twin's uniforms,
    the kernel's draw among the served positions and against the plain
    phase 2 on a CPU copy (phase 3's rule); four ``"map"`` heads' greedy
-   orders against the plain update on a CPU copy (phase 13's rule); a
-   head's time by part (CUDA events) and phase 2's at its shape; (6) an
-   ``lm_serve`` JSON line, and ``launches_per_path.lm_serve`` in the
-   ``kernels`` rows of phase 2, the greedy update and ``threefry2x32``;
+   orders against the plain loop on a CPU copy (phase 13's rule); unit
+   0's four head kernels stacked and selected in one launch, each head its
+   own single launch bit for bit and the kept positions its picks and the
+   recency window; a head's time by part (CUDA events), phase 2's at its
+   shape, and the fused selection of the unit against the plain loop; (6)
+   an ``lm_serve`` JSON line, and ``launches_per_path.lm_serve`` in the
+   ``kernels`` rows of phase 2, both greedy kernels and ``threefry2x32``;
 24. the device times of every ``kernels`` row (``fill_device_times``),
    after every host-clock time above, with the host's time of one small
    launch before and after the profiler sessions.
@@ -281,13 +300,18 @@ errors). Mean |Y| of the service rows: within 1 of E|Y|.
 
 Greedy update, kernel against plain version: rtol 1e-5 with atol
 1e-5 · max |lcol| for e and 1e-5 · max |lcol|² for d_new (C · cj summed in
-other orders). Greedy MAP, kernel run against plain run: the picks in
-order; a first difference is accepted only as a tie, where the exact
+other orders). Greedy MAP, the fused kernel against the plain loop: the
+picks in order; a first difference is accepted only as a tie, where the exact
 (float64) conditional variances of the two candidates given the common
 prefix differ by at most 1e-4 · max diag L (float32 roundoff of a t-step
 update chain is about t · 2^-24 ≈ 1.2e-5 of max diag L at t = 200, and the
 margin is 8), and the two pick sets' log det L_Y then agree to 1e-3
-relative. Kronecker matvec, on both routes: NaN where the plain version has NaN
+relative. Past a rank-deficient L's rank (phase 12) every exact
+conditional variance is 0, so any order there is a tie; where exact ties
+decide (zero rows, a NaN diagonal) the picks must be identical. The
+``greedy_map_kdpp`` row's ``max_abs_err`` is the largest such float64 tie
+gap, of max diag L (0 when every comparison is identical). Kronecker
+matvec, on both routes: NaN where the plain version has NaN
 and nowhere else, the same infinities, and on the finite entries rtol =
 atol = 2e-4 in float32
 and 3e-2 in bfloat16 (tests/test_kernels.py); past 10^4 products per output
@@ -367,7 +391,8 @@ decode against forward within 1e-3 of max |forward| (the reference's test
 allows 2e-2; in float32 the two differ by summation order only).
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
-are the kernel table (all six kernels) and the timing lines as JSON,
+are the kernel table (all seven kernels: the greedy step and the fused
+selection are two rows of one source) and the timing lines as JSON,
 each with the card's name and power limit.
 """
 
@@ -859,6 +884,9 @@ KM_NONFINITE = ((100, 100, 46, "onehot"), (100, 100, 8, "zero_rows"),
 # past this many products per output the float32 atol is 2e-4 of max |Y|
 KM_LONG_SUM = 10_000
 GREEDY_TIE_TOL = 1e-4      # of max diag L, on the float64 chain
+GREEDY_KDPP_NS = (1, 33, 512, 4097, 10_000)   # the fused selection, phase 12
+GREEDY_KDPP_KS = (1, 20, 120, 200)
+GREEDY_KDPP_HS = (1, 4, 7)
 
 
 def greedy_inputs(N: int, k: int, gen, dev):
@@ -928,6 +956,163 @@ def check_greedy_update(gen, dev) -> float:
     print(f"greedy_map_update: {len(GREEDY_NS) * len(GREEDY_KS) * 2} cases "
           f"within tolerance, max |kernel - plain| {worst!r}")
     return worst
+
+
+def greedy_live_steps(L, picks) -> int:
+    """Steps of the greedy order ``picks`` of L whose pick is live: its
+    exact (float64) conditional variance given the prefix above the
+    kernel's degeneracy eps. A dead step only scores the items; a live one
+    also takes the dot over the prefix and the update."""
+    d = torch.diagonal(L).double().clone()
+    eps = float(1e-8 * torch.clamp_min(torch.diagonal(L).max(), 1e-30))
+    CT = torch.zeros((len(picks), L.shape[0]), dtype=torch.float64,
+                     device=L.device)
+    live = 0
+    for t, j in enumerate(int(x) for x in picks):
+        dj = float(d[j])
+        if not dj > eps:
+            continue
+        live += 1
+        e = (L[:, j].double() - CT[:t].T @ CT[:t, j]) / math.sqrt(dj)
+        CT[t] = e
+        d -= e * e
+    return live
+
+
+def kdpp_bound(N: int, k: int, live: list):
+    """Least time (ms) of one fused selection of a batch whose matrices
+    have ``live`` live steps each (``greedy_live_steps``), what bounds it,
+    and the bound of the busiest matrix alone on one SM. Operations: step
+    t scores N items (2N); a live step adds the dot over the t-column
+    prefix (2Nt) and the tail (4N). Bytes: the diagonal and one column of L
+    a live step read once, the picks written once."""
+    def flops(n_live):
+        # the live steps are the first n_live (a pick goes dead only past
+        # the numerical rank, and stays so)
+        return 2.0 * N * k + sum(2.0 * N * t + 4.0 * N
+                                 for t in range(n_live))
+    total = sum(flops(x) for x in live)
+    nbytes = 4.0 * sum(N + x * N for x in live) + 4.0 * len(live) * k
+    t_ops, t_bytes = total / FP32_FLOPS, nbytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes",
+            max(flops(x) for x in live) / (FP32_FLOPS / SMS) * 1e3)
+
+
+def kdpp_psd(N: int, k: int, H: int, gen, dev):
+    """H random PSD kernels (N, N): X Xᵀ / r + 0.1 I, X (N, r) normal,
+    r = min(N, k + 8)."""
+    r = min(N, k + 8)
+    X = torch.randn((H, N, r), generator=gen, device=dev)
+    return torch.baddbmm(0.1 * torch.eye(N, device=dev).expand(H, N, N), X,
+                         X.transpose(1, 2), alpha=1.0 / r)
+
+
+def kdpp_special(kind: str, gen, dev):
+    """(L (2, N, N), k, rule) of a phase-12 edge case. "rank_deficient":
+    X Xᵀ of rank 40 at N = 512, k = 120 past the rank (every pick past the
+    rank a tie: exact conditional variances 0); "rank_zero_rows": rank 30
+    on 30 random items of N = 4097 and exact zero rows elsewhere, k = 120
+    (past the rank every variance is exactly 0 in both versions, so the
+    first index wins, across the cluster's CTAs: picks identical);
+    "equal_diagonal": unit-norm keys of dimension 64 plus 1e-4 I at
+    N = 4097 with the diagonal set to 1.0001 exactly (the first pick a tie
+    of all items: index 0), k = 120; "nan_diagonal": a PSD L at N = 512
+    with a NaN at (300, 300), k = 20 (eps is NaN, every step degenerate:
+    the NaN item, then d in descending order, picks identical)."""
+    if kind == "rank_deficient":
+        X = torch.randn((2, 512, 40), generator=gen, device=dev)
+        return X @ X.transpose(1, 2), 120, "tie_past_rank"
+    if kind == "rank_zero_rows":
+        L = torch.zeros((2, 4097, 4097), device=dev)
+        for h in range(2):
+            idx = torch.randperm(4097, generator=gen, device=dev)[:30]
+            X = torch.randn((30, 30), generator=gen, device=dev)
+            L[h][idx[:, None], idx[None, :]] = X @ X.T + 0.5 * torch.eye(
+                30, device=dev)
+        return L, 120, "identical"
+    if kind == "equal_diagonal":
+        X = torch.randn((2, 4097, 64), generator=gen, device=dev)
+        X = X / torch.linalg.norm(X, dim=-1, keepdim=True)
+        L = X @ X.transpose(1, 2) + 1e-4 * torch.eye(4097, device=dev)
+        L.diagonal(dim1=1, dim2=2).fill_(1.0001)
+        return L, 120, "tie"
+    L = kdpp_psd(512, 20, 2, gen, dev)
+    L[:, 300, 300] = float("nan")
+    return L, 20, "identical"
+
+
+def check_greedy_kdpp(gen, dev) -> dict:
+    """Phase 12b: the fused selection against the plain loop on the card,
+    at N in GREEDY_KDPP_NS x k in GREEDY_KDPP_KS (k <= N) x H in
+    GREEDY_KDPP_HS and on the edge cases of ``kdpp_special``: one launch a
+    call (counted), every head against the plain version under its rule
+    (``compare_maps``: equal, or a first difference at a float64 tie), and
+    every head of a batched launch equal to its own single launch, bit for
+    bit. Returns the largest tie gap met (0 when all equal), the cases and
+    the plans taken."""
+    from repro_torch.kernels import greedy_map as gm
+    cases, plans, worst = [], {}, 0.0
+
+    def one(Ls, k, label, rule):
+        nonlocal worst
+        n0 = gm.greedy_map_kdpp_cuda.launches
+        got = gm.greedy_map_kdpp_cuda(Ls, k)
+        torch.cuda.synchronize()
+        check(gm.greedy_map_kdpp_cuda.launches == n0 + 1,
+              f"{label}: {gm.greedy_map_kdpp_cuda.launches - n0} launches")
+        check(got.dtype == torch.int32 and got.is_cuda and tuple(got.shape)
+              == (Ls.shape[0], k), f"{label}: picks {got.dtype} "
+              f"{tuple(got.shape)} on {got.device}")
+        want = gm.greedy_map_kdpp_plain(Ls, k).cpu().numpy()
+        pk_all = got.cpu().numpy()
+        same = 0
+        for h in range(Ls.shape[0]):
+            alone = gm.greedy_map_kdpp_cuda(Ls[h].contiguous(), k)
+            check(torch.equal(alone, got[h]), f"{label} head {h}: the "
+                  f"batched launch differs from its single launch")
+            pk, pp = pk_all[h], want[h]
+            check(len(set(pk.tolist())) == k and pk.min() >= 0
+                  and pk.max() < Ls.shape[-1], f"{label} head {h}: picks "
+                  f"not {k} distinct items: {pk.tolist()[:12]}")
+            if rule == "identical":
+                check(np.array_equal(pk, pp), f"{label} head {h}: picks "
+                      f"{pk.tolist()[:12]} vs plain {pp.tolist()[:12]}")
+            elif rule == "tie_past_rank":
+                # float32 X Xᵀ is full rank in float64 by its roundoff
+                # (about 1e-6 of the top eigenvalue); the rank-40 gap is
+                # near 0.3 of it
+                rank = int(torch.linalg.matrix_rank(
+                    Ls[h].double(), rtol=1e-4, hermitian=True))
+                diff = np.nonzero(pk != pp)[0]
+                t = int(diff[0]) if diff.size else k
+                if t < rank:
+                    worst = max(worst, compare_maps(
+                        Ls[h], pk[:rank], pp[:rank], f"{label} head {h}",
+                        quiet=True).get("tie_gap", 0.0))
+            else:
+                worst = max(worst, compare_maps(
+                    Ls[h], pk, pp, f"{label} head {h}", quiet=True).get(
+                        "tie_gap", 0.0))
+            same += int(np.array_equal(pk, pp))
+        cases.append({"case": label, "identical_heads": same,
+                      "heads": int(Ls.shape[0])})
+
+    for N in GREEDY_KDPP_NS:
+        for k in (k for k in GREEDY_KDPP_KS if k <= N):
+            plans[f"{N}x{k}"] = gm.greedy_map_kdpp_plan(N, k, dev)
+            for H in GREEDY_KDPP_HS:
+                one(kdpp_psd(N, k, H, gen, dev), k, f"N={N} k={k} H={H}",
+                    "tie")
+    for kind in ("rank_deficient", "rank_zero_rows", "equal_diagonal",
+                 "nan_diagonal"):
+        Ls, k, rule = kdpp_special(kind, gen, dev)
+        one(Ls, k, kind, rule)
+    print(f"greedy_map_kdpp: {len(cases)} launches against the plain "
+          f"version, heads identical {sum(c['identical_heads'] for c in cases)}"
+          f" of {sum(c['heads'] for c in cases)}, largest tie gap {worst!r}; "
+          f"plans {json.dumps(plans)}")
+    return {"max_tie_gap": worst, "cases": cases, "plans": plans}
 
 
 def km_inputs(N1: int, N2: int, batch: int, pattern: str, dtype, gen,
@@ -1076,11 +1261,12 @@ def logdet(L, picks) -> float:
     return float(ld)
 
 
-def compare_maps(L, pk, pp, label: str) -> dict:
+def compare_maps(L, pk, pp, label: str, quiet: bool = False) -> dict:
     """Kernel picks ``pk`` against plain picks ``pp`` of the same L, in
     order. A first difference must be a tie on the exact chain (float64
     conditional variances of the two candidates given the common prefix
-    within GREEDY_TIE_TOL · max diag L); log det L_Y of both sets."""
+    within GREEDY_TIE_TOL · max diag L); log det L_Y of both sets.
+    ``quiet``: print only a difference."""
     out = {"identical": bool((pk == pp).all())}
     ld_k, ld_p = logdet(L, pk), logdet(L, pp)
     out.update(logdet_kernel=ld_k, logdet_plain=ld_p)
@@ -1098,7 +1284,8 @@ def compare_maps(L, pk, pp, label: str) -> dict:
               f"{gap!r} of max diag L > {GREEDY_TIE_TOL}: no tie")
         check(abs(ld_k - ld_p) <= 1e-3 * abs(ld_p), f"{label}: log det "
               f"L_Y {ld_k!r} (kernel) vs {ld_p!r} (plain)")
-    print(f"  {label}: {json.dumps(out)}")
+    if not quiet or not out["identical"]:
+        print(f"  {label}: {json.dumps(out)}")
     return out
 
 
@@ -2003,6 +2190,7 @@ def lr_counters() -> dict:
             "partial_trace_A": pt.partial_trace_A_cuda,
             "partial_trace_C": pt.partial_trace_C_cuda,
             "greedy_map_update": gm.greedy_map_update_cuda,
+            "greedy_map_kdpp": gm.greedy_map_kdpp_cuda,
             "kron_matvec": km.kron_matvec_cuda,
             "threefry2x32": tf.threefry2x32_cuda}
 
@@ -2011,7 +2199,7 @@ def lr_counted(fn, label: str):
     """Run ``fn`` with every kernel's launch count set to 0 just before
     and read just after, under a fresh tracker: the low-rank path launches
     ``threefry2x32`` alone (its ``kernels.threefry2x32.cuda`` counter
-    equal, nothing on the plain twin) and none of the other five.
+    equal, nothing on the plain twin) and none of the other six.
     Returns (fn's result, the counts)."""
     import repro_torch.obs as obs
     counters = lr_counters()
@@ -2553,6 +2741,25 @@ def sv_counted(fn, label: str, expect):
     return out, n
 
 
+def map_counted(fn, label: str, launches: int):
+    """``sv_counted`` of a greedy-MAP path under a fresh tracker: the fused
+    kernel launched ``launches`` times and nothing else (no step-kernel
+    launch), ``kernels.greedy_map_update.cuda`` counted once a launch and
+    ``kernels.greedy_map_update.reference`` never. Returns (fn's result,
+    the counts)."""
+    import repro_torch.obs as obs
+    tracker = obs.InMemoryTracker()
+    with obs.use(tracker):
+        out, n = sv_counted(fn, label, {"greedy_map_kdpp"})
+    c = {e: int(tracker.counter_value(f"kernels.greedy_map_update.{e}"))
+         for e in ("cuda", "reference")}
+    check(n["greedy_map_kdpp"] == launches and c == {"cuda": launches,
+                                                     "reference": 0},
+          f"{label}: the fused kernel launched {n['greedy_map_kdpp']} "
+          f"times, not {launches}; counters {c}")
+    return out, {**n, "counters": c}
+
+
 def sv_drive_load(model, rps: float, n_requests: int, dev,
                   deadline_ms: float = SV_DEADLINE_MS, tracker=None,
                   record=None):
@@ -2909,15 +3116,14 @@ def sv_kv(dev) -> dict:
             warmup=1),
         "esp_phase1": cuda_ms(lambda: _phase1_kdpp_from_uniforms(
             u0, ll0, k), reps=3, warmup=1)}
-    # one head by greedy MAP: k launches of the update kernel, the greedy
-    # order against the plain update on a CPU copy (phase 13's rule)
+    # one head by greedy MAP: one launch of the fused kernel (no step
+    # launch, no plain dispatch), the greedy order against the plain
+    # update on a CPU copy (phase 13's rule)
     head = torch.from_numpy(caches[0][0]).to(dev)
-    mp, out["map_launches"] = sv_counted(
+    mp, out["map_launches"] = map_counted(
         lambda: dpp_select_tokens(head, KV_BUDGET, KV_RECENCY,
                                   valid_len=KV_VALID[0], method="map"),
-        "KV map", {"greedy_map_update"})
-    check(out["map_launches"]["greedy_map_update"] == k, f"the KV map "
-          f"launched the update {out['map_launches']}, not {k} times")
+        "KV map", 1)
     Lm = token_kernel(head, KV_RECENCY, KV_VALID[0], "map")[0]
     order_k = ops.greedy_map_kdpp(Lm, k).cpu().numpy()
     order_p = ops.greedy_map_kdpp(Lm.cpu(), k).numpy()
@@ -3646,6 +3852,8 @@ def lm_serve_path(dev) -> dict:
     from repro_torch.serve import ServeEngine
     from repro_torch.serve.kv_compaction import (dpp_select_tokens,
                                                  token_kernel)
+    import repro_torch.obs as obs
+    from repro_torch.kernels import greedy_map as gm
     t_phase = time.perf_counter()
     cfg = get_config(LM_ARCH)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -3779,13 +3987,16 @@ def lm_serve_path(dev) -> dict:
     res, launches["plain"], _ = lm_generate(engine, prompts, "LM generate",
                                             set())
     runs["plain"] = res
-    inline = {}
+    inline, map_tracker = {}, obs.InMemoryTracker()
     for method, expect in (("sample", {"phase2_select", "threefry2x32"}),
-                           ("map", {"greedy_map_update"})):
+                           ("map", {"greedy_map_kdpp"})):
         eng = ServeEngine(lm, params16, seed=LM_SEED, device=dev)
-        res, launches[method], seen = lm_generate(
-            eng, prompts, f"LM generate, {method} compaction", expect,
-            kv_budget=LM_BUDGET, kv_recency=LM_RECENCY, kv_method=method)
+        with obs.use(map_tracker if method == "map"
+                     else obs.InMemoryTracker()):
+            res, launches[method], seen = lm_generate(
+                eng, prompts, f"LM generate, {method} compaction", expect,
+                kv_budget=LM_BUDGET, kv_recency=LM_RECENCY,
+                kv_method=method)
         check(len(seen) == 1, f"{method}: {len(seen)} compactions")
         inline[method] = (seen[0][1], lm_kept_positions(
             seen[0][1], seen[0][2], f"{method} compaction"))
@@ -3799,8 +4010,14 @@ def lm_serve_path(dev) -> dict:
           f"sample compaction launched phase 2 {n_s['phase2_select']} and "
           f"threefry2x32 {n_s['threefry2x32']} times, not {heads} (one a "
           f"head) and {want_tf} (1 + 2 a unit + 1 a head)")
-    check(n_m["greedy_map_update"] == heads * k, f"map compaction launched "
-          f"the update {n_m['greedy_map_update']} times, not {heads * k}")
+    n_m["counters"] = {e: int(map_tracker.counter_value(
+        f"kernels.greedy_map_update.{e}")) for e in ("cuda", "reference")}
+    check(n_m["greedy_map_kdpp"] == U and n_m["greedy_map_update"] == 0
+          and n_m["counters"] == {"cuda": U, "reference": 0}, f"map "
+          f"compaction launched the fused kernel {n_m['greedy_map_kdpp']} "
+          f"times (not {U}, one a unit of {heads // U} heads) and the step "
+          f"kernel {n_m['greedy_map_update']} times; counters "
+          f"{n_m['counters']}")
     # the client path: two tenant streams, one KVCompactionClient
     streams = {t: np.random.default_rng(LM_SEED + 1 + i).integers(
         0, cfg.vocab, (LM_BATCH, LM_PROMPT), dtype=np.int32)
@@ -3867,6 +4084,23 @@ def lm_serve_path(dev) -> dict:
               f"recency window")
         out["map_heads_vs_cpu"].append(compare_maps(
             Lm, order_k, order_p, f"LM map head (unit {u}, b {b}, h {h})"))
+    # one unit's selection as the path runs it: the (B·KV, S, S) stack of
+    # its heads' kernels in one launch, each head its own single launch bit
+    # for bit, the kept positions its picks and the recency window
+    cache_m = state_m.caches["head"]["layer0"]
+    L_unit = torch.stack([token_kernel(cache_m.k[0, b, :, h], LM_RECENCY,
+                                       LM_PROMPT, "map")[0]
+                          for b in range(LM_BATCH) for h in range(KV)])
+    unit_picks = gm.greedy_map_kdpp_cuda(L_unit, k)
+    for i, (b, h) in enumerate(itertools.product(range(LM_BATCH),
+                                                 range(KV))):
+        check(torch.equal(gm.greedy_map_kdpp_cuda(L_unit[i], k),
+                          unit_picks[i]), f"LM unit 0 head ({b}, {h}): the "
+              f"batched launch differs from its single launch")
+        check(sorted(set(unit_picks[i].tolist()) | recent) ==
+              kept_m[0, b, h].tolist(), f"LM unit 0 head ({b}, {h}): the "
+              f"kept positions are not the batched picks and the recency "
+              f"window")
 
     # where a head's compaction time goes (CUDA events), and phase 2's
     # device time at the head's shape (filled in phase 24)
@@ -3896,8 +4130,19 @@ def lm_serve_path(dev) -> dict:
         bound_row_ms=bound_row(picks1, LM_PROMPT, 1, k),
         max_row_steps=int((picks1 >= 0).sum(axis=1).max()),
         shapes={"N1": LM_PROMPT, "Nr": 1, "k_max": k, "B": 1})
-    # the greedy update at a "map" head's shape (N = S, k = 120)
-    from repro_torch.kernels import greedy_map as gm
+    # the fused selection of one unit (4 heads, N = S, k = 120) as the
+    # path launches it, against the plain loop on the same stack
+    live = [greedy_live_steps(L_unit[i], unit_picks[i].tolist())
+            for i in range(L_unit.shape[0])]
+    b_ms, b_by, b_row = kdpp_bound(LM_PROMPT, k, live)
+    out["kdpp_times"] = kernel_times(
+        partial(gm.greedy_map_kdpp_cuda, L_unit, k),
+        partial(gm.greedy_map_kdpp_plain, L_unit, k), None,
+        reps=20, plain_reps=1, expect="greedy_map_kdpp_kernel", sole=True,
+        bound_ms=b_ms, bound_by=b_by, bound_row_ms=b_row, live_steps=live,
+        steps=k, plan=gm.greedy_map_kdpp_plan(LM_PROMPT, k, dev),
+        shapes={"N": LM_PROMPT, "k": k, "H": int(L_unit.shape[0])})
+    # the step kernel at a "map" head's shape (N = S, k = 120)
     lcol, C, cj, dj, d = greedy_inputs(
         LM_PROMPT, k, torch.Generator(device=dev).manual_seed(LM_SEED), dev)
     args = (lcol, C.t().contiguous().t(), cj, dj, d)
@@ -3917,6 +4162,8 @@ def lm_serve_path(dev) -> dict:
     for name in ("sample", "map"):
         out["runs"][name]["compact_per_head_ms"] = \
             runs[name]["compact_s"] * 1e3 / heads
+    out["runs"]["map"]["compact_per_unit_ms"] = \
+        runs["map"]["compact_s"] * 1e3 / U
     out["launches_per_request"] = launches
     out["tokens_first_row"] = {name: r["tokens"][0, :8].tolist()
                                for name, r in runs.items()}
@@ -4311,6 +4558,7 @@ def main() -> None:
                                               compact_selection,
                                               split_mixed_radix)
     gm_err = check_greedy_update(gen, dev)
+    kdpp_check = check_greedy_kdpp(gen, dev)
     km_err = check_kron_matvec(gen, dev)
     hmma = sass_of(_build.library_path("kron_matvec"),
                    "kron_matvec_fused_kernelI13__nv_bfloat16", "HMMA")
@@ -4321,22 +4569,11 @@ def main() -> None:
 
     # -- 13. the MAP path ----------------------------------------------------
     L_main = main.dense_kernel(10_000)
-    map_launches, map_cmp = {}, {}
+    map_launches, map_cmp, map_picks = {}, {}, {}
     for k in (20, 200):
-        map_tracker = obs.InMemoryTracker()
-        gm.greedy_map_update_cuda.launches = 0
-        with obs.use(map_tracker):
-            picks_map = main.map(k, max_dense=10_000)
-            torch.cuda.synchronize()
-        map_launches[k] = gm.greedy_map_update_cuda.launches
-        cnt = int(map_tracker.counter_value("kernels.greedy_map_update.cuda"))
-        print(f"map({k}) at N = {main.N}: launches {map_launches[k]}, "
-              f"kernels.greedy_map_update.cuda {cnt}")
-        check(map_launches[k] == k and cnt == k, f"map({k}) launched the "
-              f"update {map_launches[k]} times, counted {cnt}, not {k}")
-        check(map_tracker.counter_value(
-            "kernels.greedy_map_update.reference") == 0,
-            f"map({k}) took the plain update on the card")
+        picks_map, map_launches[k] = map_counted(
+            lambda: main.map(k, max_dense=10_000), f"map({k})", 1)
+        print(f"map({k}) at N = {main.N}: launches {map_launches[k]}")
         check(picks_map.dtype == torch.int32 and picks_map.is_cuda
               and tuple(picks_map.shape) == (k,), f"map({k}) returned "
               f"{picks_map.dtype} {tuple(picks_map.shape)} on "
@@ -4346,15 +4583,38 @@ def main() -> None:
               and pk.max() < main.N, f"map({k}) picks invalid: {pk}")
         pp = ops.greedy_map_kdpp(L_main, k, backend="reference").cpu().numpy()
         map_cmp[k] = compare_maps(L_main, pk, pp, f"map({k}) kernel vs plain")
+        map_picks[k] = pk
     guard = dpp.random_kron(gen, (64, 64)).rescale(20.0, cache)
-    gm.greedy_map_update_cuda.launches = 0
-    picks_64 = guard.map(20).cpu().numpy()
-    check(len(set(picks_64.tolist())) == 20
-          and gm.greedy_map_update_cuda.launches == 20,
-          f"map(20) of a 64 x 64 model: {picks_64}, launches "
-          f"{gm.greedy_map_update_cuda.launches}")
+    picks_64, map_launches["guard"] = map_counted(lambda: guard.map(20),
+                                                  "map(20) of 64 x 64", 1)
+    picks_64 = picks_64.cpu().numpy()
+    check(len(set(picks_64.tolist())) == 20, f"map(20) of a 64 x 64 model: "
+          f"{picks_64}")
     print(f"map(20) of a 64 x 64 model under the default guard: 20 distinct "
-          f"picks, 20 launches")
+          f"picks, one launch")
+    # the public step op, still the counterpart of the JAX
+    # ops.greedy_map_update: map(200)'s first step through it (one step
+    # launch, no fused one) against the plain step
+    j0 = int(map_picks[200][0])
+    d0 = torch.diagonal(L_main).contiguous()
+    step_args = (L_main[:, j0].contiguous(),
+                 torch.zeros((10_000, 200), device=dev),
+                 torch.zeros((200,), device=dev), d0[j0:j0 + 1].clone(), d0)
+    step_tracker = obs.InMemoryTracker()
+    with obs.use(step_tracker):
+        (e_s, dn_s), step_launches = sv_counted(
+            lambda: ops.greedy_map_update(*step_args), "ops.greedy_map_update",
+            {"greedy_map_update"})
+    e_p, dn_p = gm.greedy_map_update_plain(*step_args)
+    step_err = max(float((e_s - e_p).abs().max()),
+                   float((dn_s - dn_p).abs().max()))
+    scale = float(step_args[0].abs().max())
+    check(step_launches["greedy_map_update"] == 1 and int(
+        step_tracker.counter_value("kernels.greedy_map_update.cuda")) == 1
+        and step_err <= 1e-5 * max(scale, scale ** 2), f"the step op: "
+        f"launches {step_launches}, |kernel - plain| {step_err!r}")
+    print(f"ops.greedy_map_update at map(200)'s first step: one step launch,"
+          f" |kernel - plain| {step_err!r}")
 
     # -- 14. the eigenvector path ---------------------------------------------
     spec_m = svc.spectrum
@@ -4436,7 +4696,7 @@ def main() -> None:
 
     # -- 16. times --------------------------------------------------------------
     sel_times = {}
-    gm_times = {}
+    gm_times, kdpp_times = {}, {}
     for k in (20, 200):
         lcol, C, cj, dj, d = greedy_inputs(10_000, k, gen, dev)
         CTv = C.t().contiguous().t()           # the MAP loop's (k, N) layout
@@ -4454,6 +4714,19 @@ def main() -> None:
         sel_times[f"map{k}_plain_ms"] = cuda_ms(
             lambda: ops.greedy_map_kdpp(L_main, k, backend="reference"),
             reps=3, warmup=1)
+        # the fused selection alone on map(k)'s L (N = 10^4, one matrix)
+        live = greedy_live_steps(L_main, map_picks[k])
+        b_ms, b_by, b_row = kdpp_bound(10_000, k, [live])
+        kdpp_times[k] = kernel_times(
+            partial(gm.greedy_map_kdpp_cuda, L_main, k),
+            partial(gm.greedy_map_kdpp_plain, L_main, k), None,
+            reps=10, plain_reps=1, expect="greedy_map_kdpp_kernel",
+            sole=True, bound_ms=b_ms, bound_by=b_by, bound_row_ms=b_row,
+            live_steps=[live], steps=k,
+            plan=gm.greedy_map_kdpp_plan(10_000, k, dev),
+            shapes={"N": 10_000, "k": k, "H": 1})
+        print(f"  greedy_map_kdpp N=10000 k={k}: "
+              f"{json.dumps(kdpp_times[k])}")
     sel_times["dense_kernel_ms"] = cuda_ms(
         lambda: main.dense_kernel(10_000), reps=5, warmup=1)
     km_times = {}
@@ -4581,16 +4854,41 @@ def main() -> None:
                 "shapes": {"N1": PT_SHAPES[0][0], "N2": PT_SHAPES[0][1]},
                 "card": card, "power_limit": power_limit}
                for k, line in (("A", 51), ("C", 72))]
+    # the step kernel: its own entry point, ops.greedy_map_update, makes
+    # its launch; no selection path launches it any more
     gm_row = {"name": "greedy_map_update", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/greedy_map.cu",
               "replaces": "src/repro/kernels/greedy_map.py:39",
-              "launches": map_launches[20] + map_launches[200],
-              "launches_per_call": {"map20": map_launches[20],
-                                    "map200": map_launches[200]},
-              "max_abs_err": gm_err, **gm_times[200],
+              "launches": step_launches["greedy_map_update"],
+              "launches_per_call": {
+                  "ops.greedy_map_update": step_launches["greedy_map_update"],
+                  "map20": map_launches[20]["greedy_map_update"],
+                  "map200": map_launches[200]["greedy_map_update"]},
+              "max_abs_err": max(gm_err, step_err), **gm_times[200],
               "shapes": {"N": 10_000, "k": 200, "C": "(k, N) buffer"},
-              "k20": gm_times[20], "map_vs_plain": map_cmp,
-              "card": card, "power_limit": power_limit}
+              "k20": gm_times[20], "card": card, "power_limit": power_limit}
+    for t in (kdpp_times[20], kdpp_times[200], lms["kdpp_times"]):
+        t["per_step_ms"] = t["ms"] / t["steps"]
+    kdpp_row = {"name": "greedy_map_kdpp", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/greedy_map.cu",
+                "replaces": "src/repro/kernels/greedy_map.py:39",
+                "launches": (map_launches[20]["greedy_map_kdpp"]
+                             + map_launches[200]["greedy_map_kdpp"]),
+                "launches_per_path": {
+                    k: map_launches[k]["greedy_map_kdpp"]
+                    for k in (20, 200, "guard")},
+                "max_abs_err": max(
+                    kdpp_check["max_tie_gap"],
+                    *(c.get("tie_gap", 0.0) for c in map_cmp.values())),
+                "max_abs_err_is": "largest float64 tie gap of a first "
+                                  "difference, of max diag L, over phase "
+                                  "12, map(k), the KV and the LM heads",
+                **kdpp_times[200],
+                "k20": kdpp_times[20],
+                "lm_unit_n512_k120_h4": lms["kdpp_times"],
+                "map_vs_plain": map_cmp,
+                "phase12": kdpp_check,
+                "card": card, "power_limit": power_limit}
     km_row = {"name": "kron_matvec", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/kron_matvec.cu",
               "replaces": "src/repro/kernels/kron_matvec.py:41",
@@ -4666,7 +4964,12 @@ def main() -> None:
         "kv": sv["kv"]["launches"]["threefry2x32"]}
     gm_row["launches_per_call"]["kv_map"] = \
         sv["kv"]["map_launches"]["greedy_map_update"]
-    gm_row["kv_map_vs_cpu"] = sv["kv"]["map_vs_cpu"]
+    kdpp_row["launches_per_path"]["kv_map_head"] = \
+        sv["kv"]["map_launches"]["greedy_map_kdpp"]
+    kdpp_row["kv_map_vs_cpu"] = sv["kv"]["map_vs_cpu"]
+    kdpp_row["max_abs_err"] = max(
+        kdpp_row["max_abs_err"], sv["kv"]["map_vs_cpu"].get("tie_gap", 0.0),
+        *(c.get("tie_gap", 0.0) for c in lms["map_heads_vs_cpu"]))
     print(json.dumps({"serving": sv, "card": card,
                       "power_limit": power_limit}))
     print(json.dumps({"lowrank": lr, "card": card,
@@ -4682,15 +4985,19 @@ def main() -> None:
         k: v["phase2_select"] for k, v in lm_launch.items()}}
     gm_row["launches_per_path"] = {"lm_serve": {
         k: v["greedy_map_update"] for k, v in lm_launch.items()}}
+    kdpp_row["launches_per_path"]["lm_serve"] = {
+        k: v["greedy_map_kdpp"] for k, v in lm_launch.items()}
     tf_row["launches_per_path"]["lm_serve"] = {
         "init": lms["init_launches"]["threefry2x32"],
         **{k: v["threefry2x32"] for k, v in lm_launch.items()}}
     gm_row["lm_kv_n512_k120"] = lms["greedy_times"]
     print(json.dumps({"lm_serve": {k: v for k, v in lms.items()
                                    if k not in ("phase2_times",
-                                                "greedy_times")},
+                                                "greedy_times",
+                                                "kdpp_times")},
                       "card": card, "power_limit": power_limit}))
-    print(json.dumps({"kernels": [row, *pt_rows, gm_row, km_row, tf_row]}))
+    print(json.dumps({"kernels": [row, *pt_rows, gm_row, kdpp_row, km_row,
+                                  tf_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,
                                  "svc_sample16_median_ms":
                                      float(np.median(req)),

@@ -318,8 +318,8 @@ class DPPModel:
     # -- MAP ----------------------------------------------------------------
     def map(self, k: int, max_dense: int = MAX_DENSE_N) -> torch.Tensor:
         """Greedy MAP subset of size k (Chen et al. 2018 fast greedy,
-        ``kernels.ops.greedy_map_kdpp``: the CUDA update kernel on the
-        card) as (k,) int32 on the model's device. Kron kernels run on the
+        ``kernels.ops.greedy_map_kdpp``: one launch of the fused
+        greedy-MAP kernel on the card) as (k,) int32 on the model's device. Kron kernels run on the
         dense materialization, guarded by ``max_dense``."""
         return kernel_ops.greedy_map_kdpp(self.dense_kernel(max_dense),
                                           int(k))

@@ -3,7 +3,9 @@ plain PyTorch versions, and the ``ops`` dispatch seam.
 
 phase2_select.py   fused phase-2 projection-DPP selection (sampling)
 partial_trace.py   Appendix-B contractions A and C of the dense Θ (KrK)
-greedy_map.py      one fast-greedy k-DPP MAP update step (``map``)
+greedy_map.py      fast greedy k-DPP MAP: one update step, and the whole
+                   selection of a batch of matrices in one launch
+                   (``map``, "map" KV compaction)
 kron_matvec.py     batched (A ⊗ B) x by the vec-trick (explicit
                    eigenvectors)
 threefry.py        the threefry2x32 counter hash of ``jax.random`` (every

@@ -15,8 +15,8 @@ from typing import Optional, Sequence
 import torch
 
 from .. import obs
-from .greedy_map import (degeneracy_eps, greedy_map_update_cuda,
-                         greedy_map_update_plain)
+from .greedy_map import (greedy_map_kdpp_cuda, greedy_map_kdpp_plain,
+                         greedy_map_update_cuda, greedy_map_update_plain)
 from .kron_matvec import kron_matvec_cuda, kron_matvec_plain
 from .partial_trace import (partial_trace_A_cuda, partial_trace_A_plain,
                             partial_trace_C_cuda, partial_trace_C_plain)
@@ -160,7 +160,7 @@ def partial_trace_C(theta: torch.Tensor, L1: torch.Tensor, N1: int, N2: int,
 
 
 # ---------------------------------------------------------------------------
-# greedy MAP (k-DPP) built on the step kernel
+# greedy MAP (k-DPP): the update step, and the whole selection in one launch
 # ---------------------------------------------------------------------------
 
 def greedy_map_update(lcol: torch.Tensor, C: torch.Tensor, cj: torch.Tensor,
@@ -177,37 +177,18 @@ def greedy_map_update(lcol: torch.Tensor, C: torch.Tensor, cj: torch.Tensor,
 
 def greedy_map_kdpp(L: torch.Tensor, k: int,
                     backend: Optional[str] = None) -> torch.Tensor:
-    """Greedy MAP selection of k items (Chen et al. 2018 fast greedy), the
-    O(N k) update of each step through ``greedy_map_update``. Returns (k,)
-    int32 picks on L's device.
+    """Greedy MAP selection of k items (Chen et al. 2018 fast greedy) of L
+    (N, N), or of each matrix of a batch L (H, N, N): (k,) or (H, k) int32
+    picks on L's device, each matrix's the port of the JAX
+    ``ops.greedy_map_kdpp`` (the batch that of its ``vmap``).
 
-    Port of the JAX ``ops.greedy_map_kdpp``: the ``scan`` is a Python loop
-    of k steps that never waits for the device (the pick j stays a device
-    tensor). ``torch.argmax`` takes the first maximum, as ``jnp.argmax``
-    does. A degenerate pick (conditional variance at or below
-    ``degeneracy_eps(L)``, k beyond numerical rank) clamps the divisor,
-    zeroes its update and leaves d as it was. The Cholesky buffer is kept
-    transposed, Cᵀ (k, N): step t writes row t, and the kernel reads the
-    (N, k) view of it with coalesced loads."""
-    k = int(k)
-    N = int(L.shape[0])
-    dev = L.device
-    eps = degeneracy_eps(L)
-    d = torch.diagonal(L).to(torch.float32)
-    CT = torch.zeros((k, N), dtype=torch.float32, device=dev)
-    chosen = torch.zeros((N,), dtype=torch.bool, device=dev)
-    picks = torch.empty((k,), dtype=torch.int64, device=dev)
-    for t in range(k):
-        j = torch.argmax(torch.where(chosen, float("-inf"), d)).view(1)
-        dj = d.index_select(0, j)
-        ok = dj > eps
-        e, d_upd = greedy_map_update(
-            L.index_select(1, j).view(N), CT.t(),
-            CT.index_select(1, j).view(k), torch.maximum(dj, eps), d,
-            backend=backend)
-        e = torch.where(ok, e, 0.0)
-        d = torch.where(ok, torch.clamp_min(d_upd, 0.0), d)
-        CT[t] = e
-        chosen.index_fill_(0, j, True)
-        picks[t:t + 1] = j
-    return picks.to(torch.int32)
+    On a CUDA tensor one launch of ``greedy_map_kdpp_cuda`` runs every step
+    of every matrix; on a CPU tensor (or with ``backend="reference"``)
+    ``greedy_map_kdpp_plain`` runs the k-step loop over the plain update.
+    ``backend`` as for ``phase2_select``. The dispatch counter keeps the
+    reference's name, ``kernels.greedy_map_update.<engine>``, once a call
+    (the JAX package counts the step once per traced ``scan``)."""
+    if _resolve_backend("greedy_map_update", L, "L",
+                        backend) == "reference":
+        return greedy_map_kdpp_plain(L, k)
+    return greedy_map_kdpp_cuda(L.contiguous(), k)

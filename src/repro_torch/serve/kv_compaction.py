@@ -4,15 +4,17 @@
 When a full-attention KV cache exceeds its budget, keep the most *diverse*
 key subset (plus a recency window): build an L-kernel over key vectors and
 either take the greedy k-DPP MAP (Chen et al. 2018 fast greedy through the
-``greedy_map_update`` kernel, ``method="map"``) or draw an *exact* k-DPP
-sample (``method="sample"``: one ``eigh`` of the head's kernel, the ESP
-phase 1 and one ``phase2_select`` call at m = 1). Diversity-preserving
-eviction retains long-range anchors that recency-only eviction drops.
+fused greedy-MAP kernel, ``method="map"``) or draw an *exact* k-DPP sample
+(``method="sample"``: one ``eigh`` of the head's kernel, the ESP phase 1
+and one ``phase2_select`` call at m = 1). Diversity-preserving eviction
+retains long-range anchors that recency-only eviction drops.
 
-One head a call: the JAX function is vmapped over heads inside a trace,
-while eager PyTorch runs one call per head (``compact_kv_cache`` loops over
-a layer's (batch, KV head) pairs; ``serving.kv`` does so for a coalesced
-flush). The selection runs on the keys' device.
+``dpp_select_tokens`` selects for one head. The JAX ``compact_kv_cache``
+vmaps it over a layer's (batch, KV head) pairs inside a trace; here
+``"map"`` builds each head's kernel, stacks them and runs one batched
+``greedy_map_kdpp`` (one launch on the card) for the whole layer, and
+``"sample"`` runs one call per head, as ``serving.kv`` does for a coalesced
+flush. The selection runs on the keys' device.
 """
 
 from __future__ import annotations
@@ -109,17 +111,26 @@ def compact_kv_cache(cache: KVCache, budget: int, recency: int = 64,
     package's key) instead of the deterministic greedy MAP.
     """
     B, S, KV, hd = cache.k.shape
-    hkeys = None
+    vl = int(cache.pos)
     if method == "sample":
         if key is None:
             raise ValueError("method='sample' needs a PRNG key")
         hkeys = prng.split(prng.as_key(key, cache.k.device), (B, KV))
-    vl = int(cache.pos)
-    picks = torch.stack([torch.stack([
-        dpp_select_tokens(cache.k[b, :, h], budget, recency, valid_len=vl,
-                          method=method,
-                          key=None if hkeys is None else hkeys[b, h])
-        for h in range(KV)]) for b in range(B)])             # (B, KV, bud)
+        picks = torch.stack([torch.stack([
+            dpp_select_tokens(cache.k[b, :, h], budget, recency,
+                              valid_len=vl, method=method, key=hkeys[b, h])
+            for h in range(KV)]) for b in range(B)])         # (B, KV, bud)
+    else:
+        # every head's kernel, bitwise as dpp_select_tokens builds it, then
+        # one greedy MAP over the (B·KV, S, S) stack: the reference's vmap
+        Ls = torch.stack([token_kernel(cache.k[b, :, h], recency, vl)[0]
+                          for b in range(B) for h in range(KV)])
+        picks = greedy_map_kdpp(Ls, budget - recency)       # (B·KV, k)
+        if recency > 0:
+            recent = vl - 1 - torch.arange(recency, device=picks.device)
+            picks = torch.cat([picks, recent.to(torch.int32).expand(
+                B * KV, recency)], dim=1)
+        picks = torch.sort(picks, dim=1).values.reshape(B, KV, budget)
     # (B, S, KV, hd) gathered along S at picks (B, KV, budget)
     idx = picks.transpose(1, 2).long()[..., None].expand(B, budget, KV, hd)
     return KVCache(k=torch.gather(cache.k, 1, idx),

@@ -3,7 +3,8 @@
 The same inputs, made with numpy from a seed, go through the JAX Pallas
 step kernel (interpret mode, ``force_pallas=True``), the JAX oracles
 (``ref.greedy_map_update_ref``, ``core.sampling.greedy_map_kdpp``) and the
-port (``kernels.ops`` on CPU tensors, so the plain update). One step is
+port (``kernels.ops`` on CPU tensors, so the plain update; batches of
+matrices against the reference's ``vmap``). One step is
 compared at float32 tolerance: rtol 1e-5 and an atol of 1e-5 · max |lcol|
 (for e) and 1e-5 · max |lcol|² (for d_new), since the two packages sum
 C · cj in different orders. Whole selections are compared in order and
@@ -36,6 +37,8 @@ from repro_torch import dpp
 from repro_torch.core.sampling import greedy_map_kdpp as core_greedy
 from repro_torch.kernels import ops
 from repro_torch.kernels.greedy_map import (degeneracy_eps,
+                                            greedy_map_kdpp_cuda,
+                                            greedy_map_kdpp_plain,
                                             greedy_map_update_cuda,
                                             greedy_map_update_plain)
 
@@ -156,10 +159,17 @@ def test_greedy_map_maximizes_logdet():
 
 
 def test_dispatch_counter_fires_once_per_step():
+    """The step op counts once a step; a whole selection, single or
+    batched, counts once (the JAX package counts once per traced scan)."""
     L = torch.from_numpy(psd(20, 6, 2, 0.1))
+    args = [torch.from_numpy(a) for a in step_inputs(20, 3)]
+    with obs.use(obs.InMemoryTracker()) as t:
+        ops.greedy_map_update(*args)
+    assert t.counter_value("kernels.greedy_map_update.reference") == 1
     with obs.use(obs.InMemoryTracker()) as t:
         ops.greedy_map_kdpp(L, 7)
-    assert t.counter_value("kernels.greedy_map_update.reference") == 7
+        ops.greedy_map_kdpp(torch.stack([L, L, L]), 7)
+    assert t.counter_value("kernels.greedy_map_update.reference") == 2
     assert t.counter_value("kernels.greedy_map_update.cuda") == 0
     with pytest.raises(ValueError, match="CUDA"):
         ops.greedy_map_kdpp(L, 2, backend="cuda")
@@ -172,6 +182,97 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         greedy_map_update_cuda(*args)
     assert greedy_map_update_cuda.launches == 0
+
+
+def rank_deficient(n, r, seed):
+    """A PSD L of rank r whose other n - r items have exactly zero rows and
+    columns: past the rank every conditional variance is exactly 0 in both
+    packages, so every later pick is a tie broken by the first index."""
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(n)[:r]
+    X = rng.standard_normal((r, r)).astype(np.float32)
+    L = np.zeros((n, n), np.float32)
+    L[np.ix_(idx, idx)] = X @ X.T + 0.5 * np.eye(r, dtype=np.float32)
+    return L
+
+
+def equal_diagonal(n, seed):
+    """Unit-norm features plus a ridge, the diagonal set to 1.1 exactly: the
+    first pick is a tie of all n items."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, 6)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    L = (X @ X.T + 0.1 * np.eye(n)).astype(np.float32)
+    np.fill_diagonal(L, 1.1)
+    return L
+
+
+BATCHES = {
+    "psd": (lambda: np.stack([psd(24, 8, s, 0.1) for s in range(3)]), 10),
+    "k_equals_n": (lambda: np.stack([psd(12, 12, s, 0.1)
+                                     for s in range(3)]), 12),
+    "rank_deficient": (lambda: np.stack([rank_deficient(16, 5, s)
+                                         for s in range(4)]), 12),
+    "rank_deficient_k_equals_n": (lambda: np.stack(
+        [rank_deficient(10, 3, s) for s in range(2)]), 10),
+    "equal_diagonal": (lambda: np.stack([equal_diagonal(20, s)
+                                         for s in range(3)]), 14),
+    "scaled_identity": (lambda: np.stack([2.0 * np.eye(9, dtype=np.float32)]
+                                         * 2), 9),
+    "one_matrix": (lambda: psd(30, 6, 7, 0.1)[None], 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BATCHES))
+def test_kdpp_plain_batch_equals_each_matrix(case):
+    """The plain selection of an (H, N, N) batch is each matrix's own
+    selection, bit for bit."""
+    make, k = BATCHES[case]
+    Ls = torch.from_numpy(make())
+    got = greedy_map_kdpp_plain(Ls, k)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (Ls.shape[0], k)
+    for h in range(Ls.shape[0]):
+        assert torch.equal(got[h], greedy_map_kdpp_plain(Ls[h], k)), h
+    assert tuple(greedy_map_kdpp_plain(Ls[:0], k).shape) == (0, k)
+
+
+@pytest.mark.parametrize("case", sorted(BATCHES))
+def test_kdpp_batch_matches_jax_vmap(case):
+    """``ops.greedy_map_kdpp`` on a CPU batch against the reference's vmap
+    of ``ops.greedy_map_kdpp``, in order and exactly: random PSD, k = N,
+    rank-deficient past the rank (exact zero variances, ties broken by the
+    first index), an all-equal diagonal and a scaled identity (ties)."""
+    make, k = BATCHES[case]
+    Ls = make()
+    want = np.asarray(jax.vmap(lambda L: jax_ops.greedy_map_kdpp(L, k))(
+        jnp.asarray(Ls)))
+    got = ops.greedy_map_kdpp(torch.from_numpy(Ls), k)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    for h in range(Ls.shape[0]):
+        assert len(set(got[h].tolist())) == k
+
+
+def test_kdpp_cuda_wrapper_refuses_bad_inputs():
+    """The fused wrapper refuses a CPU tensor, float64, a non-contiguous or
+    badly shaped L and a k outside 1..N, and counts no launch."""
+    L = torch.from_numpy(psd(12, 4, 0, 0.1))
+    cases = [
+        (L, 3, "CUDA tensor"),
+        (L[None].expand(2, 12, 12).contiguous(), 3, "CUDA tensor"),
+        (L.double(), 3, "float32"),
+        (L.t(), 3, "contiguous"),
+        (L[:, :11].contiguous(), 3, r"\(N, N\)"),
+        (L[None, None], 3, r"\(N, N\)"),
+        (L[0], 1, r"\(N, N\)"),
+        (L, 0, "outside"),
+        (L, 13, "outside"),
+        ("not a tensor", 3, "tensor"),
+    ]
+    for x, k, msg in cases:
+        with pytest.raises(ValueError, match=msg):
+            greedy_map_kdpp_cuda(x, k)
+    assert greedy_map_kdpp_cuda.launches == 0
 
 
 @pytest.mark.parametrize("sizes", [(4, 6), (8, 8)])
@@ -244,7 +345,59 @@ def test_kernel_matches_plain_on_card():
                                        atol=1e-5 * scale ** 2)
     L = torch.from_numpy(psd(300, 40, 3, 0.1)).cuda()
     n0 = greedy_map_update_cuda.launches
+    f0 = greedy_map_kdpp_cuda.launches
     got = ops.greedy_map_kdpp(L, 25)
-    assert greedy_map_update_cuda.launches == n0 + 25
+    assert greedy_map_update_cuda.launches == n0
+    assert greedy_map_kdpp_cuda.launches == f0 + 1
     want = ops.greedy_map_kdpp(L, 25, backend="reference")
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_matches_plain_on_card():
+    """On a card: the fused selection against the plain loop on the same
+    matrices, at N on both sides of the cluster sizes and of C in shared
+    memory, k = 1 and k = N, the tie-heavy batches above; every matrix of
+    a batched launch equals its own single launch bit for bit. The picks
+    equal the plain version's, or first differ at a tie: the float64
+    conditional variances of the two candidates, given the common prefix,
+    within ``GREEDY_TIE_TOL`` of max diag L (the two sum each dot in
+    another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    batches = [(torch.from_numpy(make()), k)
+               for make, k in BATCHES.values()]
+    for n, k, H in ((1, 1, 1), (33, 20, 3), (129, 33, 2), (512, 120, 4),
+                    (700, 700, 1), (2500, 60, 2)):
+        batches.append((torch.from_numpy(np.stack(
+            [psd(n, max(k, 8), n + h, 0.1) for h in range(H)])), k))
+    for Ls, k in batches:
+        Ls = Ls.cuda()
+        f0 = greedy_map_kdpp_cuda.launches
+        got = ops.greedy_map_kdpp(Ls, k)
+        torch.cuda.synchronize()
+        assert greedy_map_kdpp_cuda.launches == f0 + 1
+        want = greedy_map_kdpp_plain(Ls, k)
+        for h in range(Ls.shape[0]):
+            assert_same_or_tie(Ls[h].cpu().double().numpy(),
+                               got[h].cpu().numpy(), want[h].cpu().numpy())
+            assert torch.equal(greedy_map_kdpp_cuda(Ls[h], k), got[h])
+
+
+GREEDY_TIE_TOL = 1e-4
+
+
+def assert_same_or_tie(L, a, b):
+    """Two greedy orders of the float64 L: equal, or the first difference a
+    tie of the exact conditional variances given the common prefix."""
+    diff = np.nonzero(a != b)[0]
+    if not diff.size:
+        return
+    t = int(diff[0])
+    P = a[:t]
+    d = np.diag(L).copy()
+    if t:
+        d -= np.einsum("ij,ij->j", L[P],
+                       np.linalg.lstsq(L[np.ix_(P, P)], L[P], rcond=None)[0])
+    gap = abs(d[a[t]] - d[b[t]]) / np.diag(L).max()
+    assert gap <= GREEDY_TIE_TOL, (t, a[t], b[t], gap)

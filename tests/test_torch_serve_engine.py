@@ -54,6 +54,7 @@ from repro.serve import ServeEngine as JaxEngine
 from repro.serve import compact_kv_cache as jax_compact
 from repro.serving import KVCompactionClient as JaxClient
 from repro.serving import ServingConfig as JaxConfig
+import repro_torch.obs as obs
 from repro_torch import random as tr
 from repro_torch.configs import smoke_config
 from repro_torch.convert import (decode_state_from_numpy,
@@ -301,6 +302,35 @@ def test_compact_kv_cache_map_matches_jax(seed, pos):
             np.testing.assert_array_equal(got_c.v[b, :, h].numpy(),
                                           v[b, idx, h])
     assert int(got_c.pos) == vl == int(want_c.pos)
+
+
+@pytest.mark.parametrize("pos", [48, 31])
+def test_compact_kv_cache_map_is_one_batched_selection(model, pos):
+    """``"map"`` compaction of a unit runs one ``greedy_map_kdpp`` over the
+    stack of its (batch, KV head) kernels, the counterpart of the
+    reference's vmap: one dispatch a unit (counted once per call), each
+    head's kept positions those of ``dpp_select_tokens`` on that head alone,
+    bit for bit. Inline compaction of the smoke model's prefill cache makes
+    one dispatch a unit."""
+    k, v, vl = cache_inputs(2, pos=pos)
+    cache = KVCache(torch.from_numpy(k), torch.from_numpy(v),
+                    torch.tensor(vl, dtype=torch.int32))
+    with obs.use(obs.InMemoryTracker()) as t:
+        _, got = compact_kv_cache(cache, BUDGET, RECENCY, "map")
+    assert t.counter_value("kernels.greedy_map_update.reference") == 1
+    assert t.counter_value("kernels.greedy_map_update.cuda") == 0
+    for b in range(2):
+        for h in range(2):
+            assert torch.equal(got[b, h], dpp_select_tokens(
+                cache.k[b, :, h], BUDGET, RECENCY, valid_len=vl))
+    _, _, lm, params = model
+    _, state = lm.prefill(params, prompts_for(S=40, seed=4))
+    units = state.caches["head"]["layer0"].k.shape[0]
+    with obs.use(obs.InMemoryTracker()) as t:
+        ServeEngine(lm, params, device="cpu").compact_kv(
+            state, BUDGET, RECENCY, "map")
+    assert units == lm.cfg.n_layers
+    assert t.counter_value("kernels.greedy_map_update.reference") == units
 
 
 @pytest.mark.parametrize("seed", [0, 3])
