@@ -14,8 +14,9 @@ non-zero and prints no result line.
 3. the phase-2 kernel against its plain PyTorch version on the card, at
    the main path's shapes (N = 100 x 100, E|Y| = 20, B = 1 and 64) and at
    the edges (m = 1, m = 3, degenerate columns), on the same uniforms, all
-   on the "on_chip" route; at 300 x 300, B = 8 on the "global" route
-   (``phase2_select_route`` asserted for each case); the on-chip layout's
+   on the "on_chip" route; at 300 x 300, B = 8 on the "global" route; at
+   32 x 32, E|Y| = 250 (k_max past 238), B = 16 on the "global_basis"
+   route (``phase2_select_route`` asserted for each case); the on-chip layout's
    bytes from the C side equal ``onchip_geometry``'s;
 4. statistics on the kernel path: singleton marginals of a (2, 3) kernel
    from 3000 draws against diag K;
@@ -275,9 +276,39 @@ non-zero and prints no result line.
    shape, and the fused selection of the unit against the plain loop; (6)
    an ``lm_serve`` JSON line, and ``launches_per_path.lm_serve`` in the
    ``kernels`` rows of phase 2, both greedy kernels and ``threefry2x32``;
-24. the device times of every ``kernels`` row (``fill_device_times``),
-   after every host-clock time above, with the host's time of one small
-   launch before and after the profiler sessions.
+24. LM training with KronDPP batch selection (qwen2-0.5b at full width,
+   the port's ``data``, ``optim``, ``train`` and ``launch`` modules): (1)
+   one ``make_train_step`` at 2 of the 24 layers in float32, 4 seeded
+   sequences of 128 tokens, the card against a CPU copy from the same
+   seeded params (loss, grad norm, every parameter leaf), with 1 and 2
+   microbatches; (2) full depth in the config's bfloat16, the objects of
+   ``launch.train --dpp-batch-selection``: a synthetic corpus of 1024
+   documents, the KronDPP selector over 32 x 32 RBF factors of their
+   features, AdamW at lr 3e-4 under the cosine schedule, 8 steps of B = 8
+   x 128 tokens logged every step, with every kernel's launch count set to
+   0 just before and read just after (one ``phase2_select`` launch for the
+   8 batches at prefetch 16, ``threefry2x32`` for the service's keys, no
+   other kernel); every loss finite; the selector's flush held against the
+   plain phase 2 on its replayed inputs and against a CPU copy's flush
+   (phase 3's rule), and the 8 index sets against the CPU copy's
+   ``select`` on the pipeline's rng; the step's time (host clock around a
+   synchronized step, median of steps 3–8), tokens/s, the peak of
+   ``torch.cuda.max_memory_allocated``, ``select``'s time a batch;
+   ``launch.train.main(--smoke ...)`` on the card; (3) 2 layers in
+   bfloat16: 4 steps with checkpoints every 2, resumed to 6 (``try_resume``
+   restores an ``OptState``, the pipeline replays its selector), against
+   a one-shot 6-step run; (4) ``launch.learn.main`` at the paper's size
+   (100 x 100, 1000 subsets, E|Y| = 20, dense Θ, Armijo a0 = 1.5, 5
+   sweeps): 5 ``partial_trace_A`` and 10 ``partial_trace_C`` launches, the
+   LL never falling by more than ``_ASCENT_TOL``; (5) greedy MAP past N:
+   ``Kron.map(8)`` at N = 6 and a (4, 6, 6) batch, one launch each, the
+   plain loop's picks on a CPU copy, then zeros; a ``training`` JSON line,
+   and ``launches_per_path.lm_train`` / ``learn_cli`` / ``k_past_n`` in the
+   ``kernels`` rows;
+25. the device times of every ``kernels`` row (``fill_device_times``),
+   after every host-clock time above, then phase 24's train step's device
+   time, idle share and largest kernels (``fill_step_profiles``), with the
+   host's time of one small launch before and after the profiler sessions.
 
 Every row of the ``kernels`` line is timed by ``kernel_times``: ``ms``,
 ``plain_ms`` and ``library_ms`` are device times (the durations of the
@@ -389,6 +420,19 @@ are sums of 896 products); bfloat16 against float32 within 5% of max
 |float32| (bfloat16 rounds every product and activation, 24 layers deep);
 decode against forward within 1e-3 of max |forward| (the reference's test
 allows 2e-2; in float32 the two differ by summation order only).
+
+LM training (phase 24): the float32 step on the card against its CPU copy,
+loss and grad norm within 1e-4 of max(1, |CPU|) (float32 sums over 512
+tokens of a logsumexp over 151936 logits, in other orders). The params
+after the step (``lt_check_gap``): AdamW's update element is about
+lr·g / (|g| + eps), so where a grad is within roundoff of 0 (a few eps, or
+roundoff of its leaf's sums) the two updates may differ by up to 2·lr,
+and elsewhere they agree to float32 roundoff: every element within 2·lr a
+step of max(1, max |CPU leaf|), and at most 1% of them past 1e-6 of it
+(tests/test_torch_train.py holds the JAX package to the same rule). The
+resumed run against the one-shot run: bit for bit where the card's
+reductions are deterministic, else the same rule over the 2 resumed
+steps; the losses of steps 5 and 6 within 1e-3 relative.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 are the kernel table (all seven kernels: the greedy step and the fused
@@ -608,7 +652,7 @@ def cuda_ms(fn, reps: int, warmup: int) -> float:
 
 
 def device_ms(fn, reps: int, warmup: int = 3, expect: str = "",
-              sole: bool = False) -> float:
+              sole: bool = False, by_name: dict = None) -> float:
     """Device time of one call: the summed durations of every kernel, copy
     and fill that ``reps`` calls ran on the card, as ``torch.profiler``
     (CUPTI) records them, over ``reps``. Host launch cost, gaps and host
@@ -628,7 +672,9 @@ def device_ms(fn, reps: int, warmup: int = 3, expect: str = "",
     the last. One that is not is printed and taken again with twice the
     train (at most ``MAX_LEAD_MARKS``, and kept for later windows), up to
     ``WINDOW_TRIES`` windows; the checks above hold on the events between
-    the marks."""
+    the marks. ``by_name``: a dict that receives each recorded kernel's (or
+    copy's) name and its device time a call in ms, and under "events" the
+    recorded events a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -672,6 +718,11 @@ def device_ms(fn, reps: int, warmup: int = 3, expect: str = "",
           "a window mark between the calls")
     us = sum(e.time_range.elapsed_us() for e in dev)
     check(us > 0, "torch.profiler recorded no device time")
+    if by_name is not None:
+        by_name["events"] = len(dev) / reps
+        for e in dev:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / reps
     check(not expect or any(expect in e.name for e in dev),
           f"torch.profiler recorded no {expect} launch")
     check(not sole or (len(dev) == reps and all(expect in e.name
@@ -4173,6 +4224,456 @@ def lm_serve_path(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24 helpers: LM training with KronDPP batch selection
+# ---------------------------------------------------------------------------
+
+# qwen2-0.5b at full width (as phase 23), trained by the port's eager train
+# step: 8 steps of B = 8 sequences of 128 tokens (129 with the label),
+# picked from a synthetic corpus of 1024 documents by the KronDPP selector
+# (32 x 32 RBF factors over the documents' features, the service's prefetch
+# 16: one phase-2 launch for the 8 batches), as
+# `launch.train --dpp-batch-selection` builds them; AdamW at the
+# launcher's lr 3e-4 under its cosine schedule.
+LT_STEPS, LT_BATCH, LT_SEQ, LT_DOCS = 8, 8, 128, 1024
+LT_CPU_BATCH = 4           # card vs CPU copy: 4 sequences, 2 layers, float32
+LT_LR = 3e-4
+LT_F32_TOL = 1e-4          # loss and grad norm, card vs CPU, of max(1, |CPU|)
+LT_STEP_TOL = 1e-6         # params after a step, of max(1, max |CPU leaf|)
+LT_PAST_SHARE = 0.01       # the share of params that may pass LT_STEP_TOL
+LT_RESUME = (4, 6, 2)      # train to 4, checkpoint every 2, resume to 6
+LT_TIMED = slice(2, None)  # the steps whose median is the step time: 3-8
+LT_KN = (2, 3, 8, 4)       # k > N: Kron (2, 3) (N = 6), k = 8; a batch of 4
+LEARN_ARGV = ["--n1", "100", "--n2", "100", "--subsets", "1000",
+              "--expected-size", "20", "--algorithm", "krk", "--dense-theta",
+              "--schedule", "armijo", "--a", "1.5", "--iters", "5",
+              "--log-every", "5"]
+
+
+def lt_params_gap(got, want) -> dict:
+    """Params of two runs: the largest |Δ| of max(1, max |want leaf|), the
+    elements past ``LT_STEP_TOL`` of it, and the element count."""
+    from repro_torch.optim.adamw import tree_leaves
+    worst, past, n = 0.0, 0, 0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        d = (g - w).abs() / max(1.0, float(w.abs().max()))
+        worst = max(worst, float(d.max()))
+        past += int((d > LT_STEP_TOL).sum())
+        n += d.numel()
+    return {"max_rel": worst, "elements_past_step_tol": past,
+            "elements": n}
+
+
+def lt_check_gap(gap: dict, steps: int, label: str) -> None:
+    """AdamW's rule for two runs of the same steps that part by roundoff:
+    an update element is about lr·g / (|g| + eps), so where a grad is
+    within roundoff of 0 the two updates may differ by up to 2·lr a step;
+    everywhere else they agree to float32 roundoff. So: every element
+    within 2·lr·steps, and at most ``LT_PAST_SHARE`` of them past
+    ``LT_STEP_TOL``."""
+    check(gap["max_rel"] <= 2 * LT_LR * steps
+          and gap["elements_past_step_tol"] <= LT_PAST_SHARE
+          * gap["elements"], f"{label}: params {gap}")
+
+
+def lt_card_vs_cpu(cfg, dev) -> dict:
+    """(1) one train step at 2 layers, float32, the card against a CPU copy
+    from the same seeded params and batch, with 1 and 2 microbatches."""
+    import dataclasses
+    from repro_torch import random as prng
+    from repro_torch.models import LM
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS, dtype="float32")
+    card, cpu = LM(cfg2, device=dev), LM(cfg2, device="cpu")
+    params = card.init_params(prng.PRNGKey(LM_SEED, dev))
+    p_cpu = tree_map(lambda a: a.cpu(), params)
+    batch = {"tokens": np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab, (LT_CPU_BATCH, LT_SEQ + 1), dtype=np.int32)}
+    opt = AdamW(lr=LT_LR)
+    out = {"layers": LM_CPU_LAYERS, "batch": LT_CPU_BATCH, "seq": LT_SEQ}
+    for mb in (1, 2):
+        pc, _, mc = make_train_step(cpu, opt, mb)(p_cpu, opt.init(p_cpu),
+                                                  batch)
+        pg, sg, mg = make_train_step(card, opt, mb)(params,
+                                                    opt.init(params), batch)
+        check(all(a.is_cuda for a in lm_leaves(pg)) and sg.step.is_cuda,
+              "the card's train step left the card")
+        rel = {k: abs(float(mg[k]) - float(mc[k])) / max(1.0,
+                                                          abs(float(mc[k])))
+               for k in ("loss", "grad_norm")}
+        gap = lt_params_gap(pg, pc)
+        out[f"microbatches{mb}"] = {"loss": [float(mg["loss"]),
+                                             float(mc["loss"])],
+                                    **{f"{k}_rel": v for k, v in rel.items()},
+                                    "params": gap}
+        check(max(rel.values()) <= LT_F32_TOL, f"train step card vs CPU "
+              f"({mb} microbatches): {rel} > {LT_F32_TOL}")
+        lt_check_gap(gap, 1, f"train step card vs CPU ({mb} "
+                     f"microbatches)")
+        print(f"  LM train step, card vs CPU copy ({LM_CPU_LAYERS} layers, "
+              f"float32, {mb} microbatches): {json.dumps(out[f'microbatches{mb}'])}")
+    return out
+
+
+def lt_selector(corpus, cfg, dev):
+    """The selector of `launch.train --dpp-batch-selection`, on ``dev``."""
+    from repro_torch.data import DPPBatchSelector
+    rng = np.random.default_rng(LM_SEED)
+    proj = rng.standard_normal((cfg.vocab, 16)).astype(np.float32) / 16
+    feats = np.stack([proj[c].mean(0) for c in corpus])
+    n1 = int(np.sqrt(LT_DOCS))
+    while LT_DOCS % n1:
+        n1 -= 1
+    return DPPBatchSelector.from_features(feats, n1, LT_DOCS // n1,
+                                          device=dev)
+
+
+def lt_rows(rows, width: int) -> np.ndarray:
+    out = np.full((len(rows), width), -1, dtype=np.int32)
+    for b, r in enumerate(rows):
+        check(len(r) <= width, f"a selector row of {len(r)} > {width}")
+        out[b, :len(r)] = r
+    return out
+
+
+def lt_selector_vs_cpu(sel, cpu_sel, chosen) -> dict:
+    """The selector's first flush on the card (the rows the 8 batches came
+    from) against the plain phase 2 on its replayed inputs and against a
+    CPU copy's flush, under phase 3's picks rule; then the 8 index sets of
+    the training run against the CPU copy's ``select`` with the pipeline's
+    rng, compared while every row so far is identical (the rng's later
+    draws depend on the rows' lengths)."""
+    from repro_torch import random as prng
+    from repro_torch.kernels import phase2_select as p2
+    seed = int(np.random.default_rng(LM_SEED).integers(2 ** 31))
+    svc = sel.dpp.service(seed=seed, device=sel.device)
+    rows_k = svc.sample(sel.prefetch)
+    rows_c = cpu_sel.dpp.service(seed=seed, device="cpu").sample(
+        cpu_sel.prefetch)
+    B = svc.stats()["samples_drawn"]
+    _, sub = prng.split(prng.PRNGKey(seed, sel.device), backend="reference")
+    u_p, us_p = plain_row_uniforms(prng.split(sub, B, backend="reference"),
+                                   svc.spectrum.N, svc.k_max)
+    us, ke, G1, Gr = (x[:len(rows_k)] for x in phase1_of(
+        svc.spectrum, svc.k_max, u_p, us_p))
+    pk = lt_rows(rows_k, svc.k_max)
+    pp = p2.phase2_select_plain(us, ke, G1, Gr).cpu().numpy()
+    route = p2.phase2_select_route(int(G1.shape[1]), int(Gr.shape[1]),
+                                   svc.k_max)
+    out = {"rows": len(rows_k), "k_max": svc.k_max, "samples_drawn": B,
+           "route": route,
+           "kernel_vs_plain": compare_picks(
+               pk, pp, us, ke, G1, Gr, "LM train selector: the flush, "
+               "kernel vs plain phase 2"),
+           "card_vs_cpu_copy": compare_picks(
+               pk, lt_rows(rows_c, svc.k_max), us, ke, G1, Gr,
+               "LM train selector: the flush, card vs CPU copy")}
+    rng = np.random.default_rng(LM_SEED)
+    same = 0
+    for i, got in enumerate(chosen):
+        if pk[i].tolist() != lt_rows(rows_c[i:i + 1], svc.k_max)[0].tolist():
+            break
+        want = cpu_sel.select(rng, LT_BATCH)
+        check(np.array_equal(got, want), f"LM train batch {i}: the card "
+              f"selected {got.tolist()}, the CPU copy {want.tolist()}")
+        same += 1
+    # the flush's phase 2 as the service launches it (device times filled
+    # in phase 25)
+    b_ms, b_by = bound(pk, int(G1.shape[1]), int(Gr.shape[1]), svc.k_max)
+    out["phase2_times"] = kernel_times(
+        partial(p2.phase2_select_cuda, us, ke, G1, Gr),
+        partial(p2.phase2_select_plain, us, ke, G1, Gr), None, reps=5,
+        plain_reps=2, expect="phase2_select_kernel", sole=True,
+        kernel_route=route, bound_ms=b_ms, bound_by=b_by,
+        bound_row_ms=bound_row(pk, int(G1.shape[1]), int(Gr.shape[1]),
+                               svc.k_max),
+        max_row_steps=int((pk >= 0).sum(axis=1).max()),
+        shapes={"N1": int(G1.shape[1]), "Nr": int(Gr.shape[1]),
+                "k_max": svc.k_max, "B": len(rows_k)})
+    out["index_sets_equal_to_cpu_copy"] = same
+    if out["card_vs_cpu_copy"]["identical"] == out["rows"]:
+        check(same == len(chosen), f"LM train: only {same} index sets "
+              f"compared")
+    print(f"  LM train selector: the first {same} of {len(chosen)} index "
+          f"sets equal the CPU copy's")
+    return out
+
+
+def lt_resume(cfg, corpus, dev) -> dict:
+    """(3) 2 layers at full width, the config's bfloat16: train to 4 with
+    checkpoints every 2, resume to 6 (``try_resume`` restores an
+    ``OptState``; the pipeline restored to step 4 replays its selector),
+    against one 6-step run from the same init."""
+    import dataclasses
+    import tempfile
+    from repro_torch import random as prng
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, OptState, cosine_schedule
+    from repro_torch.train import Trainer, TrainerConfig, make_train_step
+    first, total, every = LT_RESUME
+    lm = LM(dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS), device=dev)
+    params = lm.init_params(prng.PRNGKey(LM_SEED, dev))
+    opt = AdamW(lr=LT_LR, schedule=cosine_schedule(1, total))
+    step = make_train_step(lm, opt)
+    pipe = lambda: TokenPipeline(corpus, LT_BATCH, LM_SEED,
+                                 lt_selector(corpus, cfg, dev))
+    with tempfile.TemporaryDirectory(prefix="lm_train_resume_") as d:
+        tc = lambda n: TrainerConfig(total_steps=n, checkpoint_dir=d,
+                                     checkpoint_every=every, log_every=1)
+        t0 = time.perf_counter()
+        r1 = Trainer(lm, opt, step, tc(first)).fit(
+            params, opt.init(params), iter(pipe()))
+        fit_s = time.perf_counter() - t0
+        t2 = Trainer(lm, opt, step, tc(total))
+        t0 = time.perf_counter()
+        p2, o2, start = t2.try_resume(params, opt.init(params))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(start == first and isinstance(o2, OptState)
+              and int(o2.step) == first and o2.step.is_cuda, f"resume: "
+              f"start {start}, opt step {o2.step}")
+        resumed = pipe()
+        resumed.restore({"step": first, "seed": LM_SEED})
+        r2 = t2.fit(p2, o2, iter(resumed), start_step=start)
+    check(r1["final_step"] == first and r2["final_step"] == total,
+          f"resume: final steps {r1['final_step']}, {r2['final_step']}")
+    one = Trainer(lm, opt, step, TrainerConfig(
+        total_steps=total, log_every=1)).fit(params, opt.init(params),
+                                             iter(pipe()))
+    gap = lt_params_gap((r2["params"], r2["opt_state"].m),
+                        (one["params"], one["opt_state"].m))
+    from repro_torch.optim.adamw import tree_leaves
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((r2["params"], r2["opt_state"])),
+        tree_leaves((one["params"], one["opt_state"]))))
+    losses = {"resumed": [h["loss"] for h in r2["history"]],
+              "one_shot": [h["loss"] for h in one["history"][first:]]}
+    out = {"layers": LM_CPU_LAYERS, "dtype": cfg.dtype,
+           "steps": list(LT_RESUME), "bitwise": bitwise, "gap": gap,
+           "losses": losses, "first_fit_s": fit_s, "restore_s": restore_s}
+    # a resumed run may part from the one-shot run only by roundoff of the
+    # card's reductions (lt_check_gap)
+    lt_check_gap(gap, total - first, "resumed vs one-shot")
+    check(np.allclose(losses["resumed"], losses["one_shot"], rtol=1e-3,
+                      atol=0.0), f"resumed vs one-shot losses: {losses}")
+    print(f"  LM train resume {first} -> {total} against one shot "
+          f"({LM_CPU_LAYERS} layers, {cfg.dtype}): bitwise {bitwise}, "
+          f"{json.dumps(gap)}, losses {json.dumps(losses)}")
+    return out
+
+
+def lt_learn_cli(dev) -> dict:
+    """(4) ``launch.learn.main`` in process at the paper's size."""
+    import contextlib
+    import io
+    from repro_torch.launch import learn
+    from repro_torch.learning.schedules import _ASCENT_TOL
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        _, n = sv_counted(lambda: learn.main(LEARN_ARGV + ["--device",
+                                                           str(dev)]),
+                          "launch.learn", {"partial_trace_A",
+                                           "partial_trace_C",
+                                           "phase2_select", "threefry2x32"})
+    wall = time.perf_counter() - t0
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()
+             if line.startswith("{")]
+    check(len(lines) >= 3, f"launch.learn printed {buf.getvalue()!r}")
+    lls = [x["ll"] for x in lines[:-1]]
+    final = lines[-1]
+    check(n["partial_trace_A"] == 5 and n["partial_trace_C"] == 10,
+          f"launch.learn launched A {n['partial_trace_A']} and C "
+          f"{n['partial_trace_C']} times, not 5 and 10")
+    check(bool((np.diff(lls) >= -_ASCENT_TOL).all()) and lls[-1] > lls[0]
+          and np.isfinite(lls).all(), f"launch.learn LLs {lls}")
+    check(final["sweeps"] == 5 and final["algorithm"] == "krk", f"{final}")
+    out = {"argv": LEARN_ARGV, "lines": lines, "launches": n,
+           "sweep_ms": 1e3 / final["sweeps_per_sec"], "wall_s": wall}
+    print(f"  launch.learn: {json.dumps(lines)}; launches {n}")
+    return out
+
+
+def lt_k_past_n(dev) -> dict:
+    """(5) greedy MAP with k > N on the card: ``Kron.map(k)`` and an (H, N,
+    N) batch, each the plain loop's on a CPU copy, N picks then zeros."""
+    from repro_torch import dpp
+    from repro_torch.kernels import ops
+    n1, n2, k, H = LT_KN
+    N = n1 * n2
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    model = dpp.random_kron(gen, (n1, n2), device=dev)
+    cpu = dpp.Kron(tuple(f.cpu() for f in model.factors), device="cpu")
+    X = torch.rand((H, N, 3), generator=gen, device=dev)
+    Ls = X @ X.transpose(1, 2) + 0.1 * torch.eye(N, device=dev)
+    out = {}
+    for label, fn, L in (
+            ("Kron.map", lambda: model.map(k), model.dense_kernel()),
+            ("(H, N, N)", lambda: ops.greedy_map_kdpp(Ls, k), Ls)):
+        got, n = map_counted(fn, f"k > N: {label}", 1)
+        out[f"{label} launches"] = n["greedy_map_kdpp"]
+        check(got.is_cuda and got.dtype == torch.int32
+              and got.shape[-1] == k, f"k > N: {label} gave {got.shape} "
+              f"{got.dtype} on {got.device}")
+        want = (cpu.map(k) if label == "Kron.map"
+                else ops.greedy_map_kdpp(Ls.cpu(), k)).numpy()
+        got = got.cpu().numpy()
+        check((got[..., N:] == 0).all() and (want[..., N:] == 0).all(),
+              f"k > N: {label} tails {got[..., N:]} / {want[..., N:]}")
+        Lc = L.cpu().reshape(-1, N, N)
+        out[label] = [compare_maps(Lc[h], a[:N], b[:N],
+                                   f"k > N: {label} [{h}]")
+                      for h, (a, b) in enumerate(zip(got.reshape(-1, k),
+                                                     want.reshape(-1, k)))]
+        print(f"  k > N, {label}: the card {got.tolist()}, the plain loop "
+              f"{want.tolist()}")
+    return out
+
+
+STEP_PROFILES = []       # (lm_train_path's dict, one train step) owed
+
+
+def fill_step_profiles() -> None:
+    """The train step's device time (``device_ms``: every kernel, copy and
+    fill of a step), its share of the step's host-clock time, and its
+    largest kernels by device time."""
+    for out, step in STEP_PROFILES:
+        names = {}
+        out["step_device_ms"] = device_ms(step, reps=3, warmup=1,
+                                          by_name=names)
+        out["step_idle_share"] = 1.0 - out["step_device_ms"] / (
+            out["step_s"] * 1e3)
+        out["step_device_events"] = names.pop("events")
+        out["step_kernel_names"] = len(names)
+        out["step_top_kernels_ms"] = dict(sorted(
+            names.items(), key=lambda kv: -kv[1])[:12])
+        print(f"  LM train step on the device: {out['step_device_ms']:.1f} "
+              f"ms of {out['step_s'] * 1e3:.1f} ms (idle "
+              f"{out['step_idle_share']:.2f}), "
+              f"{out['step_device_events']:.0f} device events; top kernels "
+              f"{json.dumps({k[:60]: round(v, 3) for k, v in out['step_top_kernels_ms'].items()})}")
+    STEP_PROFILES.clear()
+
+
+def lm_train_path(dev) -> dict:
+    """Phase 24: LM training with KronDPP batch selection (see the module
+    docstring). Returns what the ``training`` line prints and the
+    ``kernels`` rows take."""
+    import statistics
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline, synthetic_corpus
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import Trainer, TrainerConfig, make_train_step
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    out = {"arch": LM_ARCH, "shapes": {
+        "layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+        "vocab_padded": cfg.vocab_padded, "batch": LT_BATCH, "seq": LT_SEQ,
+        "docs": LT_DOCS, "steps": LT_STEPS, "remat": cfg.remat}}
+
+    # (1) one step, float32, 2 layers: the card against a CPU copy
+    out["card_vs_cpu"] = lt_card_vs_cpu(cfg, dev)
+
+    # (2) full depth, the config's bfloat16, 8 DPP-selected steps (the
+    # objects of `launch.train --dpp-batch-selection`, logging every step)
+    lm = LM(cfg, device=dev)
+    params = lm.init_params(prng.PRNGKey(LM_SEED, dev))
+    opt = AdamW(lr=LT_LR, schedule=cosine_schedule(max(LT_STEPS // 10, 1),
+                                                   LT_STEPS))
+    opt_state = opt.init(params)
+    corpus = synthetic_corpus(LT_DOCS, LT_SEQ, cfg.vocab, LM_SEED)
+    sel = lt_selector(corpus, cfg, dev)
+    chosen, select_ms, inner = [], [], sel.select
+
+    def select(rng, n):
+        t0 = time.perf_counter()
+        idx = inner(rng, n)
+        select_ms.append((time.perf_counter() - t0) * 1e3)
+        chosen.append(idx)
+        return idx
+    sel.select = select
+    trainer = Trainer(lm, opt, make_train_step(lm, opt),
+                      TrainerConfig(total_steps=LT_STEPS, log_every=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["memory_allocated_before_gb"] = torch.cuda.memory_allocated(dev) \
+        / 2 ** 30
+    t0 = time.perf_counter()
+    res, n = sv_counted(lambda: trainer.fit(params, opt_state, iter(
+        TokenPipeline(corpus, LT_BATCH, LM_SEED, sel))), "LM train",
+        {"phase2_select", "threefry2x32"})
+    out["fit_s"] = time.perf_counter() - t0
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) \
+        / 2 ** 30
+    losses = [h["loss"] for h in res["history"]]
+    out["losses"] = losses
+    out["grad_norms"] = [h["grad_norm"] for h in res["history"]]
+    out["launches"] = n
+    check(res["final_step"] == LT_STEPS and len(losses) == LT_STEPS
+          and np.isfinite(losses).all() and np.isfinite(
+              out["grad_norms"]).all(), f"LM train: final step "
+          f"{res['final_step']}, losses {losses}")
+    check(n["phase2_select"] == 1, f"LM train: {n['phase2_select']} "
+          f"phase-2 launches for {LT_STEPS} batches at prefetch "
+          f"{sel.prefetch}, not 1")
+    check(all(a.is_cuda for a in lm_leaves(res["params"])),
+          "the trained params left the card")
+    for i, idx in enumerate(chosen):
+        check(len(idx) == LT_BATCH and len(set(idx.tolist())) == LT_BATCH
+              and 0 <= idx.min() and idx.max() < LT_DOCS, f"LM train batch "
+              f"{i}: {idx.tolist()}")
+    times = trainer.step_times
+    step_s = statistics.median(times[LT_TIMED])
+    out["step_times_s"] = times
+    out["step_s"] = step_s
+    out["tokens_per_s"] = LT_BATCH * LT_SEQ / step_s
+    out["select_ms"] = select_ms
+    out["select_ms_median"] = statistics.median(select_ms)
+    print(f"  LM train ({LM_ARCH}, full width, {cfg.dtype}, {LT_STEPS} "
+          f"DPP-selected steps of {LT_BATCH} x {LT_SEQ}): losses {losses}, "
+          f"step {step_s * 1e3:.1f} ms (median of steps 3-8), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak "
+          f"{out['max_memory_allocated_gb']:.2f} GiB, launches {n}")
+    # the step's device time and its kernels, in phase 25 (after every
+    # host-clock time): the trained state and the last batch are kept
+    step_fn, last = trainer.train_step, {"tokens": corpus[chosen[-1]]}
+    p_end, o_end = res["params"], res["opt_state"]
+    STEP_PROFILES.append((out, lambda: step_fn(p_end, o_end, last)))
+    del res, params, opt_state, trainer
+    cpu_sel = lt_selector(corpus, cfg, "cpu")
+    out["selector"] = lt_selector_vs_cpu(sel, cpu_sel, chosen[:LT_STEPS])
+
+    # (2b) the launcher itself on the card, at smoke size
+    import contextlib
+    import io
+    from repro_torch.launch import train as train_launch
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        r = train_launch.main(["--arch", LM_ARCH, "--smoke", "--steps", "12",
+                               "--batch", "8", "--seq", "32", "--docs", "64",
+                               "--dpp-batch-selection", "--device",
+                               str(dev)])
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+    check(r["final_step"] == 12 and lines[-1]["final_step"] == 12
+          and np.isfinite(lines[0]["loss"]), f"launch.train --smoke: "
+          f"{lines}")
+    out["launch_train_smoke"] = lines
+
+    # (3) resume, (4) the learner CLI, (5) greedy MAP past N
+    out["resume"] = lt_resume(cfg, corpus, dev)
+    out["learn_cli"] = lt_learn_cli(dev)
+    out["k_past_n"] = lt_k_past_n(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"LM training (phase 24): {out['phase_s']:.1f} s")
+    return out
+
+
 def lm_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in lm_leaves(v)]
@@ -4264,6 +4765,16 @@ def main() -> None:
     s_big = big.spectrum(cache)
     glob_in = phase1_inputs(s_big, s_big.suggested_k_max(), 8, gen)
     edges.append(compare(*glob_in, "kron 300x300 B=8", route="global"))
+    # the global_basis route: 32 x 32 at E|Y| = 250 (k_max past 238, the
+    # KronDPP batch selector's shape), whose k x k basis passes a block's
+    # shared memory; its own generator, so that later phases draw as before
+    gen_w = torch.Generator(device=dev).manual_seed(3)
+    wide = dpp.random_kron(gen_w, (32, 32), device=dev).rescale(250.0, cache)
+    s_wide = wide.spectrum(cache)
+    edges.append(compare(*phase1_inputs(s_wide, s_wide.suggested_k_max(), 16,
+                                        gen_w),
+                         f"kron 32x32 k_max {s_wide.suggested_k_max()} B=16",
+                         route="global_basis"))
     # the host's layout of the on-chip route against the kernel's own
     lib = _build.load_library("phase2_select", p2.bind)
     for n1, nr, kk in itertools.product((1, 4, 20, 30, 100, 300, 400, 1100),
@@ -4815,9 +5326,13 @@ def main() -> None:
     # -- 23. LM serving ---------------------------------------------------------
     lms = lm_serve_path(dev)
 
-    # -- 24. device times of every kernels row -------------------------------
+    # -- 24. LM training with KronDPP batch selection ------------------------
+    lmt = lm_train_path(dev)
+
+    # -- 25. device times of every kernels row -------------------------------
     launch_us = [host_launch_us()]
     fill_device_times()
+    fill_step_profiles()
     launch_us.append(host_launch_us())
     print(f"device times filled for every kernels row; one small launch from "
           f"the host before and after the profiler sessions: {launch_us} µs")
@@ -4828,7 +5343,8 @@ def main() -> None:
 
     for t in (times[64], times[1], times["global"],
               sel_times["kdpp_phase2"], inf["phase2"],
-              sv["kv"]["phase2_times"], lms["phase2_times"]):
+              sv["kv"]["phase2_times"], lms["phase2_times"],
+              lmt["selector"]["phase2_times"]):
         t["per_step_ms"] = t["ms"] / t["max_row_steps"]
     row = {"name": "phase2_select", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/phase2_select.cu",
@@ -4843,6 +5359,7 @@ def main() -> None:
            "global_dense_9995_b64": inf["phase2"],
            "global_kv_s1024_k192_b1": sv["kv"]["phase2_times"],
            "global_lm_kv_s512_k120_b1": lms["phase2_times"],
+           "global_basis_selector_b16": lmt["selector"]["phase2_times"],
            "agree_rows_main_path": agree_main["agree_rows"],
            "card": card, "power_limit": power_limit}
     pt_rows = [{"name": f"partial_trace_{k}", "route": "cuda",
@@ -4991,11 +5508,42 @@ def main() -> None:
         "init": lms["init_launches"]["threefry2x32"],
         **{k: v["threefry2x32"] for k, v in lm_launch.items()}}
     gm_row["lm_kv_n512_k120"] = lms["greedy_times"]
+    row["launches_per_path"]["lm_train"] = {
+        "train8": lmt["launches"]["phase2_select"],
+        "learn_cli": lmt["learn_cli"]["launches"]["phase2_select"]}
+    tf_row["launches_per_path"]["lm_train"] = {
+        "train8": lmt["launches"]["threefry2x32"],
+        "learn_cli": lmt["learn_cli"]["launches"]["threefry2x32"]}
+    for r_ in pt_rows:
+        r_["launches_per_path"] = {"learn_cli": lmt["learn_cli"]["launches"][
+            r_["name"]]}
+    kdpp_row["launches_per_path"]["k_past_n"] = {
+        k: v for k, v in lmt["k_past_n"].items() if k.endswith("launches")}
+    kdpp_row["max_abs_err"] = max(kdpp_row["max_abs_err"], *(
+        c.get("tie_gap", 0.0) for k, v in lmt["k_past_n"].items()
+        if not k.endswith("launches") for c in v))
     print(json.dumps({"lm_serve": {k: v for k, v in lms.items()
                                    if k not in ("phase2_times",
                                                 "greedy_times",
                                                 "kdpp_times")},
                       "card": card, "power_limit": power_limit}))
+    lt = lmt["learn_cli"]
+    print(json.dumps({"training": {
+        "step_ms": lmt["step_s"] * 1e3, "tokens_per_s": lmt["tokens_per_s"],
+        "step_ms_all": [t * 1e3 for t in lmt["step_times_s"]],
+        "max_memory_allocated_gb": lmt["max_memory_allocated_gb"],
+        "memory_allocated_before_gb": lmt["memory_allocated_before_gb"],
+        "select_ms_per_batch": lmt["select_ms_median"],
+        "select_ms": lmt["select_ms"], "learn_sweep_ms": lt["sweep_ms"],
+        "learn_wall_s": lt["wall_s"], "losses": lmt["losses"],
+        "step_device_ms": lmt["step_device_ms"],
+        "step_idle_share": lmt["step_idle_share"],
+        "step_device_events": lmt["step_device_events"],
+        "step_top_kernels_ms": lmt["step_top_kernels_ms"],
+        "phase_s": lmt["phase_s"]}, "lm_train": {
+            k: v for k, v in lmt.items() if k not in (
+                "step_times_s", "select_ms", "losses")},
+        "card": card, "power_limit": power_limit, "nvidia_smi": smi}))
     print(json.dumps({"kernels": [row, *pt_rows, gm_row, kdpp_row, km_row,
                                   tf_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,

@@ -8,7 +8,8 @@ Layout (per step), the JAX package's:
     <dir>/step_<n>/               # atomic rename marks the commit
 
 A tree is a tensor, a numpy array, a ``torch.Generator`` or a scalar, or a
-dict, list or tuple of trees, or an object with the pair ``tree_flatten()``
+dict, list or tuple (a NamedTuple too, ``optim.OptState``: its fields in
+order) of trees, or an object with the pair ``tree_flatten()``
 / ``tree_unflatten(leaves, like)`` (``learning.LearnerState``). Leaves are
 taken in the JAX package's pytree order (a dict's keys sorted), so the
 same state gives the same files in either package. A generator's leaf is
@@ -109,7 +110,10 @@ def _unflatten(target, leaves: Iterator[np.ndarray], devices=None):
         return {k: _unflatten(target[k], leaves, devices)
                 for k in sorted(target)}
     if isinstance(target, (list, tuple)):
-        return type(target)(_unflatten(t, leaves, devices) for t in target)
+        children = [_unflatten(t, leaves, devices) for t in target]
+        # a NamedTuple (optim.OptState) takes its fields positionally
+        return type(target)(*children) if hasattr(target, "_fields") \
+            else type(target)(children)
     return _like(next(leaves), target,
                  None if devices is None else next(devices))
 

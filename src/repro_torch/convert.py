@@ -22,6 +22,7 @@ from .dpp.model import Kron
 from .lowrank import DualSpectrum, LowRank
 from .models import DecodeState, KVCache
 from .models.transformer import tree_map
+from .optim import OptState
 from .sampling.spectral import FactorSpectrum
 
 
@@ -165,3 +166,21 @@ def decode_state_to_numpy(state: DecodeState) -> DecodeState:
     """A ``DecodeState`` whose ``KVCache`` leaves are numpy copies
     (bfloat16 caches as float32, exactly)."""
     return tree_map(_leaf_to_numpy, state)
+
+
+def opt_state_from_numpy(state, device: DeviceLike = "cuda") -> OptState:
+    """The port's ``OptState`` from either package's optimizer state
+    (fields ``step``, ``m``, ``v``) whose leaves are numpy arrays (or
+    anything ``np.asarray`` takes): the moments' nested dicts kept, every
+    leaf a tensor on ``device`` in its own dtype."""
+    dev = resolve_device(device)
+    leaf = lambda a: _leaf_from_numpy(a, dev)
+    return OptState(leaf(state.step), tree_map(leaf, state.m),
+                    tree_map(leaf, state.v))
+
+
+def opt_state_to_numpy(state: OptState) -> OptState:
+    """An ``OptState`` whose leaves are numpy copies."""
+    return OptState(_leaf_to_numpy(state.step),
+                    tree_map(_leaf_to_numpy, state.m),
+                    tree_map(_leaf_to_numpy, state.v))

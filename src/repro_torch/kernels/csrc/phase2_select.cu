@@ -52,11 +52,20 @@
 // 132), tensor cores for the downdate.
 //
 // Route "global" (phase2_select_kernel), for shapes past the shared memory
-// (large N, or k up to MAX_K = 224): each thread owns one contiguous chunk
-// of the N items for the whole run, downdates it from rows of G1 and Gr in
-// device memory and sums it in the same pass; norms lives in a (B, N)
+// (large N, or k up to 236 on an H100): each thread owns one contiguous
+// chunk of the N items for the whole run, downdates it from rows of G1 and
+// Gr in device memory and sums it in the same pass; norms lives in a (B, N)
 // float32 scratch the wrapper allocates, resident in the 50 MB L2. The
 // basis, w and the scan partials live in shared memory.
+//
+// Route "global_basis" (the same kernel), for k whose k x k basis passes a
+// block's shared memory (the KronDPP batch selector's 32 x 32 documents
+// draw k_max 333): the basis moves to a (B, 2, k, k) float32 scratch in
+// device memory, B and its transpose, so that both Gram-Schmidt loops read
+// consecutive addresses across a warp (the first reads B[c, j] along j,
+// the second B^T[j, c] along c); w, q and the partials stay in shared
+// memory. Every sum runs in the order of the "global" route, so the two
+// routes give the same bits on a shape both take.
 //
 // Index rule (both routes): i is the first item with csum > r and
 // norms > 0, or the last item with norms > 0 when r lies past every such
@@ -139,9 +148,11 @@ __device__ int block_pick(int cand, int lastpos, int* redi) {
 }
 
 // out[c] = x[c] - sum_j B[c, j] (sum_c' B[c', j] x[c']): one Gram-Schmidt
-// pass against the basis, zero columns included.
-__device__ void gs_pass(const float* basis, const float* x, float* coef,
-                        float* out, int k) {
+// pass against the basis, zero columns included. basis_t, when given, is
+// B^T (basis_t[j * k + c] = B[c, j]), read by the second loop in place of
+// basis: the same values in the same order.
+__device__ void gs_pass(const float* basis, const float* basis_t,
+                        const float* x, float* coef, float* out, int k) {
   for (int j = threadIdx.x; j < k; j += blockDim.x) {
     float s = 0.f;
     for (int c = 0; c < k; ++c) s = fmaf(basis[c * k + j], x[c], s);
@@ -150,22 +161,33 @@ __device__ void gs_pass(const float* basis, const float* x, float* coef,
   __syncthreads();
   for (int c = threadIdx.x; c < k; c += blockDim.x) {
     float s = 0.f;
-    for (int j = 0; j < k; ++j) s = fmaf(basis[c * k + j], coef[j], s);
+    if (basis_t != nullptr)
+      for (int j = 0; j < k; ++j) s = fmaf(basis_t[j * k + c], coef[j], s);
+    else
+      for (int j = 0; j < k; ++j) s = fmaf(basis[c * k + j], coef[j], s);
     out[c] = x[c] - s;
   }
   __syncthreads();
 }
 
+// basis_all: null on the "global" route (the basis in shared memory); the
+// (B, 2, k, k) scratch of B and B^T on the "global_basis" route.
 __global__ void phase2_select_kernel(const float* __restrict__ us,
                                      const int* __restrict__ keff,
                                      const float* __restrict__ G1,
                                      const float* __restrict__ Gr,
                                      float* __restrict__ norms_all,
+                                     float* __restrict__ basis_all,
                                      int* __restrict__ picks,
                                      int N1, int Nr, int k) {
   extern __shared__ float smem[];
-  float* basis = smem;              // k x k, basis[c * k + j] = B[c, j]
-  float* w = basis + k * k;         // gathered row, then CGS2 result
+  const size_t kk = static_cast<size_t>(k) * k;
+  // basis[c * k + j] = B[c, j]; basis_t[j * k + c] = B[c, j] (global only)
+  float* basis = basis_all != nullptr
+                     ? basis_all + 2 * kk * blockIdx.x : smem;
+  float* basis_t = basis_all != nullptr ? basis + kk : nullptr;
+  float* w = basis_all != nullptr ? smem : smem + kk;   // gathered row,
+                                                        // then CGS2 result
   float* coef = w + k;              // B^T x
   float* q = coef + k;              // first CGS pass, then the new column
   float* red = q + k;               // 32 warp partials
@@ -182,7 +204,9 @@ __global__ void phase2_select_kernel(const float* __restrict__ us,
   const int ke = max(0, min(keff[b], k));
 
   for (int j = tid; j < k; j += nt) pk[j] = -1;
-  for (int j = tid; j < k * k; j += nt) basis[j] = 0.f;
+  for (size_t j = tid; j < kk; j += nt) basis[j] = 0.f;
+  if (basis_t != nullptr)
+    for (size_t j = tid; j < kk; j += nt) basis_t[j] = 0.f;
 
   const int chunk = (n + nt - 1) / nt;
   const int lo = min(tid * chunk, n);
@@ -220,8 +244,8 @@ __global__ void phase2_select_kernel(const float* __restrict__ us,
     for (int c = tid; c < k; c += nt)
       w[c] = g1[static_cast<size_t>(p1) * k + c] * gr[static_cast<size_t>(pr) * k + c];
     __syncthreads();
-    gs_pass(basis, w, coef, q, k);    // q = w - B (B^T w)
-    gs_pass(basis, q, coef, w, k);    // w = q - B (B^T q): CGS2
+    gs_pass(basis, basis_t, w, coef, q, k);    // q = w - B (B^T w)
+    gs_pass(basis, basis_t, q, coef, w, k);    // w = q - B (B^T q): CGS2
     float sq = 0.f;
     for (int c = tid; c < k; c += nt) sq = fmaf(w[c], w[c], sq);
     const float qn2 = block_sum(sq, red);
@@ -230,6 +254,7 @@ __global__ void phase2_select_kernel(const float* __restrict__ us,
       const float v = qn2 > kEps ? w[c] * inv : 0.f;
       q[c] = v;
       basis[c * k + t] = v;
+      if (basis_t != nullptr) basis_t[t * k + c] = v;
     }
     if (tid == 0) pk[t] = pick;
     __syncthreads();
@@ -455,8 +480,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int c = tid; c < k; c += nt)
       w[c] = g1t[c * g.n1p + p1] * grt[c * g.pr + pr];
     __syncthreads();
-    gs_pass(basis, w, coef, q, k);    // q = w - B (B^T w)
-    gs_pass(basis, q, coef, w, k);    // w = q - B (B^T q): CGS2
+    gs_pass(basis, nullptr, w, coef, q, k);    // q = w - B (B^T w)
+    gs_pass(basis, nullptr, q, coef, w, k);    // w = q - B (B^T q): CGS2
     float sq = 0.f;
     for (int c = tid; c < k; c += nt) sq = fmaf(w[c], w[c], sq);
     const float qn2 = block_sum(sq, red);
@@ -482,9 +507,12 @@ cudaError_t launch_onchip(const float* us, const int* keff, const float* G1,
   return cudaGetLastError();
 }
 
-size_t global_smem(int k) {
-  return (static_cast<size_t>(k) * k + 4 * static_cast<size_t>(k) + 32) *
-             sizeof(float) + 64 * sizeof(int);
+// The global kernel's shared memory: the basis (when it lives there), w,
+// coef, q, 32 warp partials, then 64 ints.
+size_t global_smem(int k, bool basis_in_smem) {
+  const size_t kk = basis_in_smem ? static_cast<size_t>(k) * k : 0;
+  return (kk + 4 * static_cast<size_t>(k) + 32) * sizeof(float) +
+         64 * sizeof(int);
 }
 
 }  // namespace
@@ -532,10 +560,11 @@ extern "C" int phase2_select_onchip_bytes(int N1, int Nr, int k,
   return 0;
 }
 
-// route: 0 on_chip, 1 global (what phase2_select_route gave for N1, Nr and k
-// on this device, after phase2_select_prepare). norms: the global route's
-// (B, N1 Nr) float32 scratch, ignored (and may be null) on the on-chip
-// route, which takes threads = 256 only.
+// route: 0 on_chip, 1 global, 2 global_basis (what phase2_select_route gave
+// for N1, Nr and k on this device, after phase2_select_prepare). norms: the
+// global routes' float32 scratch, (B, N1 Nr) norms, followed on the
+// global_basis route by the (B, 2, k, k) basis; ignored (and may be null)
+// on the on-chip route, which takes threads = 256 only.
 extern "C" int phase2_select_launch(const void* us, const void* keff,
                                     const void* G1, const void* Gr,
                                     void* norms, void* picks, int B, int N1,
@@ -562,10 +591,13 @@ extern "C" int phase2_select_launch(const void* us, const void* keff,
         return launch_onchip<16>(u, ke, g1, gr, pk, B, N1, Nr, k, g, s);
     }
   }
-  if (route != 1 || norms == nullptr)
+  if ((route != 1 && route != 2) || norms == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  phase2_select_kernel<<<B, threads, global_smem(k), s>>>(
-      u, ke, g1, gr, static_cast<float*>(norms), pk, N1, Nr, k);
+  float* nm = static_cast<float*>(norms);
+  float* bs = route == 2
+                  ? nm + static_cast<size_t>(B) * N1 * Nr : nullptr;
+  phase2_select_kernel<<<B, threads, global_smem(k, route == 1), s>>>(
+      u, ke, g1, gr, nm, bs, pk, N1, Nr, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -187,8 +187,19 @@ def greedy_map_kdpp(L: torch.Tensor, k: int,
     ``greedy_map_kdpp_plain`` runs the k-step loop over the plain update.
     ``backend`` as for ``phase2_select``. The dispatch counter keeps the
     reference's name, ``kernels.greedy_map_update.<engine>``, once a call
-    (the JAX package counts the step once per traced ``scan``)."""
+    (the JAX package counts the step once per traced ``scan``).
+
+    With k > N every path gives the reference's answer: the N picks, then
+    k - N zeros (past N its argmax over all ``-inf`` takes item 0). On the
+    card the kernel selects min(k, N) and the picks are padded with int32
+    zeros on L's device."""
     if _resolve_backend("greedy_map_update", L, "L",
                         backend) == "reference":
         return greedy_map_kdpp_plain(L, k)
-    return greedy_map_kdpp_cuda(L.contiguous(), k)
+    k, N = int(k), int(L.shape[-1])
+    picks = greedy_map_kdpp_cuda(L.contiguous(), min(k, N))
+    if k <= N:
+        return picks
+    pad = torch.zeros(picks.shape[:-1] + (k - N,), dtype=picks.dtype,
+                      device=picks.device)
+    return torch.cat([picks, pad], -1)

@@ -21,11 +21,13 @@ Output: (B, k_max) int32 picks, -1 in padded and dead slots.
 
 ``phase2_select_plain`` runs this as batched tensor code (any device);
 ``phase2_select_cuda`` launches ``csrc/phase2_select.cu`` on CUDA tensors
-and raises on anything else, by one of two routes
+and raises on anything else, by one of three routes
 (``phase2_select_route``): "on_chip" keeps both factors and the residual
 norms in the block's shared memory for the whole run, "global" (shapes
 whose on-chip layout passes the device's shared memory per block) keeps
-the norms in a (B, N) scratch in device memory. The two agree draw for
+the norms in a (B, N) scratch in device memory, and "global_basis" (a k
+whose k x k basis passes it too) also the basis, as B and Bᵀ in a
+(B, 2, k, k) scratch. The kernel and the plain version agree draw for
 draw except where
 ``us · total`` lands within roundoff of a CDF boundary (the kernel's
 block-parallel scan rounds differently from ``torch.cumsum``), or where
@@ -51,16 +53,17 @@ EPS = 1e-30
 #: nothing selectable: the sample stops instead of clamp-picking N-1.
 MASS_EPS = 1e-6
 
-#: Largest k_max the kernel takes: the k x k basis plus four k-vectors
-#: must fit one block's shared memory, and one thread per column.
-MAX_K = 224
+#: Largest k_max the kernel takes: its "global_basis" route keeps 2 k²
+#: floats a sample in device memory (128 MB at 4096), and indexes them
+#: with 32-bit ints.
+MAX_K = 4096
 
 #: Threads per block of the kernel (one block per sample).
 THREADS = 256
 
 #: The routes of ``phase2_select_cuda``, in the order of the C launcher's
 #: route code.
-ROUTES = ("on_chip", "global")
+ROUTES = ("on_chip", "global", "global_basis")
 
 #: The on-chip route's register tile: 4 rows of G1 by TN rows of Gr a
 #: thread, TN the first of these that gives every tile a thread of the
@@ -200,16 +203,26 @@ def onchip_geometry(N1: int, Nr: int, k: int) -> Tuple[int, int, int, int]:
     return tn, n1p, pr, 4 * floats + 4 * 64
 
 
+def global_smem_bytes(k: int, basis_in_smem: bool = True) -> int:
+    """Shared memory of the global routes' block (``global_smem`` in
+    ``csrc/phase2_select.cu``): the k x k basis where it lives there, three
+    k-vectors, 32 warp partials and one spare k-vector in floats, then 64
+    ints."""
+    return 4 * ((k * k if basis_in_smem else 0) + 4 * k + 32) + 4 * 64
+
+
 def phase2_select_route(N1: int, Nr: int, k: int,
                         limit: Optional[int] = None) -> str:
     """"on_chip" when the on-chip layout (``onchip_geometry``) fits
-    ``limit`` bytes of shared memory a block, else "global". ``limit``
-    None: the current CUDA device's opt-in limit, asked once per device
-    (``_smem_optin``)."""
+    ``limit`` bytes of shared memory a block, else "global" when the
+    global route's basis does (``global_smem_bytes``), else
+    "global_basis". ``limit`` None: the current CUDA device's opt-in
+    limit, asked once per device (``_smem_optin``)."""
     if limit is None:
         limit = _smem_optin(torch.cuda.current_device())
-    return ROUTES[0] if onchip_geometry(N1, Nr, k)[3] <= limit \
-        else ROUTES[1]
+    if onchip_geometry(N1, Nr, k)[3] <= limit:
+        return ROUTES[0]
+    return ROUTES[1] if global_smem_bytes(k) <= limit else ROUTES[2]
 
 
 @functools.lru_cache(maxsize=None)
@@ -233,8 +246,9 @@ def phase2_select_cuda(us: torch.Tensor, k_eff: torch.Tensor,
                        G1: torch.Tensor, Gr: torch.Tensor) -> torch.Tensor:
     """Launch the Hopper kernel (``csrc/phase2_select.cu``): one thread
     block per sample, on PyTorch's current stream, by the route
-    ``phase2_select_route`` gives (the "global" route's (B, N) norms
-    scratch is allocated here). Same contract as ``phase2_select_plain``.
+    ``phase2_select_route`` gives (the global routes' scratch is
+    allocated here: the (B, N) norms, then on "global_basis" the
+    (B, 2, k, k) basis). Same contract as ``phase2_select_plain``.
     Raises on CPU tensors, wrong dtypes, non-contiguous inputs, bad
     shapes, and a refused launch."""
     global launches
@@ -246,16 +260,16 @@ def phase2_select_cuda(us: torch.Tensor, k_eff: torch.Tensor,
     lib = load_library("phase2_select", bind)
     route = ROUTES.index(phase2_select_route(N1, Nr, k,
                                              _smem_optin(us.device.index)))
-    norms = None
-    if route == 1:
-        norms = torch.empty((nb, N1 * Nr), dtype=torch.float32,
-                            device=us.device)
+    scratch = None
+    if route >= 1:      # the norms, then on "global_basis" B and Bᵀ
+        scratch = torch.empty(nb * N1 * Nr + (route == 2) * nb * 2 * k * k,
+                              dtype=torch.float32, device=us.device)
     stream = torch.cuda.current_stream(us.device).cuda_stream
     with torch.cuda.device(us.device):
         rc = lib.phase2_select_launch(
             us.data_ptr(), k_eff.data_ptr(), G1.data_ptr(), Gr.data_ptr(),
-            None if norms is None else norms.data_ptr(), picks.data_ptr(),
-            nb, N1, Nr, k, THREADS, route, stream)
+            None if scratch is None else scratch.data_ptr(),
+            picks.data_ptr(), nb, N1, Nr, k, THREADS, route, stream)
     if rc != 0:
         msg = lib.phase2_select_error_string(rc).decode()
         raise RuntimeError(f"phase2_select kernel launch failed: CUDA error "

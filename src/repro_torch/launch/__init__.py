@@ -1,6 +1,8 @@
-"""Launchers (port of ``repro/launch``). ``serve`` is ported; the
-reference's package exports its JAX meshes (``launch/mesh.py``), which
-arrive with the process-group ``Mesh`` together with ``dryrun``, ``train``
-and ``learn`` (ROADMAP.md, queue 1), so nothing is exported yet."""
+"""Launchers (port of ``repro/launch``): ``serve``, ``train`` and
+``learn`` are ported, each a ``main(argv=None)`` run with ``python -m
+repro_torch.launch.<name>``. The reference's package exports its JAX
+meshes (``launch/mesh.py``); they arrive with the process-group ``Mesh``
+together with ``dryrun`` (ROADMAP.md, queue 1 #8.4), so nothing is
+exported yet."""
 
 __all__: list = []

@@ -9,14 +9,19 @@ The JAX package applies the stack with ``lax.scan``; here a Python loop
 over units takes each unit's slice.
 
 Plain functions on tensors: ``LM(cfg, device=)``, ``lm.init_params(key)``,
-``lm.forward(params, tokens)``, ``lm.prefill(params, tokens)``,
-``lm.decode_step(params, token, state)``. Run them under
-``torch.inference_mode()`` to serve; ``cfg.remat`` (rematerialisation in
-the backward pass) has nothing to do there.
+``lm.forward(params, tokens)``, ``lm.loss_fn(params, batch)``,
+``lm.prefill(params, tokens)``, ``lm.decode_step(params, token, state)``.
+Run the serving ones under ``torch.inference_mode()``. Training takes
+gradients of ``loss_fn`` with autograd (``repro_torch.train``); there
+``cfg.remat`` wraps each unit in ``torch.utils.checkpoint`` (the JAX
+package's ``jax.checkpoint``), and only while grad is enabled. Each
+stacked leaf is cut into its units once (``torch.unbind``), so the
+backward pass stacks a leaf's unit grads once instead of filling a
+zero leaf per unit.
 
 Not ported (ROADMAP.md, queue 1): the MoE, SSM and hybrid layer kinds
-(``ATTN_MOE``, ``SSM``, ``SSM_MOE``), whisper's encoder and cross-attention,
-and ``loss_fn`` (training). ``LM`` refuses such a config with
+(``ATTN_MOE``, ``SSM``, ``SSM_MOE``) and whisper's encoder and
+cross-attention. ``LM`` refuses such a config with
 ``NotImplementedError``. The reference's GSPMD sharding hints
 (``constrain``, ``constrain_bsd``, ``constrain_heads``, ``constrain_params``
 of ``repro/distributed/constraints.py``) do nothing without a mesh and have
@@ -30,6 +35,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import random as prng
 from .._device import DeviceLike, resolve_device
@@ -202,6 +208,15 @@ def apply_unit_decode(p, x: torch.Tensor, cache, cfg: ModelConfig):
     return x, {"head": new}
 
 
+def _unstack(tree, n: int) -> list:
+    """A tree of leaves stacked on axis 0 (nested dicts) -> the ``n``
+    trees of its slices, each leaf unbound once."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][u] for k in tree} for u in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _stack(trees):
     """Trees of equal structure -> one tree, leaves stacked on axis 0."""
     first = trees[0]
@@ -272,8 +287,7 @@ class LM:
 
     def _units(self, params):
         n_units, _ = _unit_layout(self.cfg)
-        return [tree_map(lambda a, u=u: a[u], params["blocks"])
-                for u in range(n_units)]
+        return _unstack(params["blocks"], n_units)
 
     def _head(self, params, h: torch.Tensor, mask_padded: bool = False
               ) -> torch.Tensor:
@@ -288,14 +302,46 @@ class LM:
             logits = torch.where(live, logits, -1e30)
         return logits
 
-    # -- forward (prefill without the cache) ----------------------------------
+    # -- forward (train / prefill without the cache) --------------------------
     def forward(self, params, tokens) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, vocab_padded)."""
+        cfg = self.cfg
         params = self._cast(params)
         x = params["embed"][self._tokens(tokens)].to(self._compute_dtype())
+        remat = cfg.remat and torch.is_grad_enabled()
         for p_unit in self._units(params):
-            x = apply_unit(p_unit, x, self.cfg)
+            if remat:
+                x = checkpoint(apply_unit, p_unit, x, cfg,
+                               use_reentrant=False)
+            else:
+                x = apply_unit(p_unit, x, cfg)
         return self._head(params, x)
+
+    # -- loss -----------------------------------------------------------------
+    def loss_fn(self, params, batch: Dict[str, Any]) -> torch.Tensor:
+        """Mean next-token cross entropy of ``batch["tokens"]`` (B, S + 1):
+        a float32 scalar. The loss is summed over query chunks of
+        min(attn_chunk, S) positions (one chunk when S is not a multiple),
+        each chunk's logits in float32 with the padded vocab at -1e30, so
+        only one chunk's float32 logits live at a time."""
+        cfg = self.cfg
+        tokens = self._tokens(batch["tokens"])
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        logits = self.forward(params, inputs)
+        B, S, V = logits.shape
+        C = min(cfg.attn_chunk, S)
+        n = S // C if S % C == 0 else 1
+        C = S if S % C != 0 else C
+        live = torch.arange(V, device=logits.device) < cfg.vocab
+        total = torch.zeros((), dtype=torch.float32, device=logits.device)
+        for i in range(n):
+            lg = torch.where(live, logits[:, i * C:(i + 1) * C].float(),
+                             -1e30)
+            lse = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1,
+                                labels[:, i * C:(i + 1) * C, None])[..., 0]
+            total = total + torch.sum(lse - gold)
+        return total / (B * S)
 
     # -- prefill (serving): trunk + cache fill + last-token logits -----------
     def prefill(self, params, tokens):

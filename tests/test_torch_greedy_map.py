@@ -401,3 +401,65 @@ def assert_same_or_tie(L, a, b):
                        np.linalg.lstsq(L[np.ix_(P, P)], L[P], rcond=None)[0])
     gap = abs(d[a[t]] - d[b[t]]) / np.diag(L).max()
     assert gap <= GREEDY_TIE_TOL, (t, a[t], b[t], gap)
+
+
+@pytest.mark.parametrize("shape", [(6,), (3, 6)])
+def test_kdpp_past_n_matches_jax_on_both_routes(shape, monkeypatch):
+    """k > N gives the reference's N picks and then k - N zeros on the
+    plain route, and on the card's route too: there ``ops`` launches the
+    fused selection with k = N (here a counted stand-in that refuses k
+    outside 1..N, as the wrapper does) and pads with int32 zeros."""
+    n, k = shape[-1], 8
+    Ls = np.stack([psd(n, 3, s, 0.1) for s in range(3)]) if len(shape) == 2 \
+        else psd(n, 3, 0, 0.1)
+    want = np.asarray(jax.vmap(lambda L: jax_ops.greedy_map_kdpp(L, k))(
+        jnp.asarray(Ls)) if Ls.ndim == 3
+        else jax_ops.greedy_map_kdpp(jnp.asarray(Ls), k))
+    L = torch.from_numpy(Ls)
+    np.testing.assert_array_equal(ops.greedy_map_kdpp(L, k).numpy(), want)
+    assert (want[..., n:] == 0).all()
+    asked = []
+
+    def fused(L, k):
+        assert 1 <= k <= L.shape[-1]
+        asked.append(k)
+        return greedy_map_kdpp_plain(L, k)
+    monkeypatch.setattr(ops, "greedy_map_kdpp_cuda", fused)
+    monkeypatch.setattr(ops, "_resolve_backend", lambda *a: "cuda")
+    got = ops.greedy_map_kdpp(L, k)
+    assert asked == [n] and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(ops.greedy_map_kdpp(L, n), got[..., :n])
+
+
+@pytest.mark.cuda
+def test_fused_kernel_past_n_pads_zeros_on_card():
+    """On a card: ``ops.greedy_map_kdpp`` and ``Kron.map`` with k > N, for
+    (N, N) and (H, N, N), return the plain loop's answer, the N picks and
+    then zeros, from one launch and without raising."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    cases = [(torch.from_numpy(psd(6, 3, 0, 0.1)), 8),
+             (torch.from_numpy(np.stack([psd(6, 3, s, 0.1)
+                                         for s in range(4)])), 8),
+             (torch.from_numpy(psd(33, 8, 1, 0.1)), 40)]
+    for L, k in cases:
+        f0 = greedy_map_kdpp_cuda.launches
+        got = ops.greedy_map_kdpp(L.cuda(), k)
+        torch.cuda.synchronize()
+        assert greedy_map_kdpp_cuda.launches == f0 + 1
+        assert got.is_cuda and got.dtype == torch.int32
+        want = greedy_map_kdpp_plain(L, k)
+        n = L.shape[-1]
+        for a, b, Lh in zip(got.cpu().reshape(-1, k), want.reshape(-1, k),
+                            L.reshape(-1, n, n)):
+            assert_same_or_tie(Lh.double().numpy(), a[:n].numpy(),
+                               b[:n].numpy())
+            assert (a[n:] == 0).all() and (b[n:] == 0).all()
+    model = dpp.Kron((psd(2, 2, 0, 0.1), psd(3, 3, 1, 0.1)), device="cuda")
+    cpu = dpp.Kron(tuple(f.cpu() for f in model.factors), device="cpu")
+    got, want = model.map(8), cpu.map(8)
+    assert got.is_cuda
+    assert_same_or_tie(cpu.dense_kernel().double().numpy(),
+                       got.cpu()[:6].numpy(), want[:6].numpy())
+    assert (got.cpu()[6:] == 0).all() and (want[6:] == 0).all()

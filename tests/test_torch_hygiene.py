@@ -29,8 +29,12 @@ from repro_torch.convert import (dual_spectrum_from_numpy, key_from_numpy,
 from repro_torch.core import SubsetBatch, fit_picard, random_krondpp
 from repro_torch.learning import LearningEngine, fit, schedules
 from repro_torch.configs import smoke_config
-from repro_torch.convert import lm_params_from_numpy
+from repro_torch.convert import lm_params_from_numpy, opt_state_from_numpy
+from repro_torch.optim import OptState
+from repro_torch.data import DPPBatchSelector
+from repro_torch.launch.learn import main as learn_main
 from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.train import main as train_main
 from repro_torch.lowrank.learn import fit_lowrank
 from repro_torch.models import LM
 from repro_torch.serve import ServeEngine
@@ -69,7 +73,12 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
             "repro_torch.models.common, repro_torch.models.attention, "
             "repro_torch.models.transformer, repro_torch.serve, "
             "repro_torch.serve.engine, repro_torch.launch, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.launch.learn, "
+            "repro_torch.launch.train, repro_torch.data, "
+            "repro_torch.data.pipeline, repro_torch.data.dpp_selection, "
+            "repro_torch.optim, repro_torch.optim.adamw, "
+            "repro_torch.train, repro_torch.train.steps, "
+            "repro_torch.train.trainer\n"
             "import repro_torch.configs as c\n"
             "[c.get_config(a) for a in c.list_archs()]\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -173,6 +182,15 @@ def test_no_jax_or_jax_package_import_in_port_sources(path):
     lambda: ServeEngine(LM(smoke_config("qwen2-0.5b"), device="cpu"), {}),
     lambda: serve_main(["--arch", "qwen2-0.5b", "--smoke"]),
     lambda: lm_params_from_numpy({"w": np.zeros(2, np.float32)}),
+    lambda: DPPBatchSelector.from_features(np.ones((6, 2)), 2, 3),
+    lambda: DPPBatchSelector.from_features(np.ones((6, 2)), 2, 3,
+                                           method="lowrank", rank=2),
+    lambda: DPPBatchSelector(dpp.Kron((np.eye(2), np.eye(3)), device="cpu"),
+                             2, 3),
+    lambda: LM(smoke_config("qwen2-0.5b")).loss_fn({}, {}),
+    lambda: opt_state_from_numpy(OptState(np.zeros((), np.int32), {}, {})),
+    lambda: train_main(["--arch", "qwen2-0.5b", "--smoke"]),
+    lambda: learn_main(["--n1", "3", "--n2", "3"]),
 ])
 def test_entry_points_without_a_card_raise(call):
     """Every entry point defaults to device="cuda"; with no card it

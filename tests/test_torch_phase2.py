@@ -37,6 +37,7 @@ from repro_torch.convert import spectrum_from_numpy
 from repro_torch.kernels import ops
 from repro_torch.kernels.phase2_select import (THREADS, canonical_pair,
                                                first_difference,
+                                               global_smem_bytes,
                                                is_roundoff_tie,
                                                onchip_geometry,
                                                phase2_select_cuda,
@@ -203,11 +204,19 @@ def test_onchip_geometry(N1, Nr, k, want):
     (100, 100, 46, "on_chip"), (400, 1, 46, "on_chip"),
     (20, 500, 46, "on_chip"), (300, 300, 46, "global"),
     (100, 100, 224, "global"), (400, 1, 224, "global"),
+    (100, 100, 238, "global"), (100, 100, 239, "global_basis"),
+    (32, 32, 333, "global_basis"), (1024, 1, 333, "global_basis"),
 ])
 def test_route_at_the_h100_limit(N1, Nr, k, want):
     """The main path's 100 x 100 at k_max 46 and the m = 1 and m = 3 edges
-    fit a block; 300 x 300 (its norms alone 360 KB) and k = 224 do not."""
+    fit a block; 300 x 300 (its norms alone 360 KB) and k = 224 do not;
+    past k = 238 neither does the global route's basis (the KronDPP batch
+    selector's 1024 documents draw k_max 333)."""
     assert phase2_select_route(N1, Nr, k, limit=H100_SMEM_OPTIN) == want
+    if want != "on_chip":
+        basis_fits = global_smem_bytes(k) <= H100_SMEM_OPTIN
+        assert basis_fits == (want == "global")
+        assert global_smem_bytes(k, basis_in_smem=False) < 8 * 1024
 
 
 @pytest.mark.parametrize("N1,Nr,k", [(100, 100, 46), (400, 1, 46),
@@ -223,9 +232,11 @@ def test_route_switches_at_the_limit(N1, Nr, k):
     assert routes == sorted(routes, reverse=True)     # on_chip..., global...
 
 
-# one shape of each route: the on-chip route's small shape, and 300 x 300
-# (N = 9·10^4), whose norms alone pass the H100's 227 KB a block
-ON_CARD = {"on_chip": ((30, 40), 64), "global": ((300, 300), 8)}
+# one shape of each route: the on-chip route's small shape, 300 x 300
+# (N = 9·10^4), whose norms alone pass the H100's 227 KB a block, and the
+# batch selector's 32 x 32 at E|Y| = 250, whose k x k basis passes it
+ON_CARD = {"on_chip": ((30, 40), 64, 10.0), "global": ((300, 300), 8, 10.0),
+           "global_basis": ((32, 32), 16, 250.0)}
 
 
 @pytest.mark.cuda
@@ -236,9 +247,9 @@ def test_kernel_matches_plain_on_card(route):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     from repro_torch import dpp
-    sizes, B = ON_CARD[route]
+    sizes, B, size = ON_CARD[route]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    model = dpp.random_kron(gen, sizes).rescale(10.0)
+    model = dpp.random_kron(gen, sizes).rescale(size)
     spec = model.spectrum()
     k_max = spec.suggested_k_max()
     assert phase2_select_route(*sizes, k_max) == route
