@@ -308,7 +308,36 @@ non-zero and prints no result line.
 25. the device times of every ``kernels`` row (``fill_device_times``),
    after every host-clock time above, then phase 24's train step's device
    time, idle share and largest kernels (``fill_step_profiles``), with the
-   host's time of one small launch before and after the profiler sessions.
+   host's time of one small launch before and after the profiler sessions;
+26. the MoE, SSM, hybrid and encoder-decoder families (``models/moe.py``,
+   ``models/ssm.py``, jamba's unit tail, whisper's encoder and
+   cross-attention) through ``ServeEngine.generate`` (``LF_CONFIGS``):
+   mixtral-8x7b at full width, 4 of its 32 layers; mamba2-2.7b whole;
+   whisper-tiny whole with 1500 seeded frames; jamba-1.5-large-398b's
+   layout at d_model 1024 (the cuts under ``reduced``). For each, from
+   ``init_params(PRNGKey(0))``: (1) float32, the first units on the card
+   against a CPU copy (mixtral 1 layer, mamba2 2, the others whole),
+   prefill and 4 decode steps, the chosen experts compared first
+   (``RouteLog``); (2) bfloat16 against float32, the bfloat16 run on the
+   float32 run's experts: the prefill's last logits and the forward logits
+   over 64 tokens at each depth of ``LF_BF16_LIMITS`` (the first units of
+   the same weights) within its limit, a control on weights at 5 mantissa
+   bits past it, and each block's update at full depth;
+   (3) decode against forward over 64 tokens, float32, MoE at capacity
+   factor 8; (4) bfloat16 greedy ``generate`` of 2 prompts of 512 tokens
+   (whisper 64), 32 new, inline ``"sample"`` and ``"map"`` compaction to
+   128 slots (whisper 32), recency 8, each with every kernel's launch count
+   set to 0 just before and read just after (one ``phase2_select`` a unit,
+   row and KV head and ``threefry2x32`` 1 + 2 a unit + 1 a head; one
+   ``greedy_map_kdpp`` a unit; mamba2 one key split and no selection), the
+   kept positions checked and every ``SSMCache`` bit for bit the prefill's,
+   the first and last attention unit's heads replayed through the kernels
+   against their plain versions on a CPU copy (``lf_kernels_vs_plain``);
+   ``prefill_s``, ``compact_s``, ``decode_tok_per_s``, the peak of
+   ``max_memory_allocated``; (5) one decode step's host-clock and device
+   time (``torch.profiler``), idle share and top operations; an
+   ``lm_families`` JSON line and ``launches_per_path.lm_families`` in the
+   ``kernels`` rows.
 
 Every row of the ``kernels`` line is timed by ``kernel_times``: ``ms``,
 ``plain_ms`` and ``library_ms`` are device times (the durations of the
@@ -434,6 +463,27 @@ resumed run against the one-shot run: bit for bit where the card's
 reductions are deterministic, else the same rule over the 2 resumed
 steps; the losses of steps 5 and 6 within 1e-3 relative.
 
+LM families (phase 26): the float32 card against its CPU copy within 1e-4
+of max(1, max |logits|), the caches too; a token whose K-th and (K+1)-th
+router probabilities lie within 1e-5 may route to other experts on the two
+sides (float32 roundoff of the router), is counted and its row left out,
+and such near ties may be at most 1% of the routed tokens; any other
+routing difference fails. bfloat16 against float32, the bfloat16 run
+taking the float32 run's experts (bfloat16 moves router probabilities by
+about 1e-2, and a token routed to another expert is a different
+computation, not a rounding of it; the tokens whose own bfloat16 choice
+differs are counted): end to end, the logits within a limit per depth
+(LF_BF16_LIMITS, 0.011 to 0.099 of max |float32|: the error grows with
+depth, in the JAX package too), which a control run on weights rounded to
+5 mantissa bits must exceed; block by block, each layer's update within
+5% of the float32 update's max. The kernels at each family's compaction
+shapes against their plain versions on a CPU copy: phase 2 on the
+replayed "sample" heads of the first and last attention unit, and each of
+those units' batched greedy-MAP launch (mixtral H = 16, N = 512, k = 120;
+whisper H = 12, N = 64, k = 24), bit for bit its heads' single launches.
+Decode against forward within 1e-3 of max |forward|, positions routed
+apart at a near tie left out.
+
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 are the kernel table (all seven kernels: the greedy step and the fused
 selection are two rows of one source) and the timing lines as JSON,
@@ -444,6 +494,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import gc
 import itertools
 import json
 import math
@@ -3777,13 +3828,13 @@ def lm_rel(got, want) -> float:
                                                  float(want.abs().max()))
 
 
-def lm_params_slice(params, n_layers: int, dev):
-    """The first ``n_layers`` units of an LM parameter tree, on ``dev``."""
+def lm_params_slice(params, n_units: int, dev):
+    """The first ``n_units`` units (and cross-attention layers) of an LM
+    parameter tree, on ``dev``."""
     from repro_torch.models.transformer import tree_map
-    out = {k: v.to(dev) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = tree_map(lambda a: a[:n_layers].to(dev),
-                             params["blocks"])
-    return out
+    return {k: tree_map(lambda a: (a[:n_units] if k in ("blocks", "cross")
+                                   else a).to(dev), v)
+            for k, v in params.items()}
 
 
 def lm_capture(engine) -> list:
@@ -3800,7 +3851,8 @@ def lm_capture(engine) -> list:
     return seen
 
 
-def lm_kept_positions(before, after, label: str) -> np.ndarray:
+def lm_kept_positions(before, after, label: str, budget: int = LM_BUDGET,
+                      recency: int = LM_RECENCY) -> np.ndarray:
     """The positions (U, B, KV, budget) of the prefill cache ``before``
     whose rows the compacted cache ``after`` holds, k and v alike, found
     by matching each head's rows bit for bit (they are distinct: rope
@@ -3810,11 +3862,11 @@ def lm_kept_positions(before, after, label: str) -> np.ndarray:
     kb, vb, ka, va = (x.cpu().view(torch.int16).numpy()
                       for x in (cb.k, cb.v, ca.k, ca.v))
     pos = cb.pos.cpu().numpy()
-    check(ka.shape[2] == LM_BUDGET and torch.equal(ca.pos.cpu(),
+    check(ka.shape[2] == budget and torch.equal(ca.pos.cpu(),
                                                    cb.pos.cpu()),
           f"{label}: compacted cache {ka.shape}, pos {ca.pos.tolist()}")
     U, B, _, KV, _ = kb.shape
-    out = np.zeros((U, B, KV, LM_BUDGET), np.int64)
+    out = np.zeros((U, B, KV, budget), np.int64)
     for u, b, h in np.ndindex(U, B, KV):
         rows = {r.tobytes(): i for i, r in enumerate(kb[u, b, :, h])}
         check(len(rows) == kb.shape[2], f"{label}: unit {u} b {b} h {h} "
@@ -3822,7 +3874,7 @@ def lm_kept_positions(before, after, label: str) -> np.ndarray:
         got = [rows.get(r.tobytes(), -1) for r in ka[u, b, :, h]]
         vl = int(pos[u])
         check(min(got) >= 0 and got == sorted(set(got)) and got[-1] < vl
-              and set(range(vl - LM_RECENCY, vl)) <= set(got),
+              and set(range(vl - recency, vl)) <= set(got),
               f"{label}: unit {u} b {b} h {h} keeps {got}: not sorted, "
               f"distinct, below {vl} with the recency window")
         check(np.array_equal(va[u, b, :, h], vb[u, b, got, h]),
@@ -4680,6 +4732,654 @@ def lm_leaves(tree) -> list:
     return [tree]
 
 
+# ---------------------------------------------------------------------------
+# phase 26 helpers: the MoE, SSM, hybrid and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+# Each family served through ServeEngine.generate, bfloat16, greedy, two
+# seeded prompts, 32 new tokens, inline compaction to the budget with the 8
+# most recent kept, "sample" and "map"; weights from init_params(PRNGKey(0)).
+# (arch, overrides, prompt, budget, depth of the float32 card-vs-CPU check,
+# the cuts listed under "reduced"): mixtral-8x7b at full width, 4 of its 32
+# layers; mamba2-2.7b whole; whisper-tiny whole (1500 seeded frames);
+# jamba-1.5-large-398b's layout (hybrid_period 8, unit_head 2,
+# unit_tail_period 2, 16 experts top 2 every 2nd layer, SSD state 64, head
+# 64, expand 2, head_dim 128, 8 : 1 heads, d_ff = 3 d) at reduced width: one
+# unit at full width is 38.7 B params, 77 GB in bfloat16 alone.
+LF_CONFIGS = (
+    ("mixtral-8x7b", {"n_layers": 4}, 512, 128, 1,
+     {"n_layers": "4 of 32"}),
+    ("mamba2-2.7b", {}, 512, 128, 2, {}),
+    ("whisper-tiny", {}, 64, 32, None, {}),
+    ("jamba-1.5-large-398b", {"d_model": 1024, "d_ff": 3072, "n_heads": 8,
+                              "n_kv_heads": 1, "n_layers": 16}, 512, 128,
+     None, {"d_model": "1024 of 8192", "d_ff": "3072 of 24576",
+            "n_heads": "8 of 64", "n_kv_heads": "1 of 8",
+            "n_layers": "16 of 72 (2 units of 8)"}),
+)
+LF_SEED = 0
+LF_BATCH, LF_NEW, LF_RECENCY = 2, 32, 8
+LF_DECODE_STEPS = 4        # decode steps held against the CPU copy
+LF_CHECK_TOKENS = 64       # bf16 vs f32 and decode vs forward: first 64
+LF_F32_TOL = 1e-4          # card vs CPU copy, of max(1, max |CPU|)
+LF_BF16_TOL = 0.05         # a bfloat16 block's update, of the float32 one's
+LF_DVF_TOL = 1e-3          # decode vs forward (float32), of max |forward|
+LF_DVF_CAPACITY = 8.0      # no token dropped (decode vs forward)
+LF_TIE = 1e-5              # router probabilities this close may route apart
+LF_TIE_SHARE = 0.01        # the most near-tie tokens a check may leave out
+# bfloat16 against float32 end to end, max |Δ| over max |float32| logits,
+# at (arch, layers): the first units of the same weights, the whole model
+# last. The error grows with depth as bfloat16 rounding accumulates (the
+# JAX package's too: tests/test_torch_model_families.py::
+# test_bfloat16_error_grows_with_depth_as_in_jax), so each limit is 1.25
+# times the larger of the two logits' readings of this phase on an NVIDIA
+# H100 80GB HBM3 at 700 W, rounded up: mixtral 0.01356; mamba2 0.01727,
+# 0.03827, 0.07922 at 4, 16, 64 layers; whisper 0.00833; jamba 0.04306,
+# 0.06093 at 8, 16 (1 and 2 units). The control read 1.9 to 2.8 times the
+# readings.
+LF_BF16_LIMITS = {
+    ("mixtral-8x7b", 4): 0.017,
+    ("mamba2-2.7b", 4): 0.022, ("mamba2-2.7b", 16): 0.048,
+    ("mamba2-2.7b", 64): 0.099,
+    ("whisper-tiny", 4): 0.011,
+    ("jamba-1.5-large-398b", 8): 0.054, ("jamba-1.5-large-398b", 16): 0.077,
+}
+LF_CONTROL_BITS = 5        # the control's weights: 5 of bfloat16's 7 bits
+
+
+class RouteLog:
+    """Record every ``moe.route`` call made inside the ``with``: the chosen
+    experts (sorted), the gap between the K-th and (K+1)-th router
+    probabilities of each token, on the host, and the choice as made (on
+    the device). With ``replay`` (another log's ``chosen``), call i takes
+    that log's experts instead of its own, weighted by its own router
+    probabilities; ``own`` then records the experts it would have chosen
+    (sorted, on the host)."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self.chosen, self.own = [], [], []
+        self._moe, inner = moe, moe.route
+
+        def route(p, h, cfg):
+            probs, top_w, top_e = inner(p, h, cfg)
+            if self.replay is not None:
+                self.own.append(top_e.sort(-1).values.cpu())
+                top_e = self.replay[len(self.chosen)]
+                top_w = torch.gather(probs, -1, top_e)
+                top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True),
+                                                1e-9)
+            srt = torch.sort(probs, dim=-1, descending=True).values
+            K = cfg.experts_per_token
+            self.calls.append((top_e.sort(-1).values.cpu(),
+                               (srt[..., K - 1] - srt[..., K]).cpu()))
+            self.chosen.append(top_e)
+            return probs, top_w, top_e
+        self._inner, moe.route = inner, route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._inner
+
+
+def lf_route_diff(a, b, label: str):
+    """Two routing records of one call (experts (B, S, K), gaps (B, S)):
+    (tokens routed apart (B, S) bool, near-tie tokens (B, S) bool). Every
+    token routed apart must be a near tie."""
+    (ea, ga), (eb, gb) = a, b
+    check(ea.shape == eb.shape, f"{label}: routing shapes {tuple(ea.shape)} "
+          f"/ {tuple(eb.shape)}")
+    apart = (ea != eb).any(-1)
+    near = torch.minimum(ga, gb) < LF_TIE
+    check(bool((~apart | near).all()), f"{label}: {int((apart & ~near).sum())}"
+          f" tokens route to other experts with a router gap past {LF_TIE}")
+    return apart, near
+
+
+def lf_cache_leaves(tree, path=""):
+    """(path, leaf) of every cache leaf (``KVCache`` or ``SSMCache``)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in lf_cache_leaves(
+            tree[k], f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def lf_card_vs_cpu(cfg32, params, n_units: int, prompts, enc, dev) -> dict:
+    """float32, the first ``n_units`` units on the card against a CPU copy:
+    the routing first (MoE), then the prefill's and LF_DECODE_STEPS decode
+    steps' logits and the caches, within LF_F32_TOL; a row with a token
+    routed apart at a near tie is left out from then on."""
+    import dataclasses
+    from repro_torch.models import LM
+    n_layers = n_units * (cfg32.hybrid_period or 1)
+    cfg = dataclasses.replace(cfg32, n_layers=n_layers)
+    card, cpu = LM(cfg, device=dev), LM(cfg, device="cpu")
+    p_card, p_cpu = (lm_params_slice(params, n_units, d)
+                     for d in (dev, "cpu"))
+    live = slice(0, cfg.vocab)
+    # the CPU copy picks the tokens; the card decodes the same ones
+    with RouteLog() as rc:
+        lc, sc = cpu.prefill(p_cpu, prompts, enc_embeds=enc)
+        steps_c, toks = [lc], []
+        for _ in range(LF_DECODE_STEPS):
+            toks.append(lc[:, -1].argmax(-1).to(torch.int32)[:, None]
+                        .numpy())
+            lc, sc = cpu.decode_step(p_cpu, toks[-1], sc)
+            steps_c.append(lc)
+    with RouteLog() as rg:
+        lg, sg = card.prefill(p_card, prompts, enc_embeds=enc)
+        steps_g = [lg]
+        for nxt in toks:
+            lg, sg = card.decode_step(p_card, nxt, sg)
+            steps_g.append(lg)
+    out = {"layers": n_layers, "moe_calls": len(rc.calls)}
+    apart_rows = torch.zeros(LF_BATCH, dtype=torch.bool)
+    n_tok = n_near = n_apart = 0
+    per_step = len(rc.calls) // (1 + LF_DECODE_STEPS)
+    check(len(rg.calls) == len(rc.calls), f"card vs CPU: {len(rg.calls)} / "
+          f"{len(rc.calls)} routing calls")
+    errs, left_out = [], []
+    for s, (g, c) in enumerate(zip(steps_g, steps_c)):
+        for i in range(s * per_step, (s + 1) * per_step):
+            apart, near = lf_route_diff(rg.calls[i], rc.calls[i],
+                                        f"card vs CPU, routing call {i}")
+            apart_rows |= apart.any(-1)
+            n_tok += near.numel()
+            n_near += int(near.sum())
+            n_apart += int(apart.sum())
+        keep = ~apart_rows
+        left_out.append(int(apart_rows.sum()))
+        errs.append(lm_rel(g[keep][..., live], c[keep][..., live])
+                    if keep.any() else 0.0)
+    out.update(logits_rel=errs, rows_left_out=left_out,
+               routed_apart=n_apart, near_ties=n_near, routed_tokens=n_tok)
+    if n_tok:
+        check(n_near <= LF_TIE_SHARE * n_tok, f"card vs CPU: {n_near} of "
+              f"{n_tok} tokens are router near-ties")
+    check(left_out[-1] < LF_BATCH, "card vs CPU: every row left out")
+    cache_errs = {}
+    if not apart_rows.any():
+        for (path, a), (_, b) in zip(lf_cache_leaves(sg.caches),
+                                     lf_cache_leaves(sc.caches)):
+            for name in a._fields[:-1]:
+                cache_errs[f"{path}.{name}"] = lm_rel(getattr(a, name),
+                                                      getattr(b, name))
+            check(torch.equal(a.pos.cpu(), b.pos), f"{path}.pos differs")
+    out["cache_rel"] = max(cache_errs.values()) if cache_errs else None
+    check(max(errs) <= LF_F32_TOL and (out["cache_rel"] or 0.0)
+          <= LF_F32_TOL, f"float32 card vs CPU copy at {n_layers} layers: "
+          f"logits {errs}, caches {out['cache_rel']} > {LF_F32_TOL}")
+    return out
+
+
+def lf_positions_apart(fwd, dec, n_moe: int, S: int):
+    """Positions (B, S) whose routing differs between a forward run's log
+    (one call a MoE layer over S tokens) and a decode run's (S steps of one
+    call a layer), each a near tie; (apart, near-tie count)."""
+    apart = torch.zeros((LF_BATCH, S), dtype=torch.bool)
+    n_near = 0
+    for t in range(S):
+        for lyr in range(n_moe):
+            ef, gf = fwd[lyr]
+            a, near = lf_route_diff(
+                (ef[:, t:t + 1], gf[:, t:t + 1]), dec[t * n_moe + lyr],
+                f"decode vs forward, layer {lyr} position {t}")
+            apart[:, t] |= a[:, 0]
+            n_near += int(near.sum())
+    return apart, n_near
+
+
+def lf_bf16_blocks(lm16, lm32, params16, params, toks, enc) -> dict:
+    """bfloat16 (the config's) against float32, block by block at full
+    depth on the card: every encoder layer, decoder layer (a unit's head
+    layers and tail repeats too) and cross-attention layer is fed the
+    float32 run's input (rounded to bfloat16 for the bfloat16
+    block), and its update (output minus input) held within LF_BF16_TOL of
+    the float32 update's max. Routing is a choice, not a rounding: the
+    bfloat16 block takes the float32 block's experts (weighted by its own
+    router), and the token-layers whose own bfloat16 choice differs are
+    counted."""
+    from repro_torch.models.transformer import (_apply_layer, _unit_split,
+                                                _unstack, attention_forward,
+                                                dense_ffn)
+    cfg = lm32.cfg
+    bf16 = torch.bfloat16
+
+    def encoder_layer(p, h):
+        return dense_ffn(p["ffn"], attention_forward(p["attn"], h, cfg,
+                                                     causal=False), cfg)
+
+    def blocks(p, enc_out):
+        """(name, fn(x)) of every block in order, on params ``p``."""
+        out = [(f"encoder{i}", partial(encoder_layer, q))
+               for i, q in enumerate(_unstack(p["encoder"],
+                                              cfg.encoder_layers))
+               ] if cfg.encoder_layers else []
+        head, reps, tail = _unit_split(cfg)
+        for u, (pu, pc) in enumerate(lm32._units(p)):
+            layers = [(f"unit{u}.head.layer{j}", pu["head"][f"layer{j}"])
+                      for j in range(len(head))]
+            for r, pr in enumerate(_unstack(pu["tail"], reps) if reps
+                                   else []):
+                layers += [(f"unit{u}.tail{r}.layer{j}", pr[f"layer{j}"])
+                           for j in range(len(tail))]
+            out += [(name, lambda x, q=q: _apply_layer(q, x, cfg, False)[0])
+                    for name, q in layers]
+            if pc is not None:
+                out.append((f"cross{u}", lambda x, pc=pc: attention_forward(
+                    pc["attn"], x, cfg, causal=False, kv_from=enc_out[0])))
+        return out
+
+    enc32, enc16 = [None], [None]      # the encoder states, once known
+    b32, b16 = blocks(params, enc32), blocks(params16, enc16)
+    x = params["embed"][torch.as_tensor(toks, device=lm32.device).long()]
+    xe = None if enc is None else torch.as_tensor(enc, device=lm32.device)
+    rels, apart, routed = {}, 0, 0
+    for (name, f32), (_, f16) in zip(b32, b16):
+        h = xe if name.startswith("encoder") else x
+        with RouteLog() as r32:
+            y32 = f32(h)
+        with RouteLog(replay=r32.chosen) as r16:
+            y16 = f16(h.to(bf16))
+        check(y16.dtype == bf16 and y32.dtype == torch.float32,
+              f"{name}: {y16.dtype} / {y32.dtype}")
+        d32 = y32 - h
+        d16 = y16.float() - h.to(bf16).float()
+        rels[name] = float((d16 - d32).abs().max()) / float(d32.abs().max())
+        apart += sum(int((own != e).any(-1).sum())
+                     for own, (e, _) in zip(r16.own, r32.calls))
+        routed += sum(int(e[..., 0].numel()) for e, _ in r32.calls)
+        if name.startswith("encoder"):
+            xe = y32
+            if name == f"encoder{cfg.encoder_layers - 1}":
+                enc32[0], enc16[0] = y32, y32.to(bf16)
+        else:
+            x = y32
+    worst = max(rels, key=rels.get)
+    out = {"blocks": len(rels), "max_update_rel": rels[worst],
+           "worst_block": worst, "median_update_rel": float(
+               np.median(list(rels.values()))),
+           "token_layers_bf16_would_route_apart": apart,
+           "routed_token_layers": routed}
+    check(rels[worst] <= LF_BF16_TOL, f"bfloat16 vs float32, {worst}: its "
+          f"update within {rels[worst]} of the float32 update's max, past "
+          f"{LF_BF16_TOL}")
+    return out
+
+
+def lf_round_mantissa(t: torch.Tensor, bits: int) -> torch.Tensor:
+    """A bfloat16 ``t`` rounded to nearest at ``bits`` of its 7 mantissa
+    bits (other dtypes as they are): the control's coarser weights."""
+    if t.dtype != torch.bfloat16:
+        return t
+    drop = 23 - bits
+    i = t.float().view(torch.int32)
+    i = (i + (1 << (drop - 1))) & ~((1 << drop) - 1)
+    return i.view(torch.float32).to(torch.bfloat16)
+
+
+def lf_bf16_end_to_end(lm16, lm32, params16, params, prompts, enc,
+                       limit: float) -> dict:
+    """bfloat16 against float32 end to end on the card: the prefill's
+    last-token logits (phase 23's comparison) and the forward logits over
+    the first LF_CHECK_TOKENS tokens, each max |Δ| over max |float32|
+    within ``limit``, the bfloat16 run on the float32 run's experts. The
+    control, the same bfloat16 run on its weights rounded to
+    LF_CONTROL_BITS mantissa bits, must read past ``limit``: the limit
+    fails an error a few times bfloat16's own."""
+    from repro_torch.models.transformer import tree_map
+    V = lm32.cfg.vocab
+    control = tree_map(partial(lf_round_mantissa, bits=LF_CONTROL_BITS),
+                       params16)
+    out = {"layers": lm32.cfg.n_layers, "limit": limit}
+    for name, run in (
+            ("prefill_last", lambda lm, p: lm.prefill(p, prompts, enc)[0]),
+            ("forward_first_tokens", lambda lm, p: lm.forward(
+                p, prompts[:, :LF_CHECK_TOKENS], enc_embeds=enc))):
+        with RouteLog() as r32:
+            l32 = run(lm32, params)
+        with RouteLog(replay=r32.chosen):
+            l16 = run(lm16, params16)
+        with RouteLog(replay=r32.chosen):
+            lc = run(lm16, control)
+        check(l16.dtype == lc.dtype == torch.bfloat16
+              and l32.dtype == torch.float32,
+              f"{name} logits {l16.dtype} / {lc.dtype} / {l32.dtype}")
+        a, c, b = (x[..., :V].float().cpu() for x in (l16, lc, l32))
+        scale = float(b.abs().max())
+        out[name] = {
+            "positions": int(b[..., 0].numel()),
+            "logits_rel": float((a - b).abs().max()) / scale,
+            "control_rel": float((c - b).abs().max()) / scale,
+            "argmax_agree_share": float((a.argmax(-1) == b.argmax(-1))
+                                        .float().mean())}
+    del control
+    names = ("prefill_last", "forward_first_tokens")
+    worst = max(out[n]["logits_rel"] for n in names)
+    control = min(out[n]["control_rel"] for n in names)
+    check(worst <= limit, f"bfloat16 vs float32 at {out['layers']} layers: "
+          f"logits within {worst} of max |float32|, past {limit}")
+    check(control > limit, f"bfloat16 vs float32 at {out['layers']} layers: "
+          f"the control ({LF_CONTROL_BITS} mantissa bits) reads {control}, "
+          f"not past the limit {limit}")
+    return out
+
+
+def lf_bf16_vs_f32(arch, lm16, lm32, params16, params, prompts, enc) -> dict:
+    """bfloat16 (the config's) against float32 on the card at every depth
+    of LF_BF16_LIMITS for ``arch`` (the first units of the same weights,
+    the whole model last), end to end (``lf_bf16_end_to_end``), then block
+    by block at full depth (``lf_bf16_blocks``)."""
+    import dataclasses
+    from repro_torch.models import LM
+    cfg = lm32.cfg
+    out = {"limits_at_layers": {}}
+    for n in sorted(n for a, n in LF_BF16_LIMITS if a == arch):
+        if n == cfg.n_layers:
+            e = lf_bf16_end_to_end(lm16, lm32, params16, params, prompts,
+                                   enc, LF_BF16_LIMITS[arch, n])
+        else:
+            units = n // (cfg.hybrid_period or 1)
+            e = lf_bf16_end_to_end(*(
+                LM(dataclasses.replace(x.cfg, n_layers=n), device=x.device)
+                for x in (lm16, lm32)), *(
+                lm_params_slice(p, units, lm32.device)
+                for p in (params16, params)), prompts, enc,
+                LF_BF16_LIMITS[arch, n])
+        out["limits_at_layers"][n] = e
+    check(cfg.n_layers in out["limits_at_layers"], f"{arch}: no bfloat16 "
+          f"limit at its {cfg.n_layers} layers")
+    out["blocks"] = lf_bf16_blocks(lm16, lm32, params16, params,
+                                   prompts[:, :LF_CHECK_TOKENS], enc)
+    return out
+
+
+def lf_decode_vs_forward(lm32, params, toks, enc, dev) -> dict:
+    """float32 token-by-token decode from an empty state against forward
+    over the same tokens, full depth, on the card (MoE at capacity factor
+    LF_DVF_CAPACITY: no token dropped), within LF_DVF_TOL of max |forward|;
+    positions routed apart at a near tie are left out."""
+    import dataclasses
+    from repro_torch.models import LM
+    cfg = lm32.cfg
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=LF_DVF_CAPACITY)
+    lm = LM(cfg, device=dev)
+    S = toks.shape[1]
+    with RouteLog() as rf:
+        full = lm.forward(params, toks, enc_embeds=enc)[..., :cfg.vocab]
+    state = lm.init_decode_state(LF_BATCH, S, enc_embeds=enc, params=params)
+    outs = []
+    with RouteLog() as rd:
+        for t in range(S):
+            lg, state = lm.decode_step(params, toks[:, t:t + 1], state)
+            outs.append(lg[:, 0, :cfg.vocab])
+    n_moe = len(rf.calls)
+    apart, n_near = lf_positions_apart(rf.calls, rd.calls, n_moe, S)
+    keep = (~apart).to(full.device)
+    dec = torch.stack(outs, 1)
+    rel = float((dec[keep] - full[keep]).abs().max()) / \
+        float(full.abs().max())
+    out = {"tokens": S, "logits_rel": rel, "positions_routed_apart":
+           int(apart.sum()), "near_ties": n_near}
+    check(n_near <= LF_TIE_SHARE * max(1, n_moe * LF_BATCH * S),
+          f"decode vs forward: {n_near} near-tie tokens")
+    check(rel <= LF_DVF_TOL, f"decode vs forward: {rel} > {LF_DVF_TOL}")
+    return out
+
+
+def lf_ssm_kept(before, after, label: str) -> int:
+    """Every ``SSMCache`` of a compacted state is the prefill state's, bit
+    for bit; returns how many there are."""
+    n = 0
+    for (path, a), (_, b) in zip(lf_cache_leaves(before.caches),
+                                 lf_cache_leaves(after.caches)):
+        if hasattr(a, "conv"):
+            n += 1
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{label}: {path} changed in compaction")
+    return n
+
+
+def lf_kernels_vs_plain(method: str, before, kept, cfg, prompt: int,
+                        budget: int, attn_units: int) -> dict:
+    """The path's kernels at this family's shapes against their plain
+    versions, on the first and the last attention unit's heads (every row
+    and KV head) of the prefill cache ``before`` with the positions
+    ``kept`` (``lm_kept_positions``). "sample": each head replayed through
+    ``kv_head_replay`` (``phase2_select`` at B = 1, N = prompt, k = budget
+    − recency, as compaction launches it; its picks among the kept ones),
+    all of them against the plain phase 2 on a CPU copy. "map": each unit's
+    (B·KV, N, N) stack of head kernels in one ``greedy_map_kdpp`` launch,
+    as compaction launches it, against ``greedy_map_kdpp_plain`` on a CPU
+    copy, each head's own single launch bit for bit, and the kept
+    positions its picks with the recency window."""
+    from repro_torch.kernels import greedy_map as gm
+    from repro_torch.kernels import phase2_select as p2
+    from repro_torch.serve.kv_compaction import token_kernel
+    KV, k = cfg.n_kv_heads, budget - LF_RECENCY
+    cache = before.caches["head"]["layer0"]
+    units = sorted({0, attn_units - 1})
+    pairs = list(itertools.product(range(LF_BATCH), range(KV)))
+    out = {"units": units, "heads": len(units) * len(pairs), "N": prompt,
+           "k": k}
+    if method == "sample":
+        hkeys = lm_sample_head_keys(LF_SEED, attn_units, LF_BATCH, KV)
+        ins = [kv_head_replay(cache.k[u, b, :, h], LF_RECENCY, prompt,
+                              hkeys[u, b, h], kept[u, b, h],
+                              f"{cfg.name} sample head (unit {u}, b {b}, "
+                              f"h {h})")
+               for u in units for b, h in pairs]
+        us, ke, G1, Gr = (torch.cat([x[0][j] for x in ins]).cpu()
+                          for j in range(4))
+        pp = p2.phase2_select_plain(us, ke, G1, Gr).numpy()
+        out["route"] = p2.phase2_select_route(prompt, 1, k)
+        out["vs_cpu_plain"] = compare_picks(
+            torch.cat([x[1] for x in ins]).cpu().numpy(), pp, us, ke, G1, Gr,
+            f"{cfg.name} KV heads, phase2_select vs the plain phase 2 on a "
+            f"CPU copy")
+        return out
+    recent = set(range(prompt - LF_RECENCY, prompt))
+    out["vs_cpu_plain"] = []
+    for u in units:
+        L = torch.stack([token_kernel(cache.k[u, b, :, h], LF_RECENCY,
+                                      prompt, "map")[0] for b, h in pairs])
+        picks = gm.greedy_map_kdpp_cuda(L, k)
+        plain = gm.greedy_map_kdpp_plain(L.cpu(), k).numpy()
+        got = picks.cpu().numpy()
+        for i, (b, h) in enumerate(pairs):
+            label = f"{cfg.name} map unit {u} head ({b}, {h})"
+            check(torch.equal(gm.greedy_map_kdpp_cuda(L[i], k), picks[i]),
+                  f"{label}: the batched launch of {len(pairs)} differs "
+                  f"from its single launch")
+            check(sorted(set(got[i].tolist()) | recent) ==
+                  kept[u, b, h].tolist(), f"{label}: the kept positions "
+                  f"are not the batched picks and the recency window")
+            out["vs_cpu_plain"].append(compare_maps(L[i].cpu(), got[i],
+                                                    plain[i], label,
+                                                    quiet=True))
+    out["identical"] = sum(r["identical"] for r in out["vs_cpu_plain"])
+    out["vs_cpu_plain"] = [r for r in out["vs_cpu_plain"]
+                           if not r["identical"]]
+    print(f"  {cfg.name} map: {out['identical']} of {out['heads']} heads' "
+          f"batched picks (H = {len(pairs)}, N = {prompt}, k = {k}) the "
+          f"plain version's on a CPU copy; the rest proven ties")
+    return out
+
+
+def lf_step_profile(lm, params16, prompts, enc, dev) -> dict:
+    """One bfloat16 decode step after a prefill: its host-clock time (CUDA
+    events around 5 steps), its device time (``torch.profiler``: every
+    kernel, copy and fill), the idle share and its top operations."""
+    _, state = lm.prefill(params16, prompts, enc_embeds=enc)
+    tok = torch.zeros((LF_BATCH, 1), dtype=torch.int32, device=dev)
+
+    def step():
+        return lm.decode_step(params16, tok, state)
+    names = {}
+    wall = cuda_ms(step, reps=5, warmup=2)
+    dev_ms = device_ms(step, reps=3, warmup=1, by_name=names)
+    events = names.pop("events")
+    return {"step_ms": wall, "step_device_ms": dev_ms,
+            "step_idle_share": 1.0 - dev_ms / wall,
+            "step_device_events": events,
+            "step_top_ops_ms": {k[:80]: v for k, v in sorted(
+                names.items(), key=lambda kv: -kv[1])[:10]}}
+
+
+@torch.inference_mode()
+def lm_family(arch, overrides, prompt, budget, cpu_units, reduced, dev,
+              card: str, power_limit: str) -> dict:
+    """One family of phase 26 (see LF_CONFIGS)."""
+    import dataclasses
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.models.transformer import _unit_layout
+    from repro_torch.serve import ServeEngine
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), **overrides)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    lm, lm32 = LM(cfg, device=dev), LM(cfg32, device=dev)
+    n_units, kinds = _unit_layout(cfg)
+    attn_units = n_units if cfg.n_heads else 0
+    heads = attn_units * LF_BATCH * cfg.n_kv_heads
+    out = {"arch": arch, "reduced": reduced, "shapes": {
+        "layers": cfg.n_layers, "units": n_units, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
+        "d_ff": cfg.d_ff, "experts": cfg.n_experts,
+        "top_k": cfg.experts_per_token, "ssm_state": cfg.ssm_state,
+        "encoder_layers": cfg.encoder_layers, "encoder_seq": cfg.encoder_seq,
+        "vocab_padded": cfg.vocab_padded, "dtype": cfg.dtype,
+        "batch": LF_BATCH, "prompt": prompt, "new": LF_NEW,
+        "budget": budget, "recency": LF_RECENCY, "kv_heads_a_run": heads},
+        "card": card, "power_limit": power_limit}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_params(prng.PRNGKey(LF_SEED, dev))
+    out["params"] = sum(int(a.numel()) for a in lm_leaves(params))
+    out["init_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(LF_SEED)
+    enc = None
+    if cfg.encoder_layers:
+        enc = rng.standard_normal((LF_BATCH, cfg.encoder_seq, cfg.d_model)
+                                  ).astype(np.float32)
+    prompts = rng.integers(0, cfg.vocab, (LF_BATCH, prompt), dtype=np.int32)
+    print(f"  {arch}: {out['params']} parameters (float32), init "
+          f"{out['init_s']:.1f} s; {card}, {power_limit}")
+
+    # (1) float32, the card against a CPU copy
+    out["card_vs_cpu_f32"] = lf_card_vs_cpu(
+        cfg32, params, cpu_units or n_units, prompts, enc, dev)
+    print(f"  {arch} float32 card vs CPU copy: "
+          f"{json.dumps(out['card_vs_cpu_f32'])}")
+
+    # (2) bfloat16 against float32, (3) decode against forward
+    params16 = lm._cast(params)
+    out["bf16_vs_f32"] = lf_bf16_vs_f32(arch, lm, lm32, params16, params,
+                                        prompts, enc)
+    out["decode_vs_forward"] = lf_decode_vs_forward(
+        lm32, params, prompts[:, :LF_CHECK_TOKENS], enc, dev)
+    print(f"  {arch} bfloat16 vs float32: {json.dumps(out['bf16_vs_f32'])}; "
+          f"decode vs forward: {json.dumps(out['decode_vs_forward'])}")
+    del params
+    gc.collect()
+
+    # (4) the serving path, bfloat16, greedy: "sample" and "map"
+    engine = ServeEngine(lm, params16, seed=LF_SEED, device=dev)
+    engine.generate(prompts[:, :16], 2, enc_embeds=enc)          # warm-up
+    runs, launches, ssm_kept, replay = {}, {}, {}, {}
+    expect = {"sample": ({"phase2_select", "threefry2x32"} if heads
+                         else {"threefry2x32"}),
+              "map": {"greedy_map_kdpp"} if heads else set()}
+    for method in ("sample", "map"):
+        eng = ServeEngine(lm, params16, seed=LF_SEED, device=dev)
+        seen = lm_capture(eng)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before_gb = torch.cuda.memory_allocated(dev) / 2 ** 30
+        res, n = sv_counted(lambda: eng.generate(
+            prompts, LF_NEW, enc_embeds=enc, kv_budget=budget,
+            kv_recency=LF_RECENCY, kv_method=method),
+            f"{arch} generate, {method} compaction", expect[method])
+        res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(
+            dev) / 2 ** 30
+        res["memory_allocated_before_gb"] = before_gb
+        tok = res.pop("tokens")
+        check(tok.shape == (LF_BATCH, LF_NEW) and (tok >= 0).all()
+              and (tok < cfg.vocab).all(), f"{arch} {method}: tokens "
+              f"{tok.shape}, range [{tok.min()}, {tok.max()}]")
+        res["tokens_first_row"] = tok[0, :8].tolist()
+        check(len(seen) == 1, f"{arch} {method}: {len(seen)} compactions")
+        _, before, after = seen[0]
+        ssm_kept[method] = lf_ssm_kept(before, after, f"{arch} {method}")
+        if heads:
+            kept = lm_kept_positions(before, after, f"{arch} {method} "
+                                     f"compaction", budget=budget,
+                                     recency=LF_RECENCY)
+            replay[method] = lf_kernels_vs_plain(method, before, kept, cfg,
+                                                 prompt, budget, attn_units)
+        runs[method], launches[method] = res, n
+        del seen, before, after
+    n_s, n_m = launches["sample"], launches["map"]
+    want_tf = 1 + (2 * attn_units + heads if heads else 0)
+    check(n_s["phase2_select"] == heads and n_s["threefry2x32"] == want_tf,
+          f"{arch}: sample compaction launched phase 2 "
+          f"{n_s['phase2_select']} and threefry2x32 {n_s['threefry2x32']} "
+          f"times, not {heads} (one a unit, row and KV head) and {want_tf}")
+    check(n_m["greedy_map_kdpp"] == attn_units, f"{arch}: map compaction "
+          f"launched greedy_map_kdpp {n_m['greedy_map_kdpp']} times, not "
+          f"{attn_units} (one a unit)")
+    check(all((n > 0) == (cfg.ssm_state > 0) for n in ssm_kept.values()),
+          f"{arch}: SSM caches kept bit for bit {ssm_kept}")
+    out["ssm_caches_kept_bitwise"] = ssm_kept
+    out["kernels_vs_plain"] = replay
+    out["runs"] = runs
+    out["launches_per_request"] = {
+        m: {k: v for k, v in n.items() if v} for m, n in launches.items()}
+    out["prefill_s"] = runs["map"]["prefill_s"]
+    out["compact_s"] = {m: runs[m]["compact_s"] for m in runs}
+    out["decode_s"] = runs["map"]["decode_s"]
+    out["decode_tok_per_s"] = runs["map"]["decode_tok_per_s"]
+    out["max_memory_allocated_gb"] = max(
+        r["max_memory_allocated_gb"] for r in runs.values())
+
+    # (5) one decode step on the device
+    out.update(lf_step_profile(lm, params16, prompts, enc, dev))
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  {arch} ({card}, {power_limit}): prefill "
+          f"{out['prefill_s']:.4f} s, compact sample "
+          f"{out['compact_s']['sample']:.4f} s / map "
+          f"{out['compact_s']['map']:.4f} s, decode "
+          f"{out['decode_tok_per_s']:.1f} tokens/s, peak "
+          f"{out['max_memory_allocated_gb']:.2f} GiB, launches "
+          f"{json.dumps(out['launches_per_request'])}; a decode step "
+          f"{out['step_ms']:.2f} ms, device {out['step_device_ms']:.2f} ms "
+          f"(idle {out['step_idle_share']:.2f}, "
+          f"{out['step_device_events']:.0f} events); top "
+          f"{json.dumps({k[:40]: round(v, 3) for k, v in out['step_top_ops_ms'].items()})}")
+    del engine, params16
+    gc.collect()          # lm_capture's wrapper and its engine form a cycle
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_families_path(dev, card: str, power_limit: str) -> dict:
+    """Phase 26: the MoE, SSM, hybrid and encoder-decoder families through
+    the port's LM stack and ``ServeEngine`` (see LF_CONFIGS). Returns what
+    the ``lm_families`` line prints."""
+    t0 = time.perf_counter()
+    out = {arch: lm_family(arch, ov, prompt, budget, cpu_units, reduced,
+                           dev, card, power_limit)
+           for arch, ov, prompt, budget, cpu_units, reduced in LF_CONFIGS}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"LM families (phase 26): {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -5341,6 +6041,9 @@ def main() -> None:
           f"{WINDOWS['lead_marks']}; counted windows that lost lead marks: "
           f"{len(WINDOWS['lead_lost'])}, marks lost {WINDOWS['lead_lost']}")
 
+    # -- 26. the MoE, SSM, hybrid and encoder-decoder families -------------
+    lf = lm_families_path(dev, card, power_limit)
+
     for t in (times[64], times[1], times["global"],
               sel_times["kdpp_phase2"], inf["phase2"],
               sv["kv"]["phase2_times"], lms["phase2_times"],
@@ -5544,6 +6247,18 @@ def main() -> None:
             k: v for k, v in lmt.items() if k not in (
                 "step_times_s", "select_ms", "losses")},
         "card": card, "power_limit": power_limit, "nvidia_smi": smi}))
+    lf_launch = {a: lf[a]["launches_per_request"] for a, *_ in LF_CONFIGS}
+    row["launches_per_path"]["lm_families"] = {
+        a: {m: n.get("phase2_select", 0) for m, n in v.items()}
+        for a, v in lf_launch.items()}
+    kdpp_row["launches_per_path"]["lm_families"] = {
+        a: {m: n.get("greedy_map_kdpp", 0) for m, n in v.items()}
+        for a, v in lf_launch.items()}
+    tf_row["launches_per_path"]["lm_families"] = {
+        a: {m: n.get("threefry2x32", 0) for m, n in v.items()}
+        for a, v in lf_launch.items()}
+    print(json.dumps({"lm_families": lf, "card": card,
+                      "power_limit": power_limit}))
     print(json.dumps({"kernels": [row, *pt_rows, gm_row, kdpp_row, km_row,
                                   tf_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,

@@ -20,7 +20,7 @@ from ._device import DeviceLike, as_float, resolve_device
 from .core.dpp import SubsetBatch
 from .dpp.model import Kron
 from .lowrank import DualSpectrum, LowRank
-from .models import DecodeState, KVCache
+from .models import DecodeState, KVCache, SSMCache
 from .models.transformer import tree_map
 from .optim import OptState
 from .sampling.spectral import FactorSpectrum
@@ -145,26 +145,32 @@ def decode_state_from_numpy(state, device: DeviceLike = "cuda"
                             ) -> DecodeState:
     """The port's ``DecodeState`` from a decode state of either package
     whose leaves are numpy arrays (or anything ``np.asarray`` takes): every
-    cache with fields ``k``, ``v`` and ``pos`` becomes a ``KVCache`` on
-    ``device``, the dict nesting kept. A state with whisper's cross-attention
-    or encoder output is refused (not ported)."""
+    cache with fields ``k``, ``v`` and ``pos`` becomes a ``KVCache``, every
+    one with ``conv``, ``state`` and ``pos`` an ``SSMCache``, on
+    ``device``, the dict nesting kept; ``enc_out`` (whisper's encoder
+    states) and ``cross`` are carried too."""
     dev = resolve_device(device)
-    if state.cross is not None or state.enc_out is not None:
-        raise NotImplementedError("encoder-decoder decode states are not "
-                                  "ported (ROADMAP.md, queue 1)")
 
     def walk(tree):
+        if tree is None:
+            return None
         if isinstance(tree, dict):
             return {k: walk(v) for k, v in tree.items()}
-        return KVCache(*(_leaf_from_numpy(x, dev)
-                         for x in (tree.k, tree.v, tree.pos)))
+        if hasattr(tree, "conv"):
+            return SSMCache(*(_leaf_from_numpy(x, dev)
+                              for x in (tree.conv, tree.state, tree.pos)))
+        if hasattr(tree, "k"):
+            return KVCache(*(_leaf_from_numpy(x, dev)
+                             for x in (tree.k, tree.v, tree.pos)))
+        return _leaf_from_numpy(tree, dev)
 
-    return DecodeState(walk(state.caches))
+    return DecodeState(walk(state.caches), walk(state.cross),
+                       walk(state.enc_out))
 
 
 def decode_state_to_numpy(state: DecodeState) -> DecodeState:
-    """A ``DecodeState`` whose ``KVCache`` leaves are numpy copies
-    (bfloat16 caches as float32, exactly)."""
+    """A ``DecodeState`` whose cache leaves (``KVCache``, ``SSMCache``)
+    and ``enc_out`` are numpy copies (bfloat16 as float32, exactly)."""
     return tree_map(_leaf_to_numpy, state)
 
 

@@ -71,11 +71,17 @@ def main(argv=None):
     engine = ServeEngine(lm, params, temperature=args.temperature,
                          seed=args.seed, device=lm.device)
     rng = np.random.default_rng(args.seed)
+    enc = None
+    if cfg.encoder_layers:
+        # the stub frontend's frame embeddings, drawn before the prompts as
+        # the reference's launcher draws them
+        enc = rng.standard_normal(
+            (args.batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
 
     if args.tenants is None:
         prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                                dtype=np.int32)
-        out = engine.generate(prompts, args.max_new,
+        out = engine.generate(prompts, args.max_new, enc_embeds=enc,
                               kv_budget=args.kv_budget,
                               kv_recency=args.kv_recency)
         print(json.dumps({
@@ -107,6 +113,7 @@ def main(argv=None):
                                 dtype=np.int32)
         try:
             results[name] = engine.generate(prompts, args.max_new,
+                                            enc_embeds=enc,
                                             kv_client=client,
                                             kv_tenant=name)
         except Exception as e:          # reported after the join

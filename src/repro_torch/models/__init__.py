@@ -1,8 +1,8 @@
-"""repro_torch.models — the LM stack's decoder-only attention models (port
-of ``repro/models``; the MoE and SSM layers, ``SSMCache`` and whisper's
-encoder are not ported yet: ROADMAP.md, queue 1)."""
+"""repro_torch.models — the LM stack (port of ``repro/models``): dense,
+MoE, SSM and hybrid decoders and whisper's encoder-decoder."""
 
 from .transformer import LM, DecodeState
 from .attention import KVCache
+from .ssm import SSMCache
 
-__all__ = ["LM", "DecodeState", "KVCache"]
+__all__ = ["LM", "DecodeState", "KVCache", "SSMCache"]

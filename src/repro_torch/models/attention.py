@@ -11,8 +11,11 @@ the product (a bfloat16 product is exact in float32, and TF32 is off), and
 the PV product takes the probabilities in v's dtype, accumulates in fp32
 and casts to q's dtype, as there.
 
-Not ported: cross-attention (``kv_from``), which only whisper's
-encoder–decoder uses (ROADMAP.md, queue 1).
+Cross-attention (``kv_from``, whisper's decoder): K and V come from the
+un-normed encoder states, no rotary embedding on either side, every
+encoder position attended; a decode step attends the encoder K/V that
+``LM.decode_step`` recomputes each step, and returns that pseudo-cache
+unchanged.
 
 ``attention_decode`` is functional, as the reference: it returns a new
 cache and leaves the one it was given as it was. The slot ``pos % size``
@@ -58,16 +61,20 @@ def init_attn_params(key, cfg: ModelConfig, dtype: torch.dtype):
     return p
 
 
-def _qkv(p, x: torch.Tensor, cfg: ModelConfig):
+def _proj(p, x: torch.Tensor, cfg: ModelConfig, name: str, heads: int
+          ) -> torch.Tensor:
+    """x @ w{name} (+ b{name}) as (B, S, heads, hd)."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    y = x @ p[f"w{name}"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
-            v.reshape(B, S, KV, hd))
+        y = y + p[f"b{name}"]
+    return y.reshape(B, S, heads, cfg.hd)
+
+
+def _qkv(p, x: torch.Tensor, cfg: ModelConfig):
+    return (_proj(p, x, cfg, "q", cfg.n_heads),
+            _proj(p, x, cfg, "k", cfg.n_kv_heads),
+            _proj(p, x, cfg, "v", cfg.n_kv_heads))
 
 
 def _chunk_attend(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
@@ -94,20 +101,30 @@ def _chunk_attend(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
 
 
 def attention_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
-                      causal: bool = True, return_kv: bool = False):
-    """Full-sequence self-attention (train / prefill), chunked over queries.
+                      causal: bool = True,
+                      kv_from: Optional[torch.Tensor] = None,
+                      return_kv: bool = False):
+    """Full-sequence attention (train / prefill), chunked over queries.
 
+    kv_from: optional encoder states for cross-attention (B, S_enc, d).
     return_kv: prefill mode — also return the rope'd (k, v) for cache fill.
     """
     B, S, _ = x.shape
     dev = x.device
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = _qkv(p, h, cfg)
     scale = cfg.hd ** -0.5
-
-    pos = torch.arange(S, device=dev)
-    q = rope(q, pos[None, :], cfg.rope_theta)
-    k = rope(k, pos[None, :], cfg.rope_theta)
+    if kv_from is None:
+        q, k, v = _qkv(p, h, cfg)
+        pos = torch.arange(S, device=dev)
+        q = rope(q, pos[None, :], cfg.rope_theta)
+        k = rope(k, pos[None, :], cfg.rope_theta)
+        self_attn = True
+    else:
+        q = _proj(p, h, cfg, "q", cfg.n_heads)
+        k = _proj(p, kv_from, cfg, "k", cfg.n_kv_heads)
+        v = _proj(p, kv_from, cfg, "v", cfg.n_kv_heads)
+        pos = torch.arange(kv_from.shape[1], device=dev)
+        self_attn = False
 
     C = min(cfg.attn_chunk, S)
     n_chunks = S // C
@@ -116,7 +133,7 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
         n_chunks = 1
 
     W = cfg.sliding_window
-    if W is not None and causal and S > W + C:
+    if W is not None and causal and self_attn and S > W + C:
         # Banded SWA: per q-chunk, slice a fixed (W + C)-wide key band
         # (its start clamped into [0, S - band], as dynamic_slice does).
         band = W + C
@@ -136,7 +153,7 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
             q_pos = i * C + torch.arange(C, device=dev)
             return _chunk_attend(q[:, i * C:(i + 1) * C], k, v, q_pos, pos,
                                  causal=causal, scale=scale,
-                                 window=W if causal else None)
+                                 window=W if causal and self_attn else None)
 
         outs = seq_map(full_chunk, n_chunks)
     out = outs.transpose(0, 1).reshape(B, S, -1)
@@ -177,11 +194,23 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     )
 
 
-def attention_decode(p, x: torch.Tensor, cache: KVCache, cfg: ModelConfig):
-    """One-token decode. x: (B, 1, d). Returns (y, new_cache)."""
+def attention_decode(p, x: torch.Tensor, cache: KVCache, cfg: ModelConfig,
+                     kv_from: Optional[torch.Tensor] = None):
+    """One-token decode. x: (B, 1, d). Returns (y, new_cache).
+
+    kv_from: the encoder states; ``cache`` then holds their K/V (every
+    position attended, ``q_pos`` 10**9 as the reference), and comes back
+    unchanged."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k_new, v_new = _qkv(p, h, cfg)
     scale = cfg.hd ** -0.5
+    if kv_from is not None:
+        q = _proj(p, h, cfg, "q", cfg.n_heads)
+        k_pos = torch.arange(cache.k.shape[1], device=x.device)
+        q_pos = torch.full((1,), 10 ** 9, dtype=torch.int64, device=x.device)
+        out = _chunk_attend(q, cache.k, cache.v, q_pos, k_pos, causal=False,
+                            scale=scale)
+        return x + out @ p["wo"], cache
+    q, k_new, v_new = _qkv(p, h, cfg)
     pos = cache.pos
 
     q = rope(q, pos[None, None], cfg.rope_theta)

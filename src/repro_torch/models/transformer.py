@@ -1,30 +1,39 @@
-"""Model assembly: decoder-only LMs as stacks of repeating units (port of
-``repro/models/transformer.py``, for the attention layer kind ``ATTN``).
+"""Model assembly: decoder-only LMs (dense / MoE / SSM / hybrid) and the
+whisper-style encoder-decoder, all as stacks of repeating units (port of
+``repro/models/transformer.py``).
 
-A "unit" is the smallest repeating block group; for the dense archs it is
-one layer. Params of all units are stacked on axis 0, with the JAX
-package's nested paths and ``(U, …)`` shapes, so that a parameter tree
-crosses between the packages leaf for leaf (``convert.lm_params_from_numpy``).
-The JAX package applies the stack with ``lax.scan``; here a Python loop
-over units takes each unit's slice.
+A "unit" is the smallest repeating block group: one layer for the
+homogeneous archs; for jamba ``hybrid_period`` layers (1 attention + 7
+mamba, MoE every 2), of which the first ``unit_head`` run directly and the
+rest as ``tail_reps`` repeats of a ``unit_tail_period``-layer tail. Params
+of all units are stacked on axis 0 (a tail's on axes 0 and 1), with the
+JAX package's nested paths and ``(U, …)`` / ``(U, reps, …)`` shapes, so
+that a parameter tree crosses between the packages leaf for leaf
+(``convert.lm_params_from_numpy``). The JAX package applies the stacks
+with ``lax.scan``; here Python loops take each unit's and each repeat's
+slice.
 
 Plain functions on tensors: ``LM(cfg, device=)``, ``lm.init_params(key)``,
-``lm.forward(params, tokens)``, ``lm.loss_fn(params, batch)``,
-``lm.prefill(params, tokens)``, ``lm.decode_step(params, token, state)``.
-Run the serving ones under ``torch.inference_mode()``. Training takes
-gradients of ``loss_fn`` with autograd (``repro_torch.train``); there
-``cfg.remat`` wraps each unit in ``torch.utils.checkpoint`` (the JAX
-package's ``jax.checkpoint``), and only while grad is enabled. Each
-stacked leaf is cut into its units once (``torch.unbind``), so the
-backward pass stacks a leaf's unit grads once instead of filling a
-zero leaf per unit.
+``lm.forward(params, tokens, enc_embeds=)``, ``lm.loss_fn(params, batch)``,
+``lm.prefill(params, tokens, enc_embeds=)``,
+``lm.init_decode_state(batch, max_len, enc_embeds=, params=)``,
+``lm.decode_step(params, token, state)``. Run the serving ones under
+``torch.inference_mode()``. Training takes gradients of ``loss_fn`` with
+autograd (``repro_torch.train``); there ``cfg.remat`` wraps each unit in
+``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``), and each
+layer too where a unit has more than one, only while grad is enabled.
+Each stacked leaf is cut into its units once (``torch.unbind``), so the
+backward pass stacks a leaf's unit grads once instead of filling a zero
+leaf per unit.
 
-Not ported (ROADMAP.md, queue 1): the MoE, SSM and hybrid layer kinds
-(``ATTN_MOE``, ``SSM``, ``SSM_MOE``) and whisper's encoder and
-cross-attention. ``LM`` refuses such a config with
-``NotImplementedError``. The reference's GSPMD sharding hints
-(``constrain``, ``constrain_bsd``, ``constrain_heads``, ``constrain_params``
-of ``repro/distributed/constraints.py``) do nothing without a mesh and have
+whisper: the encoder runs over the stub frontend's frame embeddings
+(``enc_embeds``, (B, encoder_seq, d)); each decoder unit is followed by a
+cross-attention layer on the encoder states; a decode step recomputes the
+cross K/V from ``DecodeState.enc_out``, as the reference does.
+
+The reference's GSPMD sharding hints (``constrain``, ``constrain_bsd``,
+``constrain_heads``, ``constrain_params`` of
+``repro/distributed/constraints.py``) do nothing without a mesh and have
 no counterpart on one card; they come with the process-group ``Mesh``.
 """
 
@@ -40,9 +49,11 @@ from torch.utils.checkpoint import checkpoint
 from .. import random as prng
 from .._device import DeviceLike, resolve_device
 from ..config import LayerKind, ModelConfig
-from .attention import (attention_decode, attention_forward, fill_kv_cache,
-                        init_attn_params, init_kv_cache)
+from .attention import (KVCache, _proj, attention_decode, attention_forward,
+                        fill_kv_cache, init_attn_params, init_kv_cache)
 from .common import dense_init, embed_init, rms_norm, swiglu
+from .moe import init_moe_params, moe_ffn
+from .ssm import init_ssm_cache, init_ssm_params, ssm_decode, ssm_forward
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -129,83 +140,152 @@ def _unit_split(cfg: ModelConfig):
     return head, len(tail) // per, tail_kinds
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config whose layers the port
-    does not have yet."""
-    _, kinds = _unit_layout(cfg)
-    other = sorted({k.value for k in kinds} - {LayerKind.ATTN.value})
-    if other or cfg.encoder_layers:
-        what = ", ".join(other + (["an encoder"] if cfg.encoder_layers
-                                  else []))
-        raise NotImplementedError(
-            f"{cfg.name}: {what} layers are not ported yet; the port has the "
-            f"decoder-only attention layers (ROADMAP.md, queue 1: the "
-            f"remaining model families)")
-
-
 def _init_layers(key, kinds, cfg: ModelConfig, dtype: torch.dtype):
+    """Layers of ``kinds`` from a key (..., 2): three keys a layer (k1 the
+    mixer, k2 the FFN, the third the next layer's), as the reference."""
     p: Dict[str, Any] = {}
-    for j, _ in enumerate(kinds):
+    for j, kind in enumerate(kinds):
         ks = prng.split(key, 3)
-        key = ks[..., 2, :]
-        layer = {"attn": init_attn_params(ks[..., 0, :], cfg, dtype)}
-        if cfg.d_ff > 0:
-            layer["ffn"] = init_ffn_params(ks[..., 1, :], cfg, dtype,
+        k1, k2, key = ks[..., 0, :], ks[..., 1, :], ks[..., 2, :]
+        layer: Dict[str, Any] = {}
+        if kind in (LayerKind.ATTN, LayerKind.ATTN_MOE):
+            layer["attn"] = init_attn_params(k1, cfg, dtype)
+        else:
+            layer["ssm"] = init_ssm_params(k1, cfg, dtype)
+        if kind in (LayerKind.ATTN_MOE, LayerKind.SSM_MOE):
+            layer["moe"] = init_moe_params(k2, cfg, dtype)
+        elif cfg.d_ff > 0:
+            layer["ffn"] = init_ffn_params(k2, cfg, dtype,
                                            gelu=cfg.mlp_gelu)
         p[f"layer{j}"] = layer
     return p
 
 
 def init_unit_params(key, cfg: ModelConfig, dtype: torch.dtype):
-    """A unit's params from a key (..., 2); a batch of keys stacks them."""
-    head, _, _ = _unit_split(cfg)
-    k1 = prng.split(key)[..., 0, :]
-    return {"head": _init_layers(k1, head, cfg, dtype)}
+    """A unit's params from a key (..., 2); a batch of keys stacks them.
+    The tail's ``reps`` repeats stack on the axis after the key's batch."""
+    head, reps, tail_kinds = _unit_split(cfg)
+    ks = prng.split(key)
+    p: Dict[str, Any] = {"head": _init_layers(ks[..., 0, :], head, cfg,
+                                              dtype)}
+    if reps:
+        p["tail"] = _init_layers(prng.split(ks[..., 1, :], reps),
+                                 tail_kinds, cfg, dtype)
+    return p
 
 
 def _apply_layer(layer, x, cfg: ModelConfig, collect_cache: bool):
     cache = None
-    if collect_cache:
-        x, (k, v) = attention_forward(layer["attn"], x, cfg, causal=True,
-                                      return_kv=True)
-        cache = fill_kv_cache(cfg, k, v)
-    else:
-        x = attention_forward(layer["attn"], x, cfg, causal=True)
+    if "attn" in layer:
+        if collect_cache:
+            x, (k, v) = attention_forward(layer["attn"], x, cfg,
+                                          causal=True, return_kv=True)
+            cache = fill_kv_cache(cfg, k, v)
+        else:
+            x = attention_forward(layer["attn"], x, cfg, causal=True)
+    if "ssm" in layer:
+        if collect_cache:
+            x, cache = ssm_forward(layer["ssm"], x, cfg, return_state=True)
+        else:
+            x = ssm_forward(layer["ssm"], x, cfg)
+    if "moe" in layer:
+        x = moe_ffn(layer["moe"], x, cfg)
     if "ffn" in layer:
         x = dense_ffn(layer["ffn"], x, cfg)
     return x, cache
 
 
+def _apply_layers(p_layers, x, n: int, cfg: ModelConfig,
+                  collect_cache: bool, remat_each: bool):
+    caches: Dict[str, Any] = {}
+    for j in range(n):
+        layer = p_layers[f"layer{j}"]
+        if remat_each:
+            x, c = checkpoint(_apply_layer, layer, x, cfg, collect_cache,
+                              use_reentrant=False)
+        else:
+            x, c = _apply_layer(layer, x, cfg, collect_cache)
+        caches[f"layer{j}"] = c
+    return x, caches
+
+
 def apply_unit(p, x: torch.Tensor, cfg: ModelConfig,
                collect_cache: bool = False):
-    head, _, _ = _unit_split(cfg)
-    caches: Dict[str, Any] = {}
-    for j in range(len(head)):
-        x, c = _apply_layer(p["head"][f"layer{j}"], x, cfg, collect_cache)
-        caches[f"layer{j}"] = c
+    head, reps, tail_kinds = _unit_split(cfg)
+    multi = (len(head) + reps * len(tail_kinds)) > 1
+    remat_each = cfg.remat and multi and torch.is_grad_enabled()
+    x, cache = _apply_layers(p["head"], x, len(head), cfg, collect_cache,
+                             remat_each)
+    cache = {"head": cache}
+    if reps:
+        tail = []
+        for p_rep in _unstack(p["tail"], reps):
+            x, c = _apply_layers(p_rep, x, len(tail_kinds), cfg,
+                                 collect_cache, remat_each)
+            tail.append(c)
+        if collect_cache:
+            cache["tail"] = _stack(tail)
     if collect_cache:
-        return x, {"head": caches}
+        return x, cache
     return x
+
+
+def _init_layer_caches(kinds, cfg: ModelConfig, batch: int, max_len: int,
+                       dtype: torch.dtype, device):
+    c: Dict[str, Any] = {}
+    for j, kind in enumerate(kinds):
+        if kind in (LayerKind.ATTN, LayerKind.ATTN_MOE):
+            c[f"layer{j}"] = init_kv_cache(cfg, batch, max_len, dtype,
+                                           device)
+        else:
+            c[f"layer{j}"] = init_ssm_cache(cfg, batch, dtype, device)
+    return c
 
 
 def init_unit_cache(cfg: ModelConfig, batch: int, max_len: int,
                     dtype: torch.dtype, device):
-    head, _, _ = _unit_split(cfg)
-    return {"head": {f"layer{j}": init_kv_cache(cfg, batch, max_len, dtype,
-                                                device)
-                     for j in range(len(head))}}
+    head, reps, tail_kinds = _unit_split(cfg)
+    c: Dict[str, Any] = {"head": _init_layer_caches(head, cfg, batch,
+                                                    max_len, dtype, device)}
+    if reps:
+        c["tail"] = _stack([_init_layer_caches(tail_kinds, cfg, batch,
+                                               max_len, dtype, device)
+                            for _ in range(reps)])
+    return c
+
+
+def _decode_layers(p_layers, x, cache, n: int, cfg: ModelConfig):
+    new = {}
+    for j in range(n):
+        layer, key = p_layers[f"layer{j}"], f"layer{j}"
+        if "attn" in layer:
+            x, new[key] = attention_decode(layer["attn"], x, cache[key], cfg)
+        if "ssm" in layer:
+            x, new[key] = ssm_decode(layer["ssm"], x, cache[key], cfg)
+        if "moe" in layer:
+            x = moe_ffn(layer["moe"], x, cfg)
+        if "ffn" in layer:
+            x = dense_ffn(layer["ffn"], x, cfg)
+    return x, new
 
 
 def apply_unit_decode(p, x: torch.Tensor, cache, cfg: ModelConfig):
-    head, _, _ = _unit_split(cfg)
-    new = {}
-    for j in range(len(head)):
-        layer, key = p["head"][f"layer{j}"], f"layer{j}"
-        x, new[key] = attention_decode(layer["attn"], x, cache["head"][key],
-                                       cfg)
-        if "ffn" in layer:
-            x = dense_ffn(layer["ffn"], x, cfg)
-    return x, {"head": new}
+    head, reps, tail_kinds = _unit_split(cfg)
+    x, new_head = _decode_layers(p["head"], x, cache["head"], len(head), cfg)
+    new = {"head": new_head}
+    if reps:
+        tail = []
+        for r, p_rep in enumerate(_unstack(p["tail"], reps)):
+            x, c = _decode_layers(p_rep, x, _index(cache["tail"], r),
+                                  len(tail_kinds), cfg)
+            tail.append(c)
+        new["tail"] = _stack(tail)
+    return x, new
+
+
+def _index(tree, i: int):
+    """Every leaf of a stacked tree at index ``i`` of axis 0."""
+    return tree_map(lambda a: a[i], tree)
 
 
 def _unstack(tree, n: int) -> list:
@@ -229,25 +309,61 @@ def _stack(trees):
 
 
 # ---------------------------------------------------------------------------
+# Encoder stack (whisper)
+# ---------------------------------------------------------------------------
+
+def init_encoder_params(key, cfg: ModelConfig, dtype: torch.dtype):
+    ks = prng.split(prng.split(key, cfg.encoder_layers))    # (L, 2, 2)
+    return {"attn": init_attn_params(ks[..., 0, :], cfg, dtype),
+            "ffn": init_ffn_params(ks[..., 1, :], cfg, dtype, gelu=True)}
+
+
+def encode(p_enc, embeds: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Audio-frame embeddings (stub frontend output) -> encoder states.
+    Bidirectional self-attention (rope'd, as the reference) and the GELU
+    FFN a layer; 1500 frames are not a multiple of ``attn_chunk``, so they
+    run as one query chunk, as in the reference."""
+    h = embeds
+    for p in _unstack(p_enc, cfg.encoder_layers):
+        h = attention_forward(p["attn"], h, cfg, causal=False)
+        h = dense_ffn(p["ffn"], h, cfg)
+    return h
+
+
+def init_cross_params(key, cfg: ModelConfig, dtype: torch.dtype):
+    return {"attn": init_attn_params(prng.split(key, cfg.n_layers), cfg,
+                                     dtype)}
+
+
+def _enc_kv(p_cross, enc_out: torch.Tensor, cfg: ModelConfig) -> KVCache:
+    """A pseudo-cache holding the encoder K/V for a cross-attention decode
+    step (recomputed each step from ``enc_out``, as the reference)."""
+    p = p_cross["attn"]
+    return KVCache(k=_proj(p, enc_out, cfg, "k", cfg.n_kv_heads),
+                   v=_proj(p, enc_out, cfg, "v", cfg.n_kv_heads),
+                   pos=torch.zeros((), dtype=torch.int32,
+                                   device=enc_out.device))
+
+
+# ---------------------------------------------------------------------------
 # Full model
 # ---------------------------------------------------------------------------
 
 class DecodeState(NamedTuple):
     caches: Any                      # stacked unit caches
-    cross: Optional[Any] = None      # whisper's cross KV: not ported
-    enc_out: Optional[torch.Tensor] = None
+    cross: Optional[Any] = None      # the reference's field; never set
+    enc_out: Optional[torch.Tensor] = None   # whisper: encoder states
 
 
 @dataclasses.dataclass(frozen=True)
 class LM:
-    """The decoder-only LM of ``cfg`` on ``device`` (default "cuda";
-    ``RuntimeError`` without a card unless "cpu" is passed)."""
+    """The LM of ``cfg`` on ``device`` (default "cuda"; ``RuntimeError``
+    without a card unless "cpu" is passed)."""
     cfg: ModelConfig
     device: DeviceLike = "cuda"
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
-        check_ported(self.cfg)
 
     # -- init ---------------------------------------------------------------
     def init_params(self, key) -> Dict[str, Any]:
@@ -267,6 +383,9 @@ class LM:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(ks[2], (cfg.d_model, Vp), dtype)
+        if cfg.encoder_layers:
+            params["encoder"] = init_encoder_params(ks[3], cfg, dtype)
+            params["cross"] = init_cross_params(ks[4], cfg, dtype)
         return params
 
     # -- helpers --------------------------------------------------------------
@@ -275,9 +394,9 @@ class LM:
 
     def _cast(self, params):
         """Every float32 leaf with ndim > 1 in the compute dtype (every
-        stacked block leaf, norms and biases too; the top-level ``ln_f``
-        stays float32). ``.to`` returns a leaf already in that dtype as it
-        is, so casting cast params is free."""
+        stacked block leaf, norms, biases, routers and SSM constants too;
+        the top-level ``ln_f`` stays float32). ``.to`` returns a leaf
+        already in that dtype as it is, so casting cast params is free."""
         dt = self._compute_dtype()
         return tree_map(lambda a: a.to(dt) if a.dtype == torch.float32
                         and a.dim() > 1 else a, params)
@@ -287,7 +406,23 @@ class LM:
 
     def _units(self, params):
         n_units, _ = _unit_layout(self.cfg)
-        return _unstack(params["blocks"], n_units)
+        units = _unstack(params["blocks"], n_units)
+        if not self.cfg.encoder_layers:
+            return [(u, None) for u in units]
+        return list(zip(units, _unstack(params["cross"], n_units)))
+
+    def _encode(self, params, enc_embeds) -> Optional[torch.Tensor]:
+        """The encoder states of ``enc_embeds`` (cast params), or None for
+        a decoder-only config."""
+        if not self.cfg.encoder_layers:
+            return None
+        if enc_embeds is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder: pass "
+                             f"enc_embeds (B, {self.cfg.encoder_seq}, "
+                             f"{self.cfg.d_model})")
+        x = torch.as_tensor(enc_embeds, device=self.device)
+        return encode(params["encoder"], x.to(self._compute_dtype()),
+                      self.cfg)
 
     def _head(self, params, h: torch.Tensor, mask_padded: bool = False
               ) -> torch.Tensor:
@@ -303,31 +438,42 @@ class LM:
         return logits
 
     # -- forward (train / prefill without the cache) --------------------------
-    def forward(self, params, tokens) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, vocab_padded)."""
+    def forward(self, params, tokens=None, embeds=None,
+                enc_embeds=None) -> torch.Tensor:
+        """tokens (B, S) (or ``embeds`` (B, S, d)) -> logits (B, S,
+        vocab_padded); ``enc_embeds`` (B, encoder_seq, d) for whisper."""
         cfg = self.cfg
         params = self._cast(params)
-        x = params["embed"][self._tokens(tokens)].to(self._compute_dtype())
+        if embeds is None:
+            embeds = params["embed"][self._tokens(tokens)]
+        x = torch.as_tensor(embeds, device=self.device).to(
+            self._compute_dtype())
+        enc_out = self._encode(params, enc_embeds)
         remat = cfg.remat and torch.is_grad_enabled()
-        for p_unit in self._units(params):
+        for p_unit, p_cross in self._units(params):
             if remat:
                 x = checkpoint(apply_unit, p_unit, x, cfg,
                                use_reentrant=False)
             else:
                 x = apply_unit(p_unit, x, cfg)
+            if p_cross is not None:
+                x = attention_forward(p_cross["attn"], x, cfg, causal=False,
+                                      kv_from=enc_out)
         return self._head(params, x)
 
     # -- loss -----------------------------------------------------------------
     def loss_fn(self, params, batch: Dict[str, Any]) -> torch.Tensor:
-        """Mean next-token cross entropy of ``batch["tokens"]`` (B, S + 1):
-        a float32 scalar. The loss is summed over query chunks of
-        min(attn_chunk, S) positions (one chunk when S is not a multiple),
-        each chunk's logits in float32 with the padded vocab at -1e30, so
-        only one chunk's float32 logits live at a time."""
+        """Mean next-token cross entropy of ``batch["tokens"]`` (B, S + 1)
+        (and ``batch["enc_embeds"]`` for whisper): a float32 scalar. The
+        loss is summed over query chunks of min(attn_chunk, S) positions
+        (one chunk when S is not a multiple), each chunk's logits in
+        float32 with the padded vocab at -1e30, so only one chunk's float32
+        logits live at a time."""
         cfg = self.cfg
         tokens = self._tokens(batch["tokens"])
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        logits = self.forward(params, inputs)
+        logits = self.forward(params, inputs,
+                              enc_embeds=batch.get("enc_embeds"))
         B, S, V = logits.shape
         C = min(cfg.attn_chunk, S)
         n = S // C if S % C == 0 else 1
@@ -344,24 +490,36 @@ class LM:
         return total / (B * S)
 
     # -- prefill (serving): trunk + cache fill + last-token logits -----------
-    def prefill(self, params, tokens):
+    def prefill(self, params, tokens, enc_embeds=None):
         """tokens (B, S) -> (last logits (B, 1, V), DecodeState)."""
+        cfg = self.cfg
         params = self._cast(params)
         x = params["embed"][self._tokens(tokens)].to(self._compute_dtype())
+        enc_out = self._encode(params, enc_embeds)
         caches = []
-        for p_unit in self._units(params):
-            x, c = apply_unit(p_unit, x, self.cfg, collect_cache=True)
+        for p_unit, p_cross in self._units(params):
+            x, c = apply_unit(p_unit, x, cfg, collect_cache=True)
             caches.append(c)
+            if p_cross is not None:
+                x = attention_forward(p_cross["attn"], x, cfg, causal=False,
+                                      kv_from=enc_out)
         logits = self._head(params, x[:, -1:], mask_padded=True)
-        return logits, DecodeState(caches=_stack(caches))
+        return logits, DecodeState(caches=_stack(caches), enc_out=enc_out)
 
     # -- serving ------------------------------------------------------------
-    def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
+    def init_decode_state(self, batch: int, max_len: int, enc_embeds=None,
+                          params=None) -> DecodeState:
+        """Empty caches for ``batch`` rows of up to ``max_len`` tokens (SWA:
+        the window); for whisper the encoder states of ``enc_embeds`` under
+        ``params``."""
         n_units, _ = _unit_layout(self.cfg)
         caches = [init_unit_cache(self.cfg, batch, max_len,
                                   self._compute_dtype(), self.device)
                   for _ in range(n_units)]
-        return DecodeState(caches=_stack(caches))
+        enc_out = None
+        if self.cfg.encoder_layers:
+            enc_out = self._encode(self._cast(params), enc_embeds)
+        return DecodeState(caches=_stack(caches), enc_out=enc_out)
 
     def decode_step(self, params, token, state: DecodeState
                     ) -> Tuple[torch.Tensor, DecodeState]:
@@ -369,9 +527,14 @@ class LM:
         params = self._cast(params)
         x = params["embed"][self._tokens(token)].to(self._compute_dtype())
         new = []
-        for u, p_unit in enumerate(self._units(params)):
-            cache = tree_map(lambda a, u=u: a[u], state.caches)
-            x, c = apply_unit_decode(p_unit, x, cache, self.cfg)
+        for u, (p_unit, p_cross) in enumerate(self._units(params)):
+            x, c = apply_unit_decode(p_unit, x, _index(state.caches, u),
+                                     self.cfg)
             new.append(c)
+            if p_cross is not None:
+                x, _ = attention_decode(
+                    p_cross["attn"], x, _enc_kv(p_cross, state.enc_out,
+                                                self.cfg),
+                    self.cfg, kv_from=state.enc_out)
         logits = self._head(params, x, mask_padded=True)
         return logits, DecodeState(_stack(new), state.cross, state.enc_out)

@@ -14,6 +14,12 @@ under ``torch.inference_mode()``, one launch per operation: a decode step
 of qwen2-0.5b is about 20 launches a layer, and no step waits for the
 device (the cache slot stays a device tensor). Keys come from
 ``repro_torch.random``, so a seed gives the JAX engine's keys.
+
+Compaction touches the self-attention caches only: an ``SSMCache`` (mamba2,
+jamba's SSM layers) passes through as it is, and compaction keys are split
+for ``KVCache`` leaves only, so a seed keeps the JAX engine's tokens for a
+hybrid model too. An encoder-decoder (whisper) takes ``enc_embeds``; its
+cross-attention K/V are not a cache and are not compacted.
 """
 
 from __future__ import annotations
@@ -27,24 +33,28 @@ import torch
 
 from .. import random as prng
 from .._device import DeviceLike, resolve_device
-from ..models import LM, DecodeState, KVCache
+from ..models import LM, DecodeState, KVCache, SSMCache
 from .kv_compaction import compact_kv_cache
 
 
 def _cache_leaves(tree) -> List[KVCache]:
     """The ``KVCache`` leaves of a cache tree, dict keys in sorted order
     (the order of ``jax.tree_util.tree_flatten``, which fixes the order of
-    the compaction keys)."""
+    the compaction keys); ``SSMCache`` leaves hold none."""
     if isinstance(tree, KVCache):
         return [tree]
+    if isinstance(tree, SSMCache):
+        return []
     return [leaf for k in sorted(tree) for leaf in _cache_leaves(tree[k])]
 
 
 def _replace_leaves(tree, leaves):
     """``tree`` with its ``KVCache`` leaves taken in turn from the iterator
-    ``leaves`` (``_cache_leaves``'s order)."""
+    ``leaves`` (``_cache_leaves``'s order); ``SSMCache`` leaves kept."""
     if isinstance(tree, KVCache):
         return next(leaves)
+    if isinstance(tree, SSMCache):
+        return tree
     return {k: _replace_leaves(tree[k], leaves) for k in sorted(tree)}
 
 
@@ -166,17 +176,20 @@ class ServeEngine:
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, max_new_tokens: int,
+                 enc_embeds: Optional[np.ndarray] = None,
                  stop_token: Optional[int] = None,
                  kv_budget: Optional[int] = None, kv_recency: int = 8,
                  kv_method: str = "sample", kv_client=None,
                  kv_tenant: str = "default") -> Dict:
-        """prompts: (B, S_prompt) int32 -> dict with tokens + timing.
+        """prompts: (B, S_prompt) int32 -> dict with tokens + timing;
+        ``enc_embeds`` (B, encoder_seq, d) for an encoder-decoder.
 
         ``kv_budget`` (or ``kv_client``) compacts the KV cache between
         prefill and decode — see ``compact_kv``. Times are host clock
         around work that ends in a device synchronize."""
         t0 = time.perf_counter()
-        logits, state = self.lm.prefill(self.params, prompts)
+        logits, state = self.lm.prefill(self.params, prompts,
+                                        enc_embeds=enc_embeds)
         tok = self._sample(logits[:, -1])
         _sync(self.device)
         t_prefill = time.perf_counter() - t0

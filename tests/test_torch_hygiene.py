@@ -71,6 +71,7 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
             "repro_torch.core.distributed, repro_torch.config, "
             "repro_torch.configs, repro_torch.models, "
             "repro_torch.models.common, repro_torch.models.attention, "
+            "repro_torch.models.moe, repro_torch.models.ssm, "
             "repro_torch.models.transformer, repro_torch.serve, "
             "repro_torch.serve.engine, repro_torch.launch, "
             "repro_torch.launch.serve, repro_torch.launch.learn, "

@@ -55,8 +55,8 @@ from repro_torch.models import common as tcommon
 
 DENSE = ["qwen2-0.5b", "qwen1.5-32b", "h2o-danube-3-4b", "starcoder2-15b",
          "chameleon-34b"]
-REFUSED = ["mixtral-8x7b", "qwen3-moe-235b-a22b", "mamba2-2.7b",
-           "jamba-1.5-large-398b", "whisper-tiny"]
+FAMILIES = ["mixtral-8x7b", "qwen3-moe-235b-a22b", "mamba2-2.7b",
+            "jamba-1.5-large-398b", "whisper-tiny"]
 F32_TOL = 2e-5
 INIT_RTOL = 6e-6
 
@@ -313,7 +313,7 @@ def test_bfloat16_compute_matches_jax_at_bf16_tolerance():
                  tol=0.05, label="bf16 forward")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["mamba2-2.7b", "whisper-tiny"])
 def test_init_params_match_jax_from_the_same_key(arch):
     jcfg = jconfigs.smoke_config(arch)
     want = jax.tree_util.tree_map(
@@ -361,11 +361,29 @@ def test_converter_round_trip_leaf_by_leaf():
                                   np.asarray(bf["w"], np.float32))
 
 
-@pytest.mark.parametrize("arch", REFUSED)
-def test_configs_not_ported_raise_naming_the_roadmap(arch):
-    for cfg in (tconfigs.get_config(arch), tconfigs.smoke_config(arch)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LM(cfg, device="cpu")
+def _shapes(tree, prefix=""):
+    """{leaf path: (shape, dtype name)} of a nested dict of arrays or
+    tensors."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree
+                for k, v in _shapes(tree[key], f"{prefix}/{key}").items()}
+    return {prefix: (tuple(tree.shape), str(tree.dtype).replace("torch.",
+                                                                 ""))}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_every_arch_builds_with_the_references_param_shapes(arch):
+    """The MoE, SSM, hybrid and encoder-decoder configs build (the port
+    once refused them): ``init_params``' leaf paths, shapes and dtypes are
+    ``jax.eval_shape`` of the JAX ``LM.init_params``, at smoke size on the
+    CPU and at the full config (on the meta device: shapes only)."""
+    for get, device in ((tconfigs.smoke_config, "cpu"),
+                        (tconfigs.get_config, "meta")):
+        cfg = get(arch)
+        want = jax.eval_shape(JaxLM(getattr(jconfigs, get.__name__)(arch))
+                              .init_params, jax.random.PRNGKey(0))
+        got = LM(cfg, device=device).init_params(tr.PRNGKey(0, device))
+        assert _shapes(got) == _shapes(want), (arch, device)
 
 
 @pytest.mark.cuda

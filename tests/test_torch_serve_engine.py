@@ -562,11 +562,34 @@ def test_compaction_diversity_beats_recency(rng):
     assert 5 in picks.numpy().ravel()
 
 
-def test_encoder_decoder_engine_is_not_ported():
-    """``tests/test_serve.py``'s whisper engine: the port refuses the
-    config (its encoder is ROADMAP queue 1)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(smoke_config("whisper-tiny"), device="cpu")
+def test_whisper_engine_with_encoder():
+    """``tests/test_serve.py``'s whisper engine: greedy generation with the
+    stub frontend's frame embeddings, on the JAX params, gives the JAX
+    engine's tokens (or differs first on a proven tie)."""
+    jlm = JaxLM(jax_smoke("whisper-tiny"))
+    jp = jlm.init_params(jax.random.PRNGKey(0))
+    cfg = smoke_config("whisper-tiny")
+    lm = LM(cfg, device="cpu")
+    params = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                  "cpu")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (2, 8), dtype=np.int32)
+    enc = rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32)
+    got = ServeEngine(lm, params, device="cpu").generate(prompts, 4,
+                                                          enc_embeds=enc)
+    want = JaxEngine(jlm, jp).generate(prompts, 4, enc_embeds=enc)
+    assert got["tokens"].shape == want["tokens"].shape == (2, 4)
+    logits, state = jlm.prefill(jp, jnp.asarray(prompts),
+                                enc_embeds=jnp.asarray(enc))
+    logits, scores = logits[:, -1], []
+    for t in range(4):
+        scores.append(np.asarray(logits, np.float32))
+        if t < 3:
+            tok = jnp.asarray(want["tokens"][:, t:t + 1])
+            logits, state = jlm.decode_step(jp, tok, state)
+            logits = logits[:, -1]
+    assert_tokens_or_ties(got["tokens"], want["tokens"], scores, "whisper")
 
 
 # ---------------------------------------------------------------------------
@@ -585,23 +608,31 @@ def _keys(tree):
     return type(tree).__name__
 
 
+@pytest.mark.parametrize("arch", [ARCH, "mamba2-2.7b", "whisper-tiny"])
 @pytest.mark.parametrize("extra", [[], TENANTS], ids=["plain", "tenants"])
-def test_launcher_prints_the_references_json(extra, capsys, monkeypatch):
+def test_launcher_prints_the_references_json(extra, arch, capsys,
+                                             monkeypatch):
     """``python -m repro_torch.launch.serve ... --device cpu`` prints the
-    reference launcher's JSON keys (its values are timings and counts)."""
+    reference launcher's JSON keys (its values are timings and counts);
+    whisper draws its frame embeddings before the prompts, as the
+    reference; mamba2 has no attention head to select."""
     from repro.launch import serve as jax_serve
-    monkeypatch.setattr(sys, "argv", ["serve"] + LAUNCH + extra)
+    argv = ["--arch", arch] + LAUNCH[2:] + extra
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
     jax_serve.main()
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                        *LAUNCH, *extra, "--device", "cpu"],
+                        *argv, "--device", "cpu"],
                        capture_output=True, text=True, env=env, timeout=300)
     assert r.returncode == 0, r.stderr
     got = json.loads(r.stdout.strip().splitlines()[-1])
     assert _keys(got) == _keys(want)
     if extra == TENANTS:
-        assert got["coalescing"]["heads_selected"] == 2 * 2 * 2 * 2
+        cfg = smoke_config(arch)
+        heads = 2 * cfg.n_layers * 2 * cfg.n_kv_heads   # streams, units, B
+        assert got["coalescing"]["heads_selected"] == \
+            want["coalescing"]["heads_selected"] == heads
         assert got["per_tenant"] == want["per_tenant"]
     else:
         assert got["generated_shape"] == want["generated_shape"] == [2, 4]

@@ -323,6 +323,13 @@ def test_close_without_drain_cancels_queued_tickets():
     assert svc.stats.flushes == 0
 
 
+def wait_for(reached, timeout=WAIT):
+    """Poll ``reached()`` until it holds or ``timeout`` seconds pass."""
+    end = time.monotonic() + timeout
+    while not reached() and time.monotonic() < end:
+        time.sleep(0.005)
+
+
 @threaded
 def test_flush_error_fails_its_batch_and_the_loop_keeps_serving():
     svc = AsyncSamplingService(
@@ -342,9 +349,14 @@ def test_flush_error_fails_its_batch_and_the_loop_keeps_serving():
         bad = svc.submit(2)
         with pytest.raises(RuntimeError, match="injected device failure"):
             bad.result(timeout=WAIT)
+        # the flush thread counts a flush after it has resolved or rejected
+        # the batch (the reference's order), so a resolved ticket may be
+        # seen before its count
+        wait_for(lambda: svc.stats.failed_flushes >= 1)
         assert svc.stats.failed_flushes == 1
         # the flush thread survived the failure and serves new traffic
         assert len(svc.sample(3, timeout=WAIT)) == 3
+        wait_for(lambda: svc.stats.flushes >= 1)
         assert svc.stats.flushes == 1
     finally:
         svc.service.draw_keyed = real
