@@ -337,7 +337,27 @@ non-zero and prints no result line.
    ``max_memory_allocated``; (5) one decode step's host-clock and device
    time (``torch.profiler``), idle share and top operations; an
    ``lm_families`` JSON line and ``launches_per_path.lm_families`` in the
-   ``kernels`` rows.
+   ``kernels`` rows;
+27. sharded LM training (``repro_torch.distributed``, DTensor placements
+   under ``make_train_step``, ``optim.compression``): an NCCL process
+   group of world size 1 in this process (a ``FileStore`` under
+   ``build/``), a (data, model) = (1, 1) ``DeviceMesh``, phase 24's
+   qwen2-0.5b at full width in float32 compute, params, corpus, selector
+   and B = 8 x 128, placed by ``ShardingPolicy``; 3 sharded steps, each held against the
+   unsharded eager step on the same batch (phase 24's tolerances), the 3
+   batches drawn with every kernel's launch count set to 0 just before
+   and read just after (one ``phase2_select`` launch, ``threefry2x32``,
+   no other kernel, no plain phase 2); every placed tensor's local shard
+   on the card; ``_quantize``, ``int8_psum`` and ``int8_allreduce_grads``
+   over the world-1 group bit for bit the local quantization; the step's
+   collectives by op from ``CommDebugMode``; one sharded step in the
+   config's bfloat16 compute against the unsharded bfloat16 step, with the
+   float32 sharded step as its control; a ``sharded_train`` JSON
+   line (the mesh, placements of named leaves, the step's host-clock time
+   (median of steps 2-3) against the unsharded step's and phase 24's, the
+   peak of ``max_memory_allocated``) and ``launches_per_path.
+   lm_sharded_train`` in the ``kernels`` rows. The group is destroyed at
+   the end of the phase.
 
 Every row of the ``kernels`` line is timed by ``kernel_times``: ``ms``,
 ``plain_ms`` and ``library_ms`` are device times (the durations of the
@@ -462,6 +482,22 @@ step of max(1, max |CPU leaf|), and at most 1% of them past 1e-6 of it
 resumed run against the one-shot run: bit for bit where the card's
 reductions are deterministic, else the same rule over the 2 resumed
 steps; the losses of steps 5 and 6 within 1e-3 relative.
+
+Sharded LM training (phase 27): the sharded step against the unsharded
+step on the same card, from the same params and batches, in float32
+compute (phase 24's float32 rule; in the config's bfloat16 every grad is
+a bfloat16 value, so one product summed in another order moves it by a
+bfloat16 ulp and AdamW's first step turns the small ones' signs). On a
+(1, 1) mesh every DTensor op runs the unsharded op on the whole tensor,
+except the vocab-parallel cross entropy (a max, a sum of exps and a
+masked label gather in place of ``torch.logsumexp``/``gather``: float32
+sums in another order) and the embedding lookup (exact). So: loss and
+grad norm within 1e-4 of max(1, |unsharded|), the params after each step
+by ``lt_check_gap`` (every element within 2·lr a step, at most 1% past
+1e-6). In bfloat16 compute only the first step's loss and grad norm are
+held, within ``LS_BF16_TOL`` = 1e-4 of max(1, |unsharded|); the float32
+sharded step (a sharded path that left every cast out) must miss that
+limit. The int8 compression over the world-1 group: bit for bit.
 
 LM families (phase 26): the float32 card against its CPU copy within 1e-4
 of max(1, max |logits|), the caches too; a token whose K-th and (K+1)-th
@@ -5379,6 +5415,253 @@ def lm_families_path(dev, card: str, power_limit: str) -> dict:
     print(f"LM families (phase 26): {out['phase_s']:.1f} s")
     return out
 
+# ---------------------------------------------------------------------------
+# phase 27: sharded LM training (DTensor placements on an NCCL group)
+# ---------------------------------------------------------------------------
+
+LS_STEPS = 3               # sharded steps, each against the unsharded step
+LS_TIMED = slice(1, None)  # the steps whose median is the step time: 2-3
+LS_LEAVES = ("embed", "blocks/head/layer0/attn/wq",
+             "blocks/head/layer0/attn/wo", "blocks/head/layer0/ffn/w_up",
+             "ln_f")
+# bfloat16 loss and grad norm of the first step, sharded against
+# unsharded, of max(1, |unsharded|). On an NVIDIA H100 80GB HBM3 at 700 W
+# they read 0 and 4.27e-5 (the same in two runs), and the float32 sharded
+# step, the control, parts from the bfloat16 step by 2.09e-5 and 5.35e-4
+# (PERF.md §6): the limit lies between, 2.3x the reading.
+LS_BF16_TOL = 1e-4
+
+
+def ls_full(tree):
+    """Every DTensor leaf of a params tree as its full tensor."""
+    from repro_torch.models.transformer import tree_map
+    return tree_map(lambda a: a.full_tensor(), tree)
+
+
+def ls_compression(dev) -> dict:
+    """``_quantize``, ``int8_psum`` and ``int8_allreduce_grads`` (twice, the
+    residual carried) over the world-1 group: bit for bit the local
+    quantization, its residual and its int32 codes times its scale."""
+    from repro_torch.launch.mesh import make_mesh_from_devices
+    from repro_torch.optim import int8_allreduce_grads
+    from repro_torch.optim.compression import _quantize, int8_psum
+    mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"))
+    gen = torch.Generator(device=dev).manual_seed(27)
+    grads = {"w": torch.randn((896, 4864), generator=gen, device=dev),
+             "b": torch.randn((896,), generator=gen, device=dev) * 1e-3,
+             "zero": torch.zeros((7,), device=dev)}
+    red, res = int8_allreduce_grads(grads, mesh, ("data",))
+    red2, _ = int8_allreduce_grads(grads, mesh, ("data",), res)
+    ok = {}
+    for k, g in grads.items():
+        q, s = _quantize(g)
+        deq = q.float() * s
+        q2, s2 = _quantize(g + (g - deq))
+        ok[k] = (same_bits(red[k], deq) and same_bits(res[k], g - deq)
+                 and same_bits(red2[k], q2.float() * s2)
+                 and same_bits(int8_psum(g, mesh.get_group("data")),
+                               q.to(torch.int32).float() * s))
+    check(all(ok.values()), f"int8 compression over the world-1 group "
+          f"against the local quantization: {ok}")
+    return {"bitwise": ok, "shapes": {k: list(g.shape)
+                                      for k, g in grads.items()}}
+
+
+def ls_bf16_step(mesh, tokens, f32_first: dict, dev) -> dict:
+    """One sharded step in the config's bfloat16 compute against the
+    unsharded bfloat16 step, from phase 24's params on the first batch:
+    loss and grad norm within ``LS_BF16_TOL``. The control is the float32
+    sharded step on the same params and batch (``f32_first``), a sharded
+    step with every cast to bfloat16 left out: it must part from the
+    unsharded bfloat16 step by more than the limit."""
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ShardingPolicy
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, OptState, cosine_schedule
+    from repro_torch.train import make_train_step
+    cfg = get_config(LM_ARCH)
+    lm = LM(cfg, device=dev)
+    params = lm.init_params(prng.PRNGKey(LM_SEED, dev))
+    opt = AdamW(lr=LT_LR, schedule=cosine_schedule(
+        max(LT_STEPS // 10, 1), LT_STEPS))
+    ost = opt.init(params)
+    policy = ShardingPolicy(mesh, cfg)
+    ps = policy.params_shardings(params)
+    batch = {"tokens": tokens}
+    step = make_train_step(lm, opt)
+    _, _, dm = step(distribute(params, ps),
+                    distribute(ost, OptState(policy.replicated(), ps, ps)),
+                    distribute(batch, policy.batch_shardings(batch)))
+    sharded = {k: float(dm[k].full_tensor()) for k in ("loss", "grad_norm")}
+    del dm
+    _, _, m = step(params, ost, batch)
+    want = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    rel = {k: abs(sharded[k] - want[k]) / max(1.0, abs(want[k]))
+           for k in want}
+    control = {k: abs(f32_first[k] - want[k]) / max(1.0, abs(want[k]))
+               for k in want}
+    check(max(rel.values()) <= LS_BF16_TOL, f"bfloat16 sharded step against "
+          f"the unsharded bfloat16 step: {rel} > {LS_BF16_TOL}")
+    check(max(control.values()) > LS_BF16_TOL, f"control: the float32 "
+          f"sharded step against the unsharded bfloat16 step, {control}, "
+          f"within the bfloat16 limit {LS_BF16_TOL}")
+    return {"dtype": cfg.dtype, "sharded": sharded, "unsharded": want,
+            **{f"{k}_rel": v for k, v in rel.items()},
+            "control_float32_rel": control, "tol": LS_BF16_TOL}
+
+
+def lm_sharded_path(dev, phase24_step_s: float) -> dict:
+    """Phase 27: sharded LM training on an NCCL group of one rank (see the
+    module docstring). Returns what the ``sharded_train`` line prints."""
+    import datetime
+    import statistics
+    import torch.distributed as dist
+    import repro_torch.obs as obs
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline, synthetic_corpus
+    from repro_torch.distributed import ShardingPolicy
+    from repro_torch.distributed.sharding import distribute, path_leaves
+    from repro_torch.launch.mesh import make_mesh_from_devices
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, OptState, cosine_schedule
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import make_train_step
+    import dataclasses
+    t_phase = time.perf_counter()
+    store_dir = ROOT / "build" / "sharded_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    store = dist.FileStore(str(store_dir / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        # float32 compute: phase 24's float32 rule holds the two steps
+        cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"))
+        out = {"arch": LM_ARCH, "mesh": {"shape": list(mesh.shape),
+                                         "axes": list(mesh.mesh_dim_names),
+                                         "backend": dist.get_backend()},
+               "shapes": {"layers": cfg.n_layers, "d_model": cfg.d_model,
+                          "dtype": cfg.dtype, "batch": LT_BATCH,
+                          "seq": LT_SEQ, "docs": LT_DOCS,
+                          "steps": LS_STEPS}}
+        lm = LM(cfg, device=dev)
+        params = lm.init_params(prng.PRNGKey(LM_SEED, dev))
+        opt = AdamW(lr=LT_LR, schedule=cosine_schedule(
+            max(LT_STEPS // 10, 1), LT_STEPS))
+        ost = opt.init(params)
+        policy = ShardingPolicy(mesh, cfg)
+        ps = policy.params_shardings(params)
+        dparams = distribute(params, ps)
+        dost = distribute(ost, OptState(policy.replicated(), ps, ps))
+        placed = [*tree_leaves(dparams), *tree_leaves(dost)]
+        check(all(isinstance(a, DTensor) and a.to_local().is_cuda
+                  for a in placed), "a placed tensor's local shard is not "
+              "on the card")
+        named = dict(path_leaves(dparams))
+        out["placements"] = {k: [str(p) for p in named[k].placements]
+                             for k in LS_LEAVES}
+        out["specs"] = {k: [str(e) for e in ps_k.spec] for k, ps_k in
+                        path_leaves(ps) if k in LS_LEAVES}
+        out["opt_step_placements"] = [str(p) for p in dost.step.placements]
+
+        # the batches: phase 24's corpus and selector, counted
+        corpus = synthetic_corpus(LT_DOCS, LT_SEQ, cfg.vocab, LM_SEED)
+        sel = lt_selector(corpus, cfg, dev)
+        pipe = TokenPipeline(corpus, LT_BATCH, LM_SEED, sel)
+        tracker = obs.InMemoryTracker()
+        draws = iter(pipe)
+        with obs.use(tracker):
+            batches, n = sv_counted(
+                lambda: [next(draws) for _ in range(LS_STEPS)],
+                "LM sharded train batches",
+                {"phase2_select", "threefry2x32"})
+        plain = int(tracker.counter_value("kernels.phase2_select.reference"))
+        check(n["phase2_select"] == 1 and plain == 0, f"LM sharded train: "
+              f"{n['phase2_select']} phase-2 launches for {LS_STEPS} "
+              f"batches, {plain} plain calls")
+        out["launches"] = n
+        out["plain_phase2_calls"] = plain
+
+        step = make_train_step(lm, opt)
+        s_times, u_times, per_step = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i, batch in enumerate(batches):
+            batch = {"tokens": torch.as_tensor(batch["tokens"], device=dev)}
+            dbatch = distribute(batch, policy.batch_shardings(batch))
+            t0 = time.perf_counter()
+            dparams, dost, dm = step(dparams, dost, dbatch)
+            torch.cuda.synchronize()
+            s_times.append(time.perf_counter() - t0)
+            if i == 0:
+                out["max_memory_allocated_gb"] = \
+                    torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            t0 = time.perf_counter()
+            params, ost, m = step(params, ost, batch)
+            torch.cuda.synchronize()
+            u_times.append(time.perf_counter() - t0)
+            rel = {k: abs(float(dm[k].full_tensor()) - float(m[k]))
+                   / max(1.0, abs(float(m[k]))) for k in ("loss",
+                                                          "grad_norm")}
+            gap = lt_params_gap(ls_full(dparams), params)
+            check(max(rel.values()) <= LT_F32_TOL, f"sharded step {i + 1} "
+                  f"against the unsharded step: {rel} > {LT_F32_TOL}")
+            lt_check_gap(gap, i + 1, f"sharded step {i + 1} against the "
+                         f"unsharded step")
+            if i == 0:
+                f32_first = {k: float(dm[k].full_tensor())
+                             for k in ("loss", "grad_norm")}
+                tokens0 = batch["tokens"]
+            per_step.append({"loss": [float(dm["loss"].full_tensor()),
+                                      float(m["loss"])],
+                             **{f"{k}_rel": v for k, v in rel.items()},
+                             "params": gap})
+        check(all(a.to_local().is_cuda for a in [*tree_leaves(dparams),
+                                                 *tree_leaves(dost)]),
+              "the sharded step's state left the card")
+        check(all(p.is_replicate() for p in dm["grad_norm"].placements),
+              f"grad norm placed {dm['grad_norm'].placements}")
+        out["per_step"] = per_step
+        out["step_times_s"] = s_times
+        out["unsharded_step_times_s"] = u_times
+        out["step_s"] = statistics.median(s_times[LS_TIMED])
+        out["unsharded_step_s"] = statistics.median(u_times[LS_TIMED])
+        out["phase24_step_s"] = phase24_step_s
+        out["tokens_per_s"] = LT_BATCH * LT_SEQ / out["step_s"]
+
+        # the step's collectives: one more step, its result dropped
+        comm = CommDebugMode()
+        with comm:
+            step(dparams, dost, dbatch)
+        torch.cuda.synchronize()
+        out["collectives"] = {str(k): v for k, v in
+                              comm.get_comm_counts().items()}
+        out["compression"] = ls_compression(dev)
+        del params, ost, dparams, dost, m, dm, dbatch, batch
+        out["bf16"] = ls_bf16_step(mesh, tokens0, f32_first, dev)
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"  LM sharded train ({LM_ARCH}, full width, mesh (1, 1), "
+              f"NCCL world 1): losses {[s['loss'] for s in per_step]}, "
+              f"step {out['step_s'] * 1e3:.1f} ms against the unsharded "
+              f"{out['unsharded_step_s'] * 1e3:.1f} ms (phase 24 "
+              f"{phase24_step_s * 1e3:.1f} ms), peak "
+              f"{out['max_memory_allocated_gb']:.2f} GiB, collectives "
+              f"{out['collectives']}, launches {n}; bfloat16 step: loss "
+              f"{out['bf16']['loss_rel']:.3g}, grad norm "
+              f"{out['bf16']['grad_norm_rel']:.3g} (limit {LS_BF16_TOL}; "
+              f"control {out['bf16']['control_float32_rel']})")
+        print(f"LM sharded training (phase 27): {out['phase_s']:.1f} s")
+        return out
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -6044,6 +6327,9 @@ def main() -> None:
     # -- 26. the MoE, SSM, hybrid and encoder-decoder families -------------
     lf = lm_families_path(dev, card, power_limit)
 
+    # -- 27. sharded LM training on an NCCL group of one rank ------------
+    lsh = lm_sharded_path(dev, lmt["step_s"])
+
     for t in (times[64], times[1], times["global"],
               sel_times["kdpp_phase2"], inf["phase2"],
               sv["kv"]["phase2_times"], lms["phase2_times"],
@@ -6259,6 +6545,12 @@ def main() -> None:
         for a, v in lf_launch.items()}
     print(json.dumps({"lm_families": lf, "card": card,
                       "power_limit": power_limit}))
+    row["launches_per_path"]["lm_sharded_train"] = \
+        lsh["launches"]["phase2_select"]
+    tf_row["launches_per_path"]["lm_sharded_train"] = \
+        lsh["launches"]["threefry2x32"]
+    print(json.dumps({"sharded_train": lsh, "card": card,
+                      "power_limit": power_limit, "nvidia_smi": smi}))
     print(json.dumps({"kernels": [row, *pt_rows, gm_row, kdpp_row, km_row,
                                   tf_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,

@@ -17,6 +17,18 @@ its ``get_state()``. The leaves are copied to the host when ``save`` is
 called (a device sync); the files are written by a background thread.
 ``restore`` places each leaf where the target's leaf lives, or where
 ``shardings=`` says (the JAX package's ``device_put`` targets).
+
+Sharded state (a tree holding DTensors): ``save`` gathers each DTensor
+leaf to its full value, a collective that every rank of its mesh joins,
+and one rank (the mesh's first) copies the leaves to the host and writes
+them; the others drop each gathered leaf at once. A blocking ``save``,
+and ``wait`` after a sharded save, then meet the ranks of the saved
+tree's mesh (and no other rank: after an elastic re-mesh the ranks
+outside the smaller mesh do not save) at a barrier, so that a restore
+after them finds the commit. ``restore`` places a leaf onto a target
+DTensor's mesh and placements, or onto a ``(mesh, placements)`` pair or
+a ``distributed.sharding.NamedSharding`` in ``shardings`` — a mesh other
+than the one saved from (the elastic re-mesh path).
 """
 
 from __future__ import annotations
@@ -32,6 +44,9 @@ from typing import Any, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 @dataclasses.dataclass
@@ -77,20 +92,47 @@ def _to_host(leaf) -> np.ndarray:
     """A numpy snapshot of one leaf, never a view of the caller's memory."""
     if isinstance(leaf, torch.Generator):
         return leaf.get_state().numpy()
+    if isinstance(leaf, DTensor):
+        return leaf.detach().full_tensor().to("cpu", copy=True).numpy()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
 
 
+def _is_sharding(s) -> bool:
+    """A DTensor layout: a ``(DeviceMesh, placements)`` pair or an object
+    with ``mesh`` and ``placements`` (``distributed.sharding.
+    NamedSharding``)."""
+    if isinstance(s, tuple) and len(s) == 2 and isinstance(s[0],
+                                                           DeviceMesh):
+        return True
+    return hasattr(s, "mesh") and hasattr(s, "placements")
+
+
+def _place(arr: np.ndarray, where) -> torch.Tensor:
+    """A saved array on a device, or distributed by a layout."""
+    if _is_sharding(where):
+        mesh, placements = (where if isinstance(where, tuple)
+                            else (where.mesh, where.placements))
+        t = torch.as_tensor(arr).to(mesh.device_type)
+        return distribute_tensor(t, mesh, placements)
+    return torch.as_tensor(arr).to(where)
+
+
 def _like(arr: np.ndarray, target, device=None):
-    """One restored leaf, placed as ``target``'s leaf is, or on ``device``
-    when ``restore`` was given ``shardings``."""
+    """One restored leaf, placed as ``target``'s leaf is (a DTensor on its
+    mesh and placements), or where ``device`` says when ``restore`` was
+    given ``shardings``."""
     if isinstance(target, torch.Generator):
         target.set_state(torch.as_tensor(arr))
         return target
+    if device is not None:
+        return _place(arr, device)
+    if isinstance(target, DTensor):
+        return _place(arr, (target.device_mesh, target.placements))
     if isinstance(target, torch.Tensor):
-        return torch.as_tensor(arr).to(device or target.device)
-    return arr if device is None else torch.as_tensor(arr).to(device)
+        return torch.as_tensor(arr).to(target.device)
+    return arr
 
 
 def _unflatten(target, leaves: Iterator[np.ndarray], devices=None):
@@ -125,19 +167,60 @@ def _from_skeleton(skeleton, leaves: Iterator[np.ndarray], devices=None):
     if isinstance(skeleton, list):
         return [_from_skeleton(v, leaves, devices) for v in skeleton]
     arr = next(leaves)
-    return arr if devices is None else torch.as_tensor(arr).to(next(devices))
+    return arr if devices is None else _place(arr, next(devices))
 
 
-def _leaf_devices(shardings, n: int) -> List[torch.device]:
-    """The device of each of ``n`` leaves: ``shardings`` is one device
-    (or its name) for all, or a tree of them holding n."""
+def _sharding_leaves(tree) -> list:
+    """The placement leaves of a ``shardings`` tree: a layout is a leaf,
+    not a tuple node."""
+    if _is_sharding(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _sharding_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _sharding_leaves(t)]
+    return [] if tree is None else [tree]
+
+
+def _leaf_devices(shardings, n: int) -> list:
+    """Where each of ``n`` leaves goes: ``shardings`` is one device (or its
+    name) or one layout for all, or a tree of them holding n. A device is
+    returned as a ``torch.device``, a layout as it is."""
     if isinstance(shardings, (str, torch.device)):
         return [torch.device(shardings)] * n
-    devs = [torch.device(d) for d in _flatten(shardings)]
-    if len(devs) != n:
-        raise ValueError(f"shardings names {len(devs)} devices for a tree "
+    if _is_sharding(shardings):
+        return [shardings] * n
+    out = [s if _is_sharding(s) else torch.device(s)
+           for s in _sharding_leaves(shardings)]
+    if len(out) != n:
+        raise ValueError(f"shardings names {len(out)} devices for a tree "
                          f"of {n} leaves")
-    return devs
+    return out
+
+
+def _mesh_of(leaves) -> Optional[DeviceMesh]:
+    """The mesh of the first DTensor leaf, or None for plain leaves."""
+    for leaf in leaves:
+        if isinstance(leaf, DTensor):
+            return leaf.device_mesh
+    return None
+
+
+def _writes(mesh: Optional[DeviceMesh]) -> bool:
+    """The mesh's first rank writes a sharded tree; a tree of plain leaves
+    is written by whoever saves it."""
+    if mesh is None:
+        return True
+    coord = mesh.get_coordinate()
+    return coord is not None and not any(coord)
+
+
+def _barrier(mesh: DeviceMesh) -> None:
+    """Every rank of ``mesh`` meets, and no other: a barrier over each mesh
+    dim's group in turn (after the k-th, a rank's peers along the first k
+    dims have all arrived)."""
+    for group in mesh.get_all_groups():
+        dist.barrier(group=group)
 
 
 class CheckpointManager:
@@ -147,6 +230,7 @@ class CheckpointManager:
         self._q: "queue.Queue" = queue.Queue()
         self._worker: Optional[threading.Thread] = None
         self._pending_error: Optional[BaseException] = None
+        self._mesh: Optional[DeviceMesh] = None   # wait() meets its ranks
         if cfg.async_save:
             self._worker = threading.Thread(target=self._drain, daemon=True)
             self._worker.start()
@@ -159,12 +243,23 @@ class CheckpointManager:
         """Snapshot to host memory synchronously, write to disk async."""
         if self._pending_error:
             raise self._pending_error
-        host = ([_to_host(leaf) for leaf in _flatten(tree)],
-                self._tree_json(tree))
-        if self.cfg.async_save and not blocking:
-            self._q.put((step, host))
+        leaves = _flatten(tree)
+        mesh = _mesh_of(leaves)
+        if not _writes(mesh):
+            for leaf in leaves:           # join each gather, keep nothing
+                if isinstance(leaf, DTensor):
+                    leaf.full_tensor()
         else:
-            self._write(step, host)
+            host = ([_to_host(leaf) for leaf in leaves],
+                    self._tree_json(tree))
+            if self.cfg.async_save and not blocking:
+                self._q.put((step, host))
+            else:
+                self._write(step, host)
+        if mesh is not None and (blocking or not self.cfg.async_save):
+            _barrier(mesh)
+        elif mesh is not None:
+            self._mesh = mesh
 
     def emergency_save(self, step: int, tree: Any) -> None:
         """Blocking save used from failure handlers (signal/except hooks)."""
@@ -174,6 +269,9 @@ class CheckpointManager:
         self._q.join()
         if self._pending_error:
             raise self._pending_error
+        if self._mesh is not None:
+            _barrier(self._mesh)
+            self._mesh = None
 
     def latest_step(self) -> Optional[int]:
         steps = self._committed_steps()
@@ -190,10 +288,13 @@ class CheckpointManager:
         result is the saved dicts and lists of numpy arrays.
         shardings: where the leaves go, in place of the target's
         placement (the JAX package's ``device_put`` targets): one
-        ``torch.device`` (or its name) for every leaf, or a tree of them
-        with one device a leaf (an object node's leaves on one device).
-        Each leaf becomes a tensor there; a generator's state goes into
-        the target's generator.
+        ``torch.device`` (or its name) or one layout for every leaf, or a
+        tree of them with one a leaf (an object node's leaves on one
+        device). A layout is a ``(DeviceMesh, placements)`` pair or a
+        ``NamedSharding``: the leaf becomes a DTensor there
+        (``distribute_tensor``; every rank of the mesh calls ``restore``).
+        Each other leaf becomes a tensor on its device; a generator's
+        state goes into the target's generator.
         """
         step = step if step is not None else self.latest_step()
         if step is None:

@@ -1,8 +1,8 @@
 """Launchers (port of ``repro/launch``): ``serve``, ``train`` and
 ``learn`` are ported, each a ``main(argv=None)`` run with ``python -m
-repro_torch.launch.<name>``. The reference's package exports its JAX
-meshes (``launch/mesh.py``); they arrive with the process-group ``Mesh``
-together with ``dryrun`` (ROADMAP.md, queue 1 #8.4), so nothing is
-exported yet."""
+repro_torch.launch.<name>``; ``mesh`` builds the production
+``DeviceMesh`` over a process group. ``dryrun``, the reference's planner
+of the 256- and 512-chip meshes, is not ported yet (ROADMAP.md), and
+nothing is exported."""
 
 __all__: list = []

@@ -13,10 +13,13 @@ built from the reference's document features. --device defaults to
 "cuda" and fails without a card; --device cpu runs on the CPU (a --smoke
 config there).
 
-The reference runs the same entry point on a fleet under
-``jax.distributed.initialize()``, one process per host; its port comes
-with the process-group ``Mesh`` (ROADMAP.md, queue 1 #8.4). This launcher
-trains on one device.
+The reference's docstring runs the same entry point on a fleet under
+``jax.distributed.initialize()``; its code initializes nothing and trains
+on what it is given. This launcher trains on one device. Sharded training
+is the same train step on DTensor params, optimizer state and batches,
+placed by ``repro_torch.distributed.ShardingPolicy`` on a ``DeviceMesh``
+(``launch.mesh``) over a ``torch.distributed`` process group, one process
+a card: ``tools/sharded_train_cards.py`` drives it on four cards.
 """
 
 from __future__ import annotations

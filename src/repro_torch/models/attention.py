@@ -29,9 +29,12 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import random as prng
 from ..config import ModelConfig
+from ..distributed.constraints import constrain_heads, splittable
+from ..distributed.shard_ops import heads_local
 from .common import dense_init, rms_norm, rope, seq_map, stable_softmax
 
 
@@ -68,13 +71,14 @@ def _proj(p, x: torch.Tensor, cfg: ModelConfig, name: str, heads: int
     y = x @ p[f"w{name}"]
     if cfg.qkv_bias:
         y = y + p[f"b{name}"]
-    return y.reshape(B, S, heads, cfg.hd)
+    return splittable(y, heads).reshape(B, S, heads, cfg.hd)
 
 
 def _qkv(p, x: torch.Tensor, cfg: ModelConfig):
-    return (_proj(p, x, cfg, "q", cfg.n_heads),
-            _proj(p, x, cfg, "k", cfg.n_kv_heads),
-            _proj(p, x, cfg, "v", cfg.n_kv_heads))
+    """(q, k, v), each pinned heads over "model" under a mesh."""
+    return (constrain_heads(_proj(p, x, cfg, "q", cfg.n_heads)),
+            constrain_heads(_proj(p, x, cfg, "k", cfg.n_kv_heads)),
+            constrain_heads(_proj(p, x, cfg, "v", cfg.n_kv_heads)))
 
 
 def _chunk_attend(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
@@ -82,8 +86,14 @@ def _chunk_attend(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
     """One query chunk vs a key slab. q: (B,Cq,H,hd), k/v: (B,Sk,KV,hd).
 
     q_pos: (Cq,) global query positions; k_pos: (Sk,) global key positions
-    (may include invalid = -1 entries which are masked out).
+    (may include invalid = -1 entries which are masked out). DTensors run
+    on each rank's (batch, heads) shard (``distributed.shard_ops``).
     """
+    if isinstance(q, DTensor):
+        return heads_local(
+            lambda q, k, v: _chunk_attend(q, k, v, q_pos, k_pos,
+                                          causal=causal, scale=scale,
+                                          window=window), q, k, v)
     B, Cq, H, hd = q.shape
     KV = k.shape[2]
     g = H // KV

@@ -8,8 +8,10 @@ expert with a stable sort, each pair's rank within its expert's run is its
 slot, and a pair past the capacity C goes to the sentinel row E·C, which
 is cut off; the experts' FFNs are einsums over (B, E, C, d) × (E, d, f),
 as in the JAX package (whose expert products are XLA einsums, not a
-Pallas kernel). The reference's sharding hints (``constrain``) do nothing
-on one card and have no counterpart here.
+Pallas kernel). Under a mesh the dispatch buffer and the experts' output
+are pinned batch over the data axes and experts over "model"
+(``distributed.constraints.constrain``, the reference's hints); without
+one the hints return their input.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from .. import random as prng
 from ..config import ModelConfig
+from ..distributed.constraints import constrain
 from .common import dense_init, rms_norm, swiglu
 
 
@@ -99,11 +102,13 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     idx = dest[..., None].expand(B, S * K, d)
     buf = torch.zeros((B, E * C + 1, d), dtype=h.dtype, device=h.device
                       ).scatter(1, idx, src)
-    buf = buf[:, :E * C].reshape(B, E, C, d)
+    buf = constrain(buf[:, :E * C].reshape(B, E, C, d),
+                    "batch", "model", None, None)
 
     gate = torch.einsum("becd,edf->becf", buf, p["w_gate"])
     up = torch.einsum("becd,edf->becf", buf, p["w_up"])
     out = torch.einsum("becf,efd->becd", swiglu(gate, up), p["w_down"])
+    out = constrain(out, "batch", "model", None, None)
 
     # undispatch: gather each pair's row (a dropped pair reads the zero
     # sentinel), weight it, and sum a token's K pairs. The K pairs of a

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from .. import random as prng
 from ..config import ModelConfig
+from ..distributed.constraints import constrain
 from .common import dense_init, rms_norm
 
 
@@ -116,7 +117,8 @@ def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig,
     z, xBC, dt_raw = _split(p, h, cfg)
     conv_tail = xBC[:, S - (cfg.ssm_conv - 1):, :]
     xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
-    xs = xBC[..., :di].reshape(Bsz, S, nh, hp)
+    xs = constrain(xBC[..., :di].reshape(Bsz, S, nh, hp),
+                   "batch", None, "model", None)
     Bm = xBC[..., di: di + N]                      # (B, S, N)  (g = 1)
     Cm = xBC[..., di + N:]                         # (B, S, N)
 

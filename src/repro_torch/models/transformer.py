@@ -31,10 +31,14 @@ whisper: the encoder runs over the stub frontend's frame embeddings
 cross-attention layer on the encoder states; a decode step recomputes the
 cross K/V from ``DecodeState.enc_out``, as the reference does.
 
-The reference's GSPMD sharding hints (``constrain``, ``constrain_bsd``,
-``constrain_heads``, ``constrain_params`` of
-``repro/distributed/constraints.py``) do nothing without a mesh and have
-no counterpart on one card; they come with the process-group ``Mesh``.
+Sharded training passes DTensor params and batches (placed by
+``repro_torch.distributed.ShardingPolicy``) under ``use_mesh(mesh)``;
+DTensor's sharding propagation runs the same code. The layout hints of
+``repro_torch.distributed.constraints`` (``constrain_bsd`` on each unit's
+input, ``constrain_params`` on its params, ``constrain`` on the logits)
+sit at the reference's places and return their input unchanged without a
+mesh. The embedding lookup and the cross entropy on vocab-sharded
+logits are written out on local shards (``distributed/shard_ops.py``).
 """
 
 from __future__ import annotations
@@ -44,11 +48,15 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from .. import random as prng
 from .._device import DeviceLike, resolve_device
 from ..config import LayerKind, ModelConfig
+from ..distributed.constraints import (constrain, constrain_bsd,
+                                       constrain_params)
+from ..distributed.shard_ops import embed_lookup, vocab_gold, vocab_logsumexp
 from .attention import (KVCache, _proj, attention_decode, attention_forward,
                         fill_kv_cache, init_attn_params, init_kv_cache)
 from .common import dense_init, embed_init, rms_norm, swiglu
@@ -212,6 +220,8 @@ def _apply_layers(p_layers, x, n: int, cfg: ModelConfig,
 def apply_unit(p, x: torch.Tensor, cfg: ModelConfig,
                collect_cache: bool = False):
     head, reps, tail_kinds = _unit_split(cfg)
+    x = constrain_bsd(x)
+    p = constrain_params(p)   # pins the unit's params (and their grads)
     multi = (len(head) + reps * len(tail_kinds)) > 1
     remat_each = cfg.remat and multi and torch.is_grad_enabled()
     x, cache = _apply_layers(p["head"], x, len(head), cfg, collect_cache,
@@ -220,8 +230,11 @@ def apply_unit(p, x: torch.Tensor, cfg: ModelConfig,
     if reps:
         tail = []
         for p_rep in _unstack(p["tail"], reps):
-            x, c = _apply_layers(p_rep, x, len(tail_kinds), cfg,
-                                 collect_cache, remat_each)
+            x = constrain_bsd(x)
+            x, c = _apply_layers(constrain_params(p_rep), x,
+                                 len(tail_kinds), cfg, collect_cache,
+                                 remat_each)
+            x = constrain_bsd(x)
             tail.append(c)
         if collect_cache:
             cache["tail"] = _stack(tail)
@@ -445,9 +458,9 @@ class LM:
         cfg = self.cfg
         params = self._cast(params)
         if embeds is None:
-            embeds = params["embed"][self._tokens(tokens)]
-        x = torch.as_tensor(embeds, device=self.device).to(
-            self._compute_dtype())
+            embeds = embed_lookup(params["embed"], self._tokens(tokens))
+        x = constrain_bsd(torch.as_tensor(embeds, device=self.device).to(
+            self._compute_dtype()))
         enc_out = self._encode(params, enc_embeds)
         remat = cfg.remat and torch.is_grad_enabled()
         for p_unit, p_cross in self._units(params):
@@ -474,6 +487,7 @@ class LM:
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         logits = self.forward(params, inputs,
                               enc_embeds=batch.get("enc_embeds"))
+        logits = constrain(logits, "batch", None, "model")
         B, S, V = logits.shape
         C = min(cfg.attn_chunk, S)
         n = S // C if S % C == 0 else 1
@@ -483,9 +497,12 @@ class LM:
         for i in range(n):
             lg = torch.where(live, logits[:, i * C:(i + 1) * C].float(),
                              -1e30)
-            lse = torch.logsumexp(lg, dim=-1)
-            gold = torch.gather(lg, -1,
-                                labels[:, i * C:(i + 1) * C, None])[..., 0]
+            lab = labels[:, i * C:(i + 1) * C]
+            if isinstance(lg, DTensor):
+                lse, gold = vocab_logsumexp(lg), vocab_gold(lg, lab)
+            else:
+                lse = torch.logsumexp(lg, dim=-1)
+                gold = torch.gather(lg, -1, lab[..., None])[..., 0]
             total = total + torch.sum(lse - gold)
         return total / (B * S)
 
@@ -494,7 +511,8 @@ class LM:
         """tokens (B, S) -> (last logits (B, 1, V), DecodeState)."""
         cfg = self.cfg
         params = self._cast(params)
-        x = params["embed"][self._tokens(tokens)].to(self._compute_dtype())
+        x = embed_lookup(params["embed"], self._tokens(tokens)).to(
+            self._compute_dtype())
         enc_out = self._encode(params, enc_embeds)
         caches = []
         for p_unit, p_cross in self._units(params):
@@ -525,7 +543,8 @@ class LM:
                     ) -> Tuple[torch.Tensor, DecodeState]:
         """token: (B, 1) int -> (logits (B, 1, V), new state)."""
         params = self._cast(params)
-        x = params["embed"][self._tokens(token)].to(self._compute_dtype())
+        x = embed_lookup(params["embed"], self._tokens(token)).to(
+            self._compute_dtype())
         new = []
         for u, (p_unit, p_cross) in enumerate(self._units(params)):
             x, c = apply_unit_decode(p_unit, x, _index(state.caches, u),

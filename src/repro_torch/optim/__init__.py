@@ -1,10 +1,9 @@
-"""Optimizers (port of ``repro/optim``): AdamW and its cosine schedule.
-
-Not ported yet: ``compression.int8_allreduce_grads``, the int8 gradient
-all-reduce. It needs a mesh's all-reduce (a ``psum`` over the data axis),
-which comes with the process-group ``Mesh`` (ROADMAP.md, queue 1 #8.4).
-"""
+"""Optimizers (port of ``repro/optim``): AdamW and its cosine schedule,
+and the int8 gradient all-reduce with error feedback
+(``compression.int8_allreduce_grads`` over a ``DeviceMesh``'s data
+group)."""
 
 from .adamw import AdamW, OptState, cosine_schedule
+from .compression import int8_allreduce_grads
 
-__all__ = ["AdamW", "OptState", "cosine_schedule"]
+__all__ = ["AdamW", "OptState", "cosine_schedule", "int8_allreduce_grads"]

@@ -14,6 +14,12 @@ weight decay elsewhere and would round differently:
 Every quantity stays a tensor on the params' device (the step count, the
 bias corrections, the schedule's multiplier), so an update never waits for
 the card.
+
+On DTensor params (sharded training) the moments take each param's
+placements, the step count is a replicated DTensor, and the global grad
+norm and its clip factor are one replicated scalar on every rank: each
+leaf's sum of squares is partial over its shards, and the norm is
+redistributed to ``Replicate`` (an all-reduce) before it scales a grad.
 """
 
 from __future__ import annotations
@@ -23,6 +29,19 @@ import math
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+
+def replicated(x: torch.Tensor, like) -> torch.Tensor:
+    """``x`` replicated on ``like``'s mesh when ``like`` is a DTensor (a
+    DTensor ``x`` is redistributed, a plain one placed), else ``x``."""
+    if not isinstance(like, DTensor):
+        return x
+    mesh = like.device_mesh
+    placements = [Replicate()] * mesh.ndim
+    if isinstance(x, DTensor):
+        return x.redistribute(mesh, placements)
+    return distribute_tensor(x, mesh, placements)
 
 
 class OptState(NamedTuple):
@@ -73,12 +92,12 @@ class AdamW:
     schedule: Optional[Any] = None     # callable step -> lr multiplier
 
     def init(self, params) -> OptState:
-        """Zero moments (float32, on each param's device) and step 0 on the
-        first leaf's device."""
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
-        dev = tree_leaves(params)[0].device
-        return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
+        """Zero moments (float32, on each param's device and placements)
+        and step 0 on the first leaf's device (replicated on its mesh)."""
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
+        first = tree_leaves(params)[0]
+        step = torch.zeros((), dtype=torch.int32, device=first.device)
+        return OptState(step=replicated(step, first),
                         m=_map(zeros, params), v=_map(zeros, params))
 
     def update(self, grads, state: OptState, params):
@@ -87,7 +106,8 @@ class AdamW:
         step = state.step + 1
         if self.clip_norm is not None:
             leaves = tree_leaves(grads)
-            gn = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves))
+            gn = replicated(torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                           for g in leaves)), leaves[0])
             scale = torch.clamp_max(
                 self.clip_norm / torch.clamp_min(gn, 1e-9), 1.0)
             grads = _map(lambda g: g * scale, grads)

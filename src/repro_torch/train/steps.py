@@ -2,26 +2,54 @@
 
 The steps are eager PyTorch: gradients come from ``torch.autograd.grad``
 of ``LM.loss_fn`` over the parameter leaves, where the JAX package takes
-``jax.value_and_grad`` under ``jit``. The reference's GSPMD hints
-(``constrain``, ``constrain_params``) have no counterpart on one card;
-they come with the process-group ``Mesh`` (ROADMAP.md, queue 1 #8.4).
+``jax.value_and_grad`` under ``jit``.
+
+Sharded training is the same step on DTensor params, optimizer state and
+batch, placed by ``repro_torch.distributed.ShardingPolicy`` (the
+reference's ``jit(step, in_shardings=...)``): DTensor's sharding
+propagation plays GSPMD's part. The step then runs under the params'
+mesh (``distributed.constraints.use_mesh``, unless the caller set one)
+and ``implicit_replication`` (the model's plain constants, rope's tables
+and masks, act as replicated DTensors). Grads, each microbatch's slice
+and the fp32 accumulator are pinned to the reference's layouts
+(``constrain_params``, ``constrain``) at the reference's places.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
+from ..distributed.constraints import (constrain, constrain_params,
+                                       current_mesh, splittable, use_mesh)
 from ..models import LM
 from ..optim import AdamW, OptState
 from ..optim.adamw import tree_leaves, tree_unflatten
 
 
+def sharded_context(params):
+    """The context a step on ``params`` runs in: none for plain tensors;
+    for DTensors their mesh (when no mesh is set) and implicit
+    replication of plain tensors."""
+    leaf = tree_leaves(params)[0]
+    if not isinstance(leaf, DTensor):
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    if current_mesh() is None:
+        stack.enter_context(use_mesh(leaf.device_mesh))
+    stack.enter_context(implicit_replication())
+    return stack
+
+
 def _value_and_grad(lm: LM, params, batch):
     """(loss, grads of ``params``' leaves in params' structure): the
     leaves are detached copies that require grad, so the caller's params
-    are never part of a graph."""
+    are never part of a graph. Under a mesh the grads take the params'
+    layout."""
     leaves = [p.detach().requires_grad_(True)
               for p in tree_leaves(params)]
     with torch.enable_grad():
@@ -29,7 +57,7 @@ def _value_and_grad(lm: LM, params, batch):
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(grads, leaves)]
-    return loss.detach(), tree_unflatten(params, grads)
+    return loss.detach(), constrain_params(tree_unflatten(params, grads))
 
 
 def make_train_step(lm: LM, opt: AdamW, microbatches: int = 1):
@@ -42,22 +70,33 @@ def make_train_step(lm: LM, opt: AdamW, microbatches: int = 1):
     """
 
     def train_step(params, opt_state: OptState, batch: Dict[str, Any]):
+        with sharded_context(params):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         if microbatches == 1:
             loss, grads = _value_and_grad(lm, params, batch)
         else:
-            split = {k: torch.as_tensor(x).reshape(
-                microbatches, x.shape[0] // microbatches, *x.shape[1:])
-                for k, x in batch.items()}
-            acc = [torch.zeros(p.shape, dtype=torch.float32,
-                               device=p.device) for p in tree_leaves(params)]
+            split = {k: splittable(torch.as_tensor(x), microbatches, 0)
+                     .reshape(microbatches, x.shape[0] // microbatches,
+                              *x.shape[1:])
+                     for k, x in batch.items()}
+            # the fp32 accumulator shards like the params
+            acc = constrain_params(tree_unflatten(params, [
+                torch.zeros_like(p, dtype=torch.float32)
+                for p in tree_leaves(params)]))
             loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=acc[0].device)
+                                   device=tree_leaves(acc)[0].device)
             for i in range(microbatches):
-                loss, g = _value_and_grad(
-                    lm, params, {k: x[i] for k, x in split.items()})
-                acc = [a + b.float() for a, b in zip(acc, tree_leaves(g))]
+                mb = {k: constrain(x[i], "batch", *([None] * (x.dim() - 2)))
+                      for k, x in split.items()}
+                loss, g = _value_and_grad(lm, params, mb)
+                acc = constrain_params(tree_unflatten(params, [
+                    a + b.float() for a, b in zip(tree_leaves(acc),
+                                                  tree_leaves(g))]))
                 loss_sum = loss_sum + loss
-            grads = tree_unflatten(params, [a / microbatches for a in acc])
+            grads = tree_unflatten(params, [a / microbatches
+                                            for a in tree_leaves(acc)])
             loss = loss_sum / microbatches
         new_params, new_opt, gnorm = opt.update(grads, opt_state, params)
         metrics = {"loss": loss, "grad_norm": gnorm,

@@ -5,7 +5,9 @@ The loop is deliberately host-driven (one train step per iteration) — the
 standard posture for large fleets where the coordinator must observe
 failures between steps. A step's time is taken after the card has
 finished it (``torch.cuda.synchronize``); on the CPU the step is done when
-it returns.
+it returns. On DTensor state (sharded training) every rank runs ``fit``:
+the step, its synchronize and the checkpoint calls, whose save gathers
+each leaf on every rank and writes on one.
 """
 
 from __future__ import annotations

@@ -44,7 +44,7 @@ from repro_torch.serving import (AsyncSamplingService, ContinuousBatcher,
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():
@@ -79,7 +79,12 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
             "repro_torch.data.pipeline, repro_torch.data.dpp_selection, "
             "repro_torch.optim, repro_torch.optim.adamw, "
             "repro_torch.train, repro_torch.train.steps, "
-            "repro_torch.train.trainer\n"
+            "repro_torch.train.trainer, repro_torch.distributed, "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.distributed.constraints, "
+            "repro_torch.distributed.elastic, "
+            "repro_torch.distributed.shard_ops, repro_torch.launch.mesh, "
+            "repro_torch.optim.compression\n"
             "import repro_torch.configs as c\n"
             "[c.get_config(a) for a in c.list_archs()]\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
