@@ -358,6 +358,27 @@ non-zero and prints no result line.
    peak of ``max_memory_allocated``) and ``launches_per_path.
    lm_sharded_train`` in the ``kernels`` rows. The group is destroyed at
    the end of the phase.
+28. the families' sharded steps and the planner (``distributed.shard_ops``:
+   MoE experts, SSM heads, the dense FFN's hidden dim and decode attention
+   on local shards; ``launch.dryrun``): an NCCL group of one rank, a
+   (1, 1) mesh; mixtral-8x7b (4 layers), mamba2-2.7b, jamba's layout and
+   whisper-tiny from ``init_params(PRNGKey(0))`` in float32 compute
+   (``LP_CONFIGS``): a sharded prefill of 2 prompts of 256 tokens and 4
+   greedy decode steps (outputs placed by ``ShardingPolicy``) against the
+   unsharded ones, logits and every cache within ``LF_F32_TOL``; one
+   sharded train step (shallower, ``LP_CONFIGS``) against the unsharded
+   step under phase 24's rules; ``threefry2x32``'s launches (each
+   family's init) counted from 0. Then the planner: phase 27's qwen2-0.5b
+   step (float32, B = 8 x 128) on real DTensors, its trees' bytes and
+   the rise of ``max_memory_allocated`` over a step, against
+   ``dryrun.plan_step`` of the same step on a fake group of one rank:
+   the argument bytes equal, the rise within ``LP_PEAK_BOUND`` of the
+   planned peak; and ``dryrun.compile_once`` of one cell of each family
+   (``LP_PLAN``) on fake CUDA shards over a fake group of 512 ranks (the
+   256-rank mesh), full width, one unit of depth, each record printed as
+   a ``plan`` JSON line; no kernel launch on the planner's shapes, no
+   process group left. A ``sharded_families`` JSON line and
+   ``launches_per_path.lm_sharded_families`` in the ``kernels`` rows.
 
 Every row of the ``kernels`` line is timed by ``kernel_times``: ``ms``,
 ``plain_ms`` and ``library_ms`` are device times (the durations of the
@@ -5663,6 +5684,339 @@ def lm_sharded_path(dev, phase24_step_s: float) -> dict:
         shutil.rmtree(store_dir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the families' sharded steps and the planner
+# ---------------------------------------------------------------------------
+
+# (arch, overrides of the prefill and decode steps, overrides of the train
+# step, the cuts listed under "reduced"): phase 26's configs in float32
+# compute, on a (1, 1) mesh of an NCCL group of one rank, each step held
+# against the unsharded step. A train step holds float32 params, grads and
+# both AdamW moments for the sharded and the unsharded step, so it runs
+# shallower where two such sets would not fit in the card: mixtral 1 of
+# its 32 layers (4 layers are 5.8 B params, 23 GB a copy), mamba2 16 of 64,
+# jamba's layout one unit of 8 layers.
+LP_CONFIGS = (
+    ("mixtral-8x7b", {"n_layers": 4}, {"n_layers": 1},
+     {"n_layers": "4 of 32; the train step 1"}),
+    ("mamba2-2.7b", {}, {"n_layers": 16},
+     {"n_layers": "64; the train step 16"}),
+    ("jamba-1.5-large-398b", dict(LF_CONFIGS[3][1]), {"n_layers": 8},
+     {**LF_CONFIGS[3][5], "n_layers": "16 of 72 (2 units of 8); the train "
+      "step 8 (1 unit)"}),
+    ("whisper-tiny", {}, {}, {}),
+)
+LP_BATCH, LP_PROMPT, LP_DECODE = 2, 256, 4
+# the planner's cells on fake CUDA shards over the 256-rank fake group, at
+# full width and one unit of depth (as the reference's compile_once with
+# n_layers 1): one cell of each family, every kind
+LP_PLAN = (("qwen2-0.5b", "train_4k"), ("mixtral-8x7b", "decode_32k"),
+           ("mamba2-2.7b", "prefill_32k"),
+           ("jamba-1.5-large-398b", "long_500k"),
+           ("whisper-tiny", "decode_32k"))
+
+
+def lp_rel(got, want, vocab=None) -> float:
+    """max |got - want| over max(1, max |want|); logits cut to ``vocab``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(got, DTensor):
+        got = got.full_tensor()
+    if vocab is not None:
+        got, want = got[..., :vocab], want[..., :vocab]
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def lp_state_rel(got, want) -> float:
+    """The largest ``lp_rel`` over the leaves of two decode states."""
+    from repro_torch.distributed.sharding import map_with_path
+    leaves = {}
+    map_with_path(lambda path, leaf: leaves.__setitem__(path, leaf), want)
+    worst = 0.0
+
+    def one(path, leaf):
+        nonlocal worst
+        worst = max(worst, lp_rel(leaf, leaves[path]))
+    map_with_path(one, got)
+    return worst
+
+
+def lp_family(arch, serve_ov, train_ov, reduced, mesh, dev) -> dict:
+    """One family of phase 28 (see LP_CONFIGS): a prefill of LP_BATCH x
+    LP_PROMPT tokens and LP_DECODE greedy decode steps, sharded (outputs
+    placed by the policy) and unsharded; then one train step of each."""
+    import dataclasses
+    from repro_torch import random as prng
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ShardingPolicy
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, OptState
+    from repro_torch.train import make_serve_steps, make_train_step
+    gen = torch.Generator(device=dev).manual_seed(28)
+    out = {"arch": arch, "reduced": reduced, "batch": LP_BATCH,
+           "prompt": LP_PROMPT, "decode_steps": LP_DECODE}
+
+    def inputs(cfg, S):
+        toks = torch.randint(0, cfg.vocab, (LP_BATCH, S), generator=gen,
+                             device=dev, dtype=torch.int32)
+        enc = None
+        if cfg.encoder_layers:
+            enc = torch.randn((LP_BATCH, cfg.encoder_seq, cfg.d_model),
+                              generator=gen, device=dev)
+        return toks, enc
+
+    def placed(policy, **named):
+        named = {k: v for k, v in named.items() if v is not None}
+        return distribute(named, policy.batch_shardings(named))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # serving: prefill and decode, sharded against unsharded
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **serve_ov)
+    lm = LM(cfg, device=dev)
+    params = lm.init_params(prng.PRNGKey(LF_SEED, dev))
+    policy = ShardingPolicy(mesh, cfg)
+    dparams = distribute(params, policy.params_shardings(params))
+    prefill, decode = make_serve_steps(lm, policy)
+    toks, enc = inputs(cfg, LP_PROMPT)
+    d_in = placed(policy, tokens=toks, enc=enc)
+    rel, times = {}, {"sharded": [], "unsharded": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        (dl, dst), ts = timed(lambda: prefill(dparams, d_in["tokens"],
+                                              d_in.get("enc")))
+        (ul, ust), tu = timed(lambda: lm.prefill(params, toks, enc))
+        times["sharded"].append(ts)
+        times["unsharded"].append(tu)
+        rel["prefill_logits"] = lp_rel(dl, ul, cfg.vocab)
+        rel["prefill_state"] = lp_state_rel(dst, ust)
+        for i in range(LP_DECODE):
+            tok = ul[:, -1:, :cfg.vocab].argmax(-1).to(torch.int32)
+            dtok = placed(policy, t=tok)["t"]
+            (dl, dst), ts = timed(lambda: decode(dparams, dtok, dst))
+            (ul, ust), tu = timed(lambda: lm.decode_step(params, tok, ust))
+            times["sharded"].append(ts)
+            times["unsharded"].append(tu)
+            rel[f"decode{i}_logits"] = lp_rel(dl, ul, cfg.vocab)
+        rel["decode_state"] = lp_state_rel(dst, ust)
+    check(all(math.isfinite(v) for v in rel.values())
+          and max(rel.values()) <= LF_F32_TOL, f"{arch}: sharded serving "
+          f"against unsharded, {rel} > {LF_F32_TOL}")
+    out["serve"] = {"layers": cfg.n_layers, "rel": rel,
+                    "prefill_s": times["sharded"][0],
+                    "unsharded_prefill_s": times["unsharded"][0],
+                    "decode_s": sorted(times["sharded"][1:])[LP_DECODE // 2],
+                    "unsharded_decode_s":
+                        sorted(times["unsharded"][1:])[LP_DECODE // 2],
+                    "peak_gib": torch.cuda.max_memory_allocated(dev)
+                    / 2 ** 30}
+    del params, dparams, dl, dst, ul, ust, d_in
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one train step, sharded against unsharded
+    cfg = dataclasses.replace(cfg, **train_ov)
+    lm = LM(cfg, device=dev)
+    params = lm.init_params(prng.PRNGKey(LF_SEED, dev))
+    policy = ShardingPolicy(mesh, cfg)
+    ps = policy.params_shardings(params)
+    toks, enc = inputs(cfg, LP_PROMPT + 1)
+    batch = {"tokens": toks}
+    if enc is not None:
+        batch["enc_embeds"] = enc
+    opt = AdamW(lr=LT_LR)
+    step = make_train_step(lm, opt)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (dp, _, dm), ts = timed(lambda: step(
+        distribute(params, ps), distribute(opt.init(params), OptState(
+            policy.replicated(), ps, ps)),
+        distribute(batch, policy.batch_shardings(batch))))
+    peak_s = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    sharded = {k: float(dm[k].full_tensor()) for k in ("loss", "grad_norm")}
+    dp = ls_full(dp)
+    del dm
+    gc.collect()
+    (p, _, m), tu = timed(lambda: step(params, opt.init(params), batch))
+    rel = {k: abs(sharded[k] - float(m[k])) / max(1.0, abs(float(m[k])))
+           for k in sharded}
+    gap = lt_params_gap(dp, p)
+    check(all(math.isfinite(v) for v in rel.values())
+          and max(rel.values()) <= LT_F32_TOL, f"{arch}: sharded train step "
+          f"against unsharded, {rel} > {LT_F32_TOL}")
+    lt_check_gap(gap, 1, f"{arch}: sharded train step against unsharded")
+    out["train"] = {"layers": cfg.n_layers, "rel": rel, "params": gap,
+                    "loss": [sharded["loss"], float(m["loss"])],
+                    "step_s": ts, "unsharded_step_s": tu,
+                    "sharded_peak_gib": peak_s}
+    del params, dp, p, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {arch}: sharded prefill {out['serve']['prefill_s'] * 1e3:.1f} "
+          f"ms (unsharded {out['serve']['unsharded_prefill_s'] * 1e3:.1f}), "
+          f"decode {out['serve']['decode_s'] * 1e3:.1f} ms (unsharded "
+          f"{out['serve']['unsharded_decode_s'] * 1e3:.1f}), serving peak "
+          f"{out['serve']['peak_gib']:.2f} GiB, worst rel "
+          f"{max(out['serve']['rel'].values()):.3g}; train step "
+          f"{ts * 1e3:.1f} ms (unsharded {tu * 1e3:.1f}), peak "
+          f"{peak_s:.2f} GiB, loss/grad norm rel {rel}")
+    return out
+
+
+def lp_planned_vs_card(dev) -> dict:
+    """Phase 27's qwen2-0.5b step (float32, B = 8 x 128, the (1, 1) mesh) on
+    real DTensors in an NCCL group of one rank: the trees' bytes and the
+    step's rise of ``max_memory_allocated``; then the planner's record of
+    the same step on a fake group of one rank. Returns both."""
+    import dataclasses
+    import datetime
+    import torch.distributed as dist
+    from repro_torch import random as prng
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ShardingPolicy
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_from_devices
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, OptState
+    from repro_torch.train import make_train_step
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    shape = ShapeConfig("phase27", LT_SEQ, LT_BATCH, "train")
+    store_dir = ROOT / "build" / "planner_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(store_dir / "store"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"))
+        lm = LM(cfg, device=dev)
+        params = lm.init_params(prng.PRNGKey(LM_SEED, dev))
+        policy = ShardingPolicy(mesh, cfg)
+        ps = policy.params_shardings(params)
+        opt = AdamW(lr=LT_LR)
+        gen = torch.Generator(device=dev).manual_seed(27)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (LT_BATCH, LT_SEQ + 1),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32)}
+        args = (distribute(params, ps),
+                distribute(opt.init(params), OptState(policy.replicated(),
+                                                      ps, ps)),
+                distribute(batch, policy.batch_shardings(batch)))
+        del params
+        real_bytes = dryrun.local_bytes(args)
+        step = make_train_step(lm, opt)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        result = step(*args)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated(dev) - base
+        del result, args
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with dryrun.fake_world(1):
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"),
+                                      device_type="cuda")
+        rec = dryrun.plan_step(cfg, shape, mesh, device=dev, microbatches=1)
+    check(rec["argument_size_in_bytes"] == real_bytes, f"planned argument "
+          f"bytes {rec['argument_size_in_bytes']} against the real trees' "
+          f"{real_bytes}")
+    ratio = rise / rec["temp_size_in_bytes"]
+    check(LP_PEAK_BOUND[0] <= ratio <= LP_PEAK_BOUND[1], f"the real step's "
+          f"rise of max_memory_allocated {rise} over the planned peak "
+          f"{rec['temp_size_in_bytes']}: {ratio} outside {LP_PEAK_BOUND}")
+    return {"arch": LM_ARCH, "dtype": cfg.dtype, "batch": LT_BATCH,
+            "seq": LT_SEQ, "real_argument_bytes": real_bytes,
+            "planned": rec, "real_peak_rise_bytes": rise,
+            "rise_over_planned": ratio, "bound": LP_PEAK_BOUND}
+
+
+# the real step's rise of max_memory_allocated over the planned
+# temp_size_in_bytes: the same eager ops and lifetimes on the card,
+# plus the allocator's rounding and cuBLAS's workspace. On an NVIDIA H100
+# 80GB HBM3 at 700 W it read 1.0010 (10,983,815,168 against 10,972,933,144
+# bytes; PERF.md §6): the bound was 0.9-1.25 before that run.
+LP_PEAK_BOUND = (0.95, 1.10)
+
+
+def lm_planner_path(dev, card: str, power_limit: str) -> dict:
+    """Phase 28: the families' sharded train, prefill and decode steps on
+    an NCCL group of one rank, the planner on fake CUDA shards, and the
+    planner's record of phase 27's step held against the card."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_from_devices
+    from repro_torch.kernels import threefry as tf
+    t_phase = time.perf_counter()
+    out = {"card": card, "power_limit": power_limit}
+    tf.threefry2x32_cuda.launches = 0
+    store_dir = ROOT / "build" / "families_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(store_dir / "store"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh_from_devices([0], (1, 1), ("data", "model"))
+        out["families"] = {arch: lp_family(arch, sov, tov, red, mesh, dev)
+                           for arch, sov, tov, red in LP_CONFIGS}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    out["families_s"] = time.perf_counter() - t_phase
+    # every family's init_params draws its weights through threefry2x32
+    out["launches"] = {"threefry2x32": tf.threefry2x32_cuda.launches}
+    check(out["launches"]["threefry2x32"] > 0, "phase 28's init_params "
+          "launched no threefry2x32")
+    tf.threefry2x32_cuda.launches = 0
+    out["vs_card"] = lp_planned_vs_card(dev)
+    tf.threefry2x32_cuda.launches = 0
+    print(f"  planner vs card ({LM_ARCH}, B = {LT_BATCH} x {LT_SEQ}, "
+          f"float32, (1, 1)): argument bytes "
+          f"{out['vs_card']['real_argument_bytes']} (equal); planned peak "
+          f"{out['vs_card']['planned']['temp_size_in_bytes']} B, the real "
+          f"step's rise {out['vs_card']['real_peak_rise_bytes']} B, ratio "
+          f"{out['vs_card']['rise_over_planned']:.4f} (bound "
+          f"{LP_PEAK_BOUND})")
+    records = []
+    for arch, shape in LP_PLAN:
+        t0 = time.perf_counter()
+        with dryrun.fake_world():
+            rec, _ = dryrun.compile_once(arch, shape, False, cfg_overrides={
+                "n_layers": dryrun._unit_size(get_config(arch))},
+                device=dev)
+        check(rec["device"] == "cuda" and "error" not in rec
+              and rec["flops_per_device"] > 0, f"planner {arch} {shape}: "
+              f"{rec}")
+        rec["wall_s"] = time.perf_counter() - t0
+        records.append(rec)
+        print(json.dumps({"plan": rec, "card": card,
+                          "power_limit": power_limit}))
+    check(not dist.is_initialized(), "a process group outlived the planner")
+    # the planner's shapes are fake or meta: no kernel may launch on them
+    check(tf.threefry2x32_cuda.launches == 0, f"the planner launched "
+          f"threefry2x32 {tf.threefry2x32_cuda.launches} times")
+    out["plans"] = [{k: r[k] for k in ("arch", "shape", "wall_s",
+                                       "compile_s")} for r in records]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"LM planner and the families' sharded steps (phase 28): "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -6330,6 +6684,9 @@ def main() -> None:
     # -- 27. sharded LM training on an NCCL group of one rank ------------
     lsh = lm_sharded_path(dev, lmt["step_s"])
 
+    # -- 28. the families' sharded steps and the planner ------------------
+    lpl = lm_planner_path(dev, card, power_limit)
+
     for t in (times[64], times[1], times["global"],
               sel_times["kdpp_phase2"], inf["phase2"],
               sv["kv"]["phase2_times"], lms["phase2_times"],
@@ -6545,11 +6902,15 @@ def main() -> None:
         for a, v in lf_launch.items()}
     print(json.dumps({"lm_families": lf, "card": card,
                       "power_limit": power_limit}))
+    tf_row["launches_per_path"]["lm_sharded_families"] = \
+        lpl["launches"]["threefry2x32"]
     row["launches_per_path"]["lm_sharded_train"] = \
         lsh["launches"]["phase2_select"]
     tf_row["launches_per_path"]["lm_sharded_train"] = \
         lsh["launches"]["threefry2x32"]
     print(json.dumps({"sharded_train": lsh, "card": card,
+                      "power_limit": power_limit, "nvidia_smi": smi}))
+    print(json.dumps({"sharded_families": lpl, "card": card,
                       "power_limit": power_limit, "nvidia_smi": smi}))
     print(json.dumps({"kernels": [row, *pt_rows, gm_row, kdpp_row, km_row,
                                   tf_row]}))

@@ -22,9 +22,10 @@ from __future__ import annotations
 import contextlib
 
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
 from .sharding import (axis_sizes, map_with_path, param_partition_spec,
-                       spec_to_placements)
+                       path_leaves, spec_to_placements)
 
 _MESHES: list = []       # the process's stack of ``use_mesh`` blocks
 
@@ -43,6 +44,21 @@ def use_mesh(mesh):
         yield mesh
     finally:
         _MESHES.pop()
+
+
+def sharded_context(params):
+    """The context a step on ``params`` runs in: none for plain tensors;
+    for DTensors their mesh (when no mesh is set) and implicit
+    replication of plain tensors (the model's constants, rope's tables
+    and masks, act as replicated DTensors)."""
+    leaf = next((leaf for _, leaf in path_leaves(params)), None)
+    if not isinstance(leaf, DTensor):
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    if current_mesh() is None:
+        stack.enter_context(use_mesh(leaf.device_mesh))
+    stack.enter_context(implicit_replication())
+    return stack
 
 
 def _dp_axes(mesh) -> tuple:

@@ -30,6 +30,18 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
+def require_real(op: str, *tensors) -> None:
+    """``ValueError`` if a tensor among ``tensors`` has no storage a kernel
+    can read: a fake tensor (a shape under ``FakeTensorMode``, as the
+    planner runs) or one on the meta device. A kernel wrapper calls it
+    before it builds or launches anything."""
+    from torch._subclasses.fake_tensor import is_fake
+    for t in tensors:
+        if getattr(t, "is_meta", False) or (t is not None and is_fake(t)):
+            raise ValueError(f"{op}: a {'meta' if t.is_meta else 'fake'} "
+                             "tensor has no storage to launch a kernel on")
+
+
 def nvcc() -> str:
     """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``,
     then ``PATH``. Raises ``RuntimeError`` when there is none."""

@@ -39,6 +39,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from ._build import require_real
+
 _LAUNCH_LOCK = threading.Lock()
 _PLANS: Dict[Tuple[int, int, int], dict] = {}
 
@@ -134,6 +136,7 @@ def greedy_map_update_cuda(lcol: torch.Tensor, C: torch.Tensor,
     current stream. Same contract as ``greedy_map_update_plain``; C may
     have any strides. Raises on CPU tensors, wrong dtypes,
     non-contiguous vectors, bad shapes, and a refused launch."""
+    require_real("greedy_map_update_cuda", lcol, C, cj, dj, d)
     N, k = _check_cuda_inputs(lcol, C, cj, dj, d)
     e = torch.empty((N,), dtype=torch.float32, device=d.device)
     d_new = torch.empty((N,), dtype=torch.float32, device=d.device)
@@ -198,6 +201,7 @@ def greedy_map_kdpp_cuda(L: torch.Tensor, k: int) -> torch.Tensor:
     dtype other than float32, a non-contiguous or non-square L and a k
     outside 1..N, and ``RuntimeError`` when the card refuses the launch;
     it never falls back to the step loop or the plain version."""
+    require_real("greedy_map_kdpp_cuda", L)
     if not isinstance(L, torch.Tensor):
         raise ValueError(f"greedy_map_kdpp_cuda: L must be a tensor, got "
                          f"{type(L)}")

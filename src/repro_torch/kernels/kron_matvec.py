@@ -33,6 +33,8 @@ import threading
 
 import torch
 
+from ._build import require_real
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = ("one_launch", "two_pass")
 
@@ -113,6 +115,7 @@ def kron_matvec_cuda(A: torch.Tensor, B: torch.Tensor,
     contract as ``kron_matvec_plain``, an Inf or a NaN in A or B included.
     Raises on CPU tensors, mixed or other dtypes, non-contiguous inputs,
     bad shapes, and a refused launch."""
+    require_real("kron_matvec_cuda", A, B, X)
     N1, N2, batch = _check_cuda_inputs(A, B, X)
     Y = torch.empty_like(X)
     if batch == 0:

@@ -27,6 +27,8 @@ from typing import Tuple
 
 import torch
 
+from ._build import require_real
+
 #: Threads per block of the three kernels.
 THREADS = 256
 
@@ -85,6 +87,7 @@ def partial_trace_A_cuda(theta4: torch.Tensor,
     block per (k, l), on PyTorch's current stream. Same contract as
     ``partial_trace_A_plain``. Raises on CPU tensors, wrong dtypes,
     non-contiguous inputs, bad shapes, and a refused launch."""
+    require_real("partial_trace_A_cuda", theta4, L2)
     N1, N2 = _check_cuda_inputs("partial_trace_A_cuda", theta4, L2, "L2", 1)
     from ._build import load_library
     lib = load_library("partial_trace", bind)
@@ -107,6 +110,7 @@ def partial_trace_C_cuda(theta4: torch.Tensor,
     partial sum per i over blocks of the (u, v) plane into an (N1, N2²)
     scratch, then a sum over i. Same contract as ``partial_trace_C_plain``;
     raises as ``partial_trace_A_cuda`` does."""
+    require_real("partial_trace_C_cuda", theta4, L1)
     N1, N2 = _check_cuda_inputs("partial_trace_C_cuda", theta4, L1, "L1", 0)
     from ._build import load_library
     lib = load_library("partial_trace", bind)

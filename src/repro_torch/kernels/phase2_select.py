@@ -45,6 +45,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ._build import require_real
+
 #: A normalized q-column with squared norm below this is treated as zero
 #: (the item was already in the selected span).
 EPS = 1e-30
@@ -251,6 +253,7 @@ def phase2_select_cuda(us: torch.Tensor, k_eff: torch.Tensor,
     (B, 2, k, k) basis). Same contract as ``phase2_select_plain``.
     Raises on CPU tensors, wrong dtypes, non-contiguous inputs, bad
     shapes, and a refused launch."""
+    require_real("phase2_select_cuda", us, k_eff, G1, Gr)
     global launches
     nb, N1, Nr, k = _check_cuda_inputs(us, k_eff, G1, Gr)
     picks = torch.empty((nb, k), dtype=torch.int32, device=us.device)

@@ -47,6 +47,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ._build import require_real
+
 MASK = 0xFFFFFFFF
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 PARITY = 0x1BD11BDA
@@ -228,6 +230,7 @@ def threefry2x32_cuda(keys: torch.Tensor, n: int, mode: str,
     stream. Same contract as ``threefry2x32_plain``; keys (R, 2) and data
     (R,) contiguous int64 on the card. Raises on CPU tensors, a wrong
     dtype or shape, n >= 2^32 and a refused launch."""
+    require_real("threefry2x32_cuda", keys, data)
     _check_mode(mode, n, data, n2)
     R = _check_cuda_inputs(keys, data, mode)
     n, n2 = int(n), int(n2)

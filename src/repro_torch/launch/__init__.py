@@ -1,8 +1,7 @@
-"""Launchers (port of ``repro/launch``): ``serve``, ``train`` and
-``learn`` are ported, each a ``main(argv=None)`` run with ``python -m
+"""Launchers (port of ``repro/launch``): ``serve``, ``train``, ``learn``
+and ``dryrun`` (the planner of the 256- and 512-card meshes on fake
+shards), each a ``main(argv=None)`` run with ``python -m
 repro_torch.launch.<name>``; ``mesh`` builds the production
-``DeviceMesh`` over a process group. ``dryrun``, the reference's planner
-of the 256- and 512-chip meshes, is not ported yet (ROADMAP.md), and
-nothing is exported."""
+``DeviceMesh`` over a process group. Nothing is exported."""
 
 __all__: list = []

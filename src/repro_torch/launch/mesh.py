@@ -33,10 +33,12 @@ def production_shape(world: int, multi_pod: bool = False
     return (world // NODE_CARDS, NODE_CARDS), ("data", "model")
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None) -> DeviceMesh:
     """The 256-card mesh (512 across two pods) over the first 256 (512)
     ranks of the initialised process group, as the reference takes the
-    first devices of a larger set; ``RuntimeError`` with fewer ranks."""
+    first devices of a larger set; ``RuntimeError`` with fewer ranks.
+    ``device_type`` as for ``make_mesh_from_devices``."""
     n = 2 * POD_CARDS if multi_pod else POD_CARDS
     world = dist.get_world_size() if dist.is_initialized() else 0
     if world < n:
@@ -46,18 +48,23 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
             f"{world}; start one process a card and call "
             "torch.distributed.init_process_group first")
     shape, axes = production_shape(n, multi_pod)
-    return make_mesh_from_devices(range(n), shape, axes)
+    return make_mesh_from_devices(range(n), shape, axes, device_type)
 
 
-def make_mesh_from_devices(ranks: Sequence[int], shape, axes) -> DeviceMesh:
+def make_mesh_from_devices(ranks: Sequence[int], shape, axes,
+                           device_type: Optional[str] = None) -> DeviceMesh:
     """Elastic path: a (possibly smaller) mesh over the first prod(shape)
     of ``ranks`` (a DeviceMesh is over ranks, not device objects), on the
-    process group's device type: "cuda" under NCCL, "cpu" otherwise.
-    Every rank of the group calls it, as ``DeviceMesh`` asks; a rank
-    outside the mesh gets an object it must not use."""
+    process group's device type: "cuda" under NCCL, "cpu" otherwise. A
+    "fake" group (the planner's) has no device of its own, so its caller
+    names the type of the shards it places (``DTensor.from_local`` moves a
+    shard to its mesh's device type). Every rank of the group calls it,
+    as ``DeviceMesh`` asks; a rank outside the mesh gets an object it must
+    not use."""
     n = int(np.prod(shape))
     assert len(ranks) >= n, (len(ranks), shape)
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     grid = np.asarray(list(ranks)[:n], dtype=np.int64).reshape(shape)
     return DeviceMesh(device_type, grid.tolist(),
                       mesh_dim_names=tuple(axes))

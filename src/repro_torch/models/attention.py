@@ -18,7 +18,13 @@ encoder position attended; a decode step attends the encoder K/V that
 unchanged.
 
 ``attention_decode`` is functional, as the reference: it returns a new
-cache and leaves the one it was given as it was. The slot ``pos % size``
+cache and leaves the one it was given as it was. A cache of DTensors
+(placed by ``ShardingPolicy.decode_state_shardings``: batch over the
+data axes and KV heads over "model", or, for a batch of one, the
+sequence over the data axes and "model") is written and attended on
+local shards (``distributed.shard_ops.slot_write``/``cache_attend``); a
+sequence-sharded cache combines each shard's softmax max and sum
+(``_chunk_stats``). The slot ``pos % size``
 stays a device tensor, and no constant is copied from the host (a
 ``torch.tensor(..., device=card)`` copy waits for the card), so a decode
 step never waits for the device.
@@ -34,7 +40,7 @@ from torch.distributed.tensor import DTensor
 from .. import random as prng
 from ..config import ModelConfig
 from ..distributed.constraints import constrain_heads, splittable
-from ..distributed.shard_ops import heads_local
+from ..distributed.shard_ops import cache_attend, heads_local, slot_write
 from .common import dense_init, rms_norm, rope, seq_map, stable_softmax
 
 
@@ -108,6 +114,27 @@ def _chunk_attend(q, k, v, q_pos, k_pos, *, causal: bool, scale: float,
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).float(),
                        v.float())
     return out.reshape(B, Cq, H * hd).to(q.dtype)
+
+
+def _chunk_stats(q, k, v, q_pos, k_pos, *, causal: bool, scale: float):
+    """``_chunk_attend``'s softmax in parts, for keys split over ranks: the
+    masked max of each query row's scores, the sum of exp(score - max)
+    and the unnormalised output, (B, KV, g, Cq) and (B, KV, g, Cq, hd),
+    all float32 (``_chunk_attend`` rounds its probabilities to v's dtype
+    first: in bfloat16 the two part by that rounding); a row with no key
+    in ``k_pos`` has max -1e30 and sums 0."""
+    B, Cq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Cq, KV, H // KV, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    mask = (k_pos[None, :] >= 0)
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    scores = torch.where(mask, scores, -1e30)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(scores - m), 0.0)
+    o = torch.einsum("bkgqs,bskd->bkgqd", e, v.float())
+    return m[..., 0], e.sum(-1), o
 
 
 def attention_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
@@ -187,8 +214,13 @@ def fill_kv_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor
     if W is None or S <= W:
         return KVCache(k=k, v=v, pos=pos)
     shift = S % W
-    return KVCache(k=torch.roll(k[:, S - W:], shift, dims=1),
-                   v=torch.roll(v[:, S - W:], shift, dims=1), pos=pos)
+
+    def ring(x):
+        # torch.roll(x[:, S - W:], shift, dims=1), as slices DTensor takes
+        x = x[:, S - W:]
+        return torch.cat([x[:, W - shift:], x[:, :W - shift]], dim=1)
+
+    return KVCache(k=ring(k), v=ring(v), pos=pos)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -221,15 +253,22 @@ def attention_decode(p, x: torch.Tensor, cache: KVCache, cfg: ModelConfig,
                             scale=scale)
         return x + out @ p["wo"], cache
     q, k_new, v_new = _qkv(p, h, cfg)
-    pos = cache.pos
+    # a replicated DTensor position (a distributed decode state) is read
+    # as its value: positions and masks stay plain tensors
+    pos = cache.pos.to_local() if isinstance(cache.pos, DTensor) \
+        else cache.pos
 
     q = rope(q, pos[None, None], cfg.rope_theta)
     k_new = rope(k_new, pos[None, None], cfg.rope_theta)
     size = cache.k.shape[1]
     slot = torch.remainder(pos, size)          # ring for SWA, linear else
-    at = slot.reshape(1).long()
-    k = cache.k.index_copy(1, at, k_new)
-    v = cache.v.index_copy(1, at, v_new)
+    if isinstance(cache.k, DTensor):
+        k = slot_write(cache.k, k_new, slot)
+        v = slot_write(cache.v, v_new, slot)
+    else:
+        at = slot.reshape(1).long()
+        k = cache.k.index_copy(1, at, k_new)
+        v = cache.v.index_copy(1, at, v_new)
     idx = torch.arange(size, device=x.device)
     if cfg.sliding_window is None:
         k_pos = torch.where(idx <= pos, idx, -1)
@@ -239,6 +278,14 @@ def attention_decode(p, x: torch.Tensor, cache: KVCache, cfg: ModelConfig,
         logical = pos - age
         k_pos = torch.where((logical >= 0) & (logical > pos - size),
                             logical, -1)
-    out = _chunk_attend(q, k, v, pos.reshape(1), k_pos, causal=True,
-                        scale=scale)
-    return x + out @ p["wo"], KVCache(k, v, pos + 1)
+    q_pos = pos.reshape(1)
+    if isinstance(k, DTensor):
+        out = cache_attend(
+            lambda q, k, v, kp: _chunk_attend(q, k, v, q_pos, kp,
+                                              causal=True, scale=scale),
+            lambda q, k, v, kp: _chunk_stats(q, k, v, q_pos, kp,
+                                             causal=True, scale=scale),
+            q, k, v, k_pos)
+    else:
+        out = _chunk_attend(q, k, v, q_pos, k_pos, causal=True, scale=scale)
+    return x + out @ p["wo"], KVCache(k, v, cache.pos + 1)

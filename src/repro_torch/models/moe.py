@@ -8,10 +8,13 @@ expert with a stable sort, each pair's rank within its expert's run is its
 slot, and a pair past the capacity C goes to the sentinel row E·C, which
 is cut off; the experts' FFNs are einsums over (B, E, C, d) × (E, d, f),
 as in the JAX package (whose expert products are XLA einsums, not a
-Pallas kernel). Under a mesh the dispatch buffer and the experts' output
-are pinned batch over the data axes and experts over "model"
-(``distributed.constraints.constrain``, the reference's hints); without
-one the hints return their input.
+Pallas kernel). Sharded, a DTensor layer input runs on local shards
+(``distributed.shard_ops.experts_local``): the routing and the dispatch
+on each data shard's rows, the experts' einsums on each model rank's
+expert shard (EP) or, where the experts do not divide "model", on its
+shard of the ffn-hidden dim (mixtral's 8 experts on a larger model
+axis), the outputs summed over "model". ``moe_aux_loss`` takes DTensors
+as they are (its means reduce over the batch shards).
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import random as prng
 from ..config import ModelConfig
 from ..distributed.constraints import constrain
+from ..distributed.shard_ops import experts_local
 from .common import dense_init, rms_norm, swiglu
 
 
@@ -87,22 +92,32 @@ def slot_map(top_e: torch.Tensor, n_experts: int, capacity: int
     return torch.empty_like(dest).scatter_(1, order, dest)
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d). Groups = batch rows."""
+def _moe_y(p, x: torch.Tensor, cfg: ModelConfig, e0: int = 0,
+           n_local: int = 0) -> torch.Tensor:
+    """The MoE FFN's output (without the residual) of x (B, S, d), from
+    the experts e0 .. e0 + n_local - 1 (all of them for n_local 0) whose
+    weights ``p`` holds; ``p``'s weights may hold a shard of each
+    expert's ffn-hidden dim, giving that shard's share of the output."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
+    n_local = n_local or E
     C = group_capacity(S, cfg)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     _, top_w, top_e = route(p, h, cfg)
     dest = slot_map(top_e, E, C)                              # (B, S*K)
+    if n_local != E:
+        # this rank's experts: slots of the others go to its sentinel
+        rel = dest - e0 * C
+        dest = torch.where((rel >= 0) & (rel < n_local * C), rel,
+                           n_local * C)
 
     # dispatch: each pair's token row into its slot of (B, E*C + 1, d);
     # only the sentinel row can take two writes, and it is cut off
     src = h.repeat_interleave(K, dim=1)                       # (B, S*K, d)
     idx = dest[..., None].expand(B, S * K, d)
-    buf = torch.zeros((B, E * C + 1, d), dtype=h.dtype, device=h.device
-                      ).scatter(1, idx, src)
-    buf = constrain(buf[:, :E * C].reshape(B, E, C, d),
+    buf = torch.zeros((B, n_local * C + 1, d), dtype=h.dtype,
+                      device=h.device).scatter(1, idx, src)
+    buf = constrain(buf[:, :n_local * C].reshape(B, n_local, C, d),
                     "batch", "model", None, None)
 
     gate = torch.einsum("becd,edf->becf", buf, p["w_gate"])
@@ -115,19 +130,29 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # token are adjacent, so the reference's segment_sum over
     # repeat(arange(S), K) is a sum over a (S, K) reshape: no atomics, the
     # same bits from run to run on the card.
-    out = torch.cat([out.reshape(B, E * C, d),
+    out = torch.cat([out.reshape(B, n_local * C, d),
                      torch.zeros((B, 1, d), dtype=out.dtype,
                                  device=out.device)], dim=1)
     y = torch.gather(out, 1, idx) * top_w.reshape(B, S * K, 1).to(out.dtype)
-    y = y.reshape(B, S, K, d).sum(2)
-    return x + y.to(x.dtype)
+    return y.reshape(B, S, K, d).sum(2)
+
+
+def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d). Groups = batch rows. A DTensor ``x`` (or
+    DTensor weights) runs on local shards
+    (``distributed.shard_ops.experts_local``)."""
+    if isinstance(x, DTensor) or isinstance(p["w_gate"], DTensor):
+        return experts_local(
+            lambda xl, pl, e0, n: _moe_y(pl, xl, cfg, e0, n), p, x)
+    return x + _moe_y(p, x, cfg).to(x.dtype)
 
 
 def moe_aux_loss(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Load-balancing auxiliary loss (Switch-style): E * sum_e f_e * p_e."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     probs, _, top_e = route(p, h, cfg)
-    hard = torch.nn.functional.one_hot(top_e, cfg.n_experts).sum(-2)
+    experts = torch.arange(cfg.n_experts, device=top_e.device)
+    hard = (top_e[..., None] == experts).sum(-2)              # (B, S, E)
     f = hard.float().mean((0, 1)) / cfg.experts_per_token
     pbar = probs.mean((0, 1))
     return cfg.n_experts * torch.sum(f * pbar)

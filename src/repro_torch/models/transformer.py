@@ -31,9 +31,13 @@ whisper: the encoder runs over the stub frontend's frame embeddings
 cross-attention layer on the encoder states; a decode step recomputes the
 cross K/V from ``DecodeState.enc_out``, as the reference does.
 
-Sharded training passes DTensor params and batches (placed by
-``repro_torch.distributed.ShardingPolicy``) under ``use_mesh(mesh)``;
-DTensor's sharding propagation runs the same code. The layout hints of
+Sharded training and serving pass DTensor params, batches and decode
+states (placed by ``repro_torch.distributed.ShardingPolicy``);
+``prefill`` and ``decode_step`` enter the params' mesh themselves
+(``constraints.sharded_context``), as the train step does. DTensor's
+sharding propagation runs the same code, and the families' layers run on
+local shards: the dense FFN's hidden dim, MoE experts, SSM heads, and a
+decode step's cache write and attention (``distributed/shard_ops.py``). The layout hints of
 ``repro_torch.distributed.constraints`` (``constrain_bsd`` on each unit's
 input, ``constrain_params`` on its params, ``constrain`` on the logits)
 sit at the reference's places and return their input unchanged without a
@@ -55,8 +59,9 @@ from .. import random as prng
 from .._device import DeviceLike, resolve_device
 from ..config import LayerKind, ModelConfig
 from ..distributed.constraints import (constrain, constrain_bsd,
-                                       constrain_params)
-from ..distributed.shard_ops import embed_lookup, vocab_gold, vocab_logsumexp
+                                       constrain_params, sharded_context)
+from ..distributed.shard_ops import (embed_lookup, ffn_local, vocab_gold,
+                                     vocab_logsumexp)
 from .attention import (KVCache, _proj, attention_decode, attention_forward,
                         fill_kv_cache, init_attn_params, init_kv_cache)
 from .common import dense_init, embed_init, rms_norm, swiglu
@@ -101,14 +106,22 @@ def init_ffn_params(key, cfg: ModelConfig, dtype: torch.dtype,
     return p
 
 
-def dense_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn_y(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     if "w_gate" in p:
         y = swiglu(h @ p["w_gate"], h @ p["w_up"])
     else:
         # jax.nn.gelu's default is the tanh approximation
         y = F.gelu((h @ p["w_up"]).float(), approximate="tanh").to(h.dtype)
-    return x + y @ p["w_down"]
+    return y @ p["w_down"]
+
+
+def dense_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x + FFN(x); a DTensor ``x`` runs on local shards, the ffn-hidden dim
+    over "model" (``shard_ops.ffn_local``)."""
+    if isinstance(x, DTensor):
+        return ffn_local(lambda xl, pl: _ffn_y(pl, xl, cfg), p, x)
+    return x + _ffn_y(p, x, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +446,8 @@ class LM:
             raise ValueError(f"{self.cfg.name} is an encoder-decoder: pass "
                              f"enc_embeds (B, {self.cfg.encoder_seq}, "
                              f"{self.cfg.d_model})")
-        x = torch.as_tensor(enc_embeds, device=self.device)
+        x = enc_embeds if isinstance(enc_embeds, DTensor) else \
+            torch.as_tensor(enc_embeds, device=self.device)
         return encode(params["encoder"], x.to(self._compute_dtype()),
                       self.cfg)
 
@@ -509,6 +523,10 @@ class LM:
     # -- prefill (serving): trunk + cache fill + last-token logits -----------
     def prefill(self, params, tokens, enc_embeds=None):
         """tokens (B, S) -> (last logits (B, 1, V), DecodeState)."""
+        with sharded_context(params):
+            return self._prefill(params, tokens, enc_embeds)
+
+    def _prefill(self, params, tokens, enc_embeds):
         cfg = self.cfg
         params = self._cast(params)
         x = embed_lookup(params["embed"], self._tokens(tokens)).to(
@@ -536,12 +554,17 @@ class LM:
                   for _ in range(n_units)]
         enc_out = None
         if self.cfg.encoder_layers:
-            enc_out = self._encode(self._cast(params), enc_embeds)
+            with sharded_context(params):
+                enc_out = self._encode(self._cast(params), enc_embeds)
         return DecodeState(caches=_stack(caches), enc_out=enc_out)
 
     def decode_step(self, params, token, state: DecodeState
                     ) -> Tuple[torch.Tensor, DecodeState]:
         """token: (B, 1) int -> (logits (B, 1, V), new state)."""
+        with sharded_context(params):
+            return self._decode_step(params, token, state)
+
+    def _decode_step(self, params, token, state: DecodeState):
         params = self._cast(params)
         x = embed_lookup(params["embed"], self._tokens(token)).to(
             self._compute_dtype())

@@ -17,32 +17,17 @@ and the fp32 accumulator are pinned to the reference's layouts
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Dict
 
 import torch
 from torch.distributed.tensor import DTensor
-from torch.distributed.tensor.experimental import implicit_replication
 
 from ..distributed.constraints import (constrain, constrain_params,
-                                       current_mesh, splittable, use_mesh)
+                                       sharded_context, splittable)
+from ..distributed.sharding import distribute
 from ..models import LM
 from ..optim import AdamW, OptState
 from ..optim.adamw import tree_leaves, tree_unflatten
-
-
-def sharded_context(params):
-    """The context a step on ``params`` runs in: none for plain tensors;
-    for DTensors their mesh (when no mesh is set) and implicit
-    replication of plain tensors."""
-    leaf = tree_leaves(params)[0]
-    if not isinstance(leaf, DTensor):
-        return contextlib.nullcontext()
-    stack = contextlib.ExitStack()
-    if current_mesh() is None:
-        stack.enter_context(use_mesh(leaf.device_mesh))
-    stack.enter_context(implicit_replication())
-    return stack
 
 
 def _value_and_grad(lm: LM, params, batch):
@@ -113,13 +98,36 @@ def make_eval_step(lm: LM):
     return eval_step
 
 
-def make_serve_steps(lm: LM):
-    """(prefill_step, decode_step) for the serving path."""
+def make_serve_steps(lm: LM, policy=None):
+    """(prefill_step, decode_step) for the serving path. With a
+    ``ShardingPolicy`` (params, tokens and state placed by it) the
+    outputs are placed as the reference's ``out_shardings``: the logits
+    by ``logits_shardings``, the decode state by
+    ``decode_state_shardings``."""
 
-    def prefill_step(params, tokens):
-        return lm.prefill(params, tokens)
+    def place(tree, shardings):
+        # DTensor leaves move to their sharding; a plain leaf (a position
+        # every rank computed alike) stays as it is
+        if isinstance(tree, DTensor):
+            return distribute(tree, shardings)
+        if isinstance(tree, dict):
+            return {k: place(v, shardings[k]) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            items = [place(v, s) for v, s in zip(tree, shardings)]
+            return type(tree)(*items) if hasattr(tree, "_fields") \
+                else tuple(items)
+        return tree
+
+    def placed(logits, state):
+        if policy is None:
+            return logits, state
+        return (place(logits, policy.logits_shardings(logits.shape[0])),
+                place(state, policy.decode_state_shardings(state)))
+
+    def prefill_step(params, tokens, enc_embeds=None):
+        return placed(*lm.prefill(params, tokens, enc_embeds=enc_embeds))
 
     def decode_step(params, token, state):
-        return lm.decode_step(params, token, state)
+        return placed(*lm.decode_step(params, token, state))
 
     return prefill_step, decode_step

@@ -84,7 +84,7 @@ def test_importing_the_port_loads_no_jax_and_no_jax_package():
             "repro_torch.distributed.constraints, "
             "repro_torch.distributed.elastic, "
             "repro_torch.distributed.shard_ops, repro_torch.launch.mesh, "
-            "repro_torch.optim.compression\n"
+            "repro_torch.optim.compression, repro_torch.launch.dryrun\n"
             "import repro_torch.configs as c\n"
             "[c.get_config(a) for a in c.list_archs()]\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -25,9 +25,6 @@ at most ``PAST_SHARE`` = 1% past ``STEP_TOL`` = 1e-6).
 import functools
 import json
 import os
-import subprocess
-import sys
-import time
 from pathlib import Path
 
 # the JAX reference runs on the CPU and takes none of a card's memory, even
@@ -58,8 +55,8 @@ from repro_torch.optim.compression import _quantize
 from repro_torch.train import make_train_step
 from test_torch_models import F32_TOL
 from test_torch_train import PAST_SHARE, STEP_TOL
+from _ranks import run_ranks
 
-ROOT = Path(__file__).resolve().parents[1]
 WORKER = Path(__file__).with_name("_sharded_train_worker.py")
 ARCH = "qwen2-0.5b"
 LR = 1e-3
@@ -93,30 +90,7 @@ def ranks(tmp_path_factory):
     for i, b in enumerate(_batches()):
         inputs[f"tokens{i}"] = b
     np.savez(work / "inputs.npz", **inputs)
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]),
-        OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(r), str(WORLD), str(work)],
-        env=env, stdout=subprocess.DEVNULL,
-        stderr=open(work / f"rank{r}.log", "w")) for r in range(WORLD)]
-    end = time.monotonic() + DEADLINE_S
-    try:
-        while time.monotonic() < end:
-            codes = [p.poll() for p in procs]
-            if None not in codes or any(c not in (None, 0) for c in codes):
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    errors = [(work / f"rank{r}.err").read_text()
-              for r in range(WORLD) if (work / f"rank{r}.err").exists()]
-    codes = [p.returncode for p in procs]
-    assert codes == [0] * WORLD and not errors, (
-        codes, errors or (work / "rank0.log").read_text()[-3000:])
+    run_ranks(WORKER, work, WORLD, DEADLINE_S)
     checks = [json.loads((work / f"rank{r}.json").read_text())
               for r in range(WORLD)]
     return dict(np.load(work / "results.npz")), checks

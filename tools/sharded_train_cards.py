@@ -41,6 +41,7 @@ import collections
 import dataclasses
 import datetime
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -416,6 +417,38 @@ def worker(rank: int, work: str, backend: str, smoke: bool) -> None:
     sys.exit(1 if FAILED else 0)
 
 
+def spawn_ranks(target, work: Path, backend: str, smoke: bool):
+    """Start ``WORLD`` spawned ranks of ``target(rank, work, backend,
+    smoke)`` in a fresh ``work`` directory and wait for them, killing all
+    past ``DEADLINE_S`` or when one fails: (exit codes, rank 0's
+    ``result.json`` or None). Every rank gets one ``PYTHONHASHSEED``:
+    DTensor breaks ties between sharding strategies in an order that
+    follows string hashes, and ranks that choose apart wait on different
+    collectives."""
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    os.environ["PYTHONHASHSEED"] = "0"       # read by each spawned rank
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, str(work), backend, smoke))
+             for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + DEADLINE_S
+    while time.monotonic() < end:
+        codes = [p.exitcode for p in procs]
+        if None not in codes or any(c not in (None, 0) for c in codes):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.exitcode is None:
+            p.kill()
+        p.join()
+    result = work / "result.json"
+    out = json.loads(result.read_text()) if result.exists() else None
+    shutil.rmtree(work, ignore_errors=True)
+    return [p.exitcode for p in procs], out
+
+
 def main(backend: str = "nccl", smoke: bool = False) -> None:
     """Spawn the 4 ranks and wait for them (``backend`` "gloo" and
     ``smoke`` rehearse the control flow on the CPU)."""
@@ -432,28 +465,8 @@ def main(backend: str = "nccl", smoke: bool = False) -> None:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip().splitlines()
     work = ROOT / "build" / "sharded_train_cards"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=worker, args=(r, str(work), backend, smoke))
-             for r in range(WORLD)]
     t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    end = time.monotonic() + DEADLINE_S
-    while time.monotonic() < end:
-        codes = [p.exitcode for p in procs]
-        if None not in codes or any(c not in (None, 0) for c in codes):
-            break
-        time.sleep(0.5)
-    for p in procs:
-        if p.exitcode is None:
-            p.kill()
-        p.join()
-    codes = [p.exitcode for p in procs]
-    result = work / "result.json"
-    out = json.loads(result.read_text()) if result.exists() else None
-    shutil.rmtree(work, ignore_errors=True)
+    codes, out = spawn_ranks(worker, work, backend, smoke)
     print(json.dumps({"sharded_train_cards": out, "exit_codes": codes,
                       "wall_s": time.perf_counter() - t0, "cards": smi}))
     if codes != [0] * WORLD or out is None:
