@@ -379,6 +379,26 @@ non-zero and prints no result line.
    a ``plan`` JSON line; no kernel launch on the planner's shapes, no
    process group left. A ``sharded_families`` JSON line and
    ``launches_per_path.lm_sharded_families`` in the ``kernels`` rows.
+29. the examples (``examples/port/``, the JAX package's four examples
+   through the port): ``quickstart``, ``prune_ffn_dpp``,
+   ``serve_kv_compaction`` and ``train_dpp_selection`` as subprocesses on
+   the card at their defaults, started together; each must exit 0 and
+   print its key lines (``EX_KEY_LINES``), and the KV client's two
+   streams must coalesce into fewer device calls than heads. Then each
+   example's ``run`` in this process with every launch count from 0
+   (``sv_counted``): quickstart launches phase 2, ``threefry2x32`` and the
+   fused greedy MAP (one sample, one ``map(10)``) and no partial trace;
+   the KV client and the trainer (16 steps) phase 2 and
+   ``threefry2x32``. The compat surface on the card:
+   ``sampling.batched.phase2_select(key, ...)`` against
+   ``phase2_select_reference`` on the key's uniforms, and the deprecated
+   ``core.sample_krondpp_batch``. Last the prune example's steps at qwen2-0.5b's full
+   width (``EX_PROBE``: 4 x 2048 probe positions, d_ff 4864 -> 2432):
+   one launch of the fused greedy MAP of 2432 steps, its picks against
+   the plain loop's on the same kernel (``compare_maps``), its device
+   time beside ``kdpp_bound``, err_dpp and err_mag. An ``examples`` JSON
+   line, ``launches_per_path.examples`` and the greedy-MAP row's
+   ``prune_n4864_k2432``.
 
 Every row of the ``kernels`` line is timed by ``kernel_times``: ``ms``,
 ``plain_ms`` and ``library_ms`` are device times (the durations of the
@@ -555,6 +575,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -6017,6 +6038,272 @@ def lm_planner_path(dev, card: str, power_limit: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the examples, and DPP pruning at full width
+# ---------------------------------------------------------------------------
+
+EX_SCRIPTS = ("quickstart", "prune_ffn_dpp", "serve_kv_compaction",
+              "train_dpp_selection")
+# lines each script must print, as the JAX examples print them
+EX_KEY_LINES = {
+    "quickstart": ("ground set N = 500", "drew 80 exact samples",
+                   "monotone ascent verified over 10 sweeps",
+                   "conditioned on [0, 1]: new ground set of 498 items",
+                   "greedy MAP-10:"),
+    "prune_ffn_dpp": ("pruned d_ff 128 -> 64", "reconstruction MSE:",
+                      "selection wins on this probe"),
+    "serve_kv_compaction": ("plain decode:", "compacted decode:",
+                            "device_calls=", "== slowest 2 of 2 traces =="),
+    "train_dpp_selection": ("kernel calibration: ll",
+                            '{"step": 200,', "done at step 200"),
+}
+EX_TIMEOUT_S = 300
+# examples/port/prune_ffn_dpp.py's steps at qwen2-0.5b's full width
+# (src/repro/configs/qwen2_0_5b.py: d_model 896, d_ff 4864), layer 0 of
+# init_params(PRNGKey(0)) in the config's float32 param dtype, a seeded
+# float32 probe of 4 x 2048 token positions (8192 rows, so the 4864 x 4864
+# unit kernel has full rank; the reference's 4 x 64 gives rank <= 256),
+# keep d_ff / 2 = 2432: one fused greedy-MAP launch of 2432 dependent
+# steps, its C (2432 x 4864 float32, 47 MB) in the device scratch
+EX_PRUNE_ARCH = "qwen2-0.5b"
+EX_PROBE = (4, 2048)
+EX_TRAIN_STEPS = 16        # the in-process counted run of the trainer
+
+
+def ex_module(name: str):
+    """``examples/port/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"port_example_{name}", ROOT / "examples" / "port" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ex_scripts(ck_dir: Path) -> dict:
+    """The four example scripts as subprocesses on the card at their
+    defaults (the trainer's checkpoints under ``ck_dir``), started
+    together: each must exit 0 and print its key lines."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / "port" / f"{name}.py"),
+         *(["--checkpoint-dir", str(ck_dir)]
+           if name == "train_dpp_selection" else [])],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for name in EX_SCRIPTS}
+    out = {}
+    for name, proc in procs.items():
+        try:
+            text, _ = proc.communicate(
+                timeout=max(EX_TIMEOUT_S - (time.perf_counter() - t0), 1.0))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        lines = text.splitlines()
+        keys = [ln for ln in lines
+                if any(k in ln for k in EX_KEY_LINES[name])]
+        for ln in keys:
+            print(f"  {name}: {ln}")
+        out[name] = {"exit": proc.returncode, "done_s":
+                     time.perf_counter() - t0, "key_lines": keys}
+        check(proc.returncode == 0, f"examples/port/{name}.py exited "
+              f"{proc.returncode}:\n" + "\n".join(lines[-40:]))
+        missing = [k for k in EX_KEY_LINES[name]
+                   if not any(k in ln for ln in lines)]
+        check(not missing, f"examples/port/{name}.py printed none of "
+              f"{missing}:\n" + "\n".join(lines[-40:]))
+    serve = " ".join(out["serve_kv_compaction"]["key_lines"])
+    calls = [int(x) for x in serve.split("device_calls=")[1].split()[::2][:2]
+             ] if "device_calls=" in serve else [0, 0]
+    check(0 < calls[0] < calls[1], f"the KV client's streams did not "
+          f"coalesce: device_calls {calls[0]} for {calls[1]} heads")
+    out["serve_device_calls_heads"] = calls
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def ex_counted(fn, label: str, expect) -> tuple:
+    """``fn``'s in-process run with every launch count from 0 (``sv_counted``)
+    and its printing kept off the log; (fn's result, the counts)."""
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        out, n = sv_counted(fn, label, expect)
+    print(f"  {label}: launches {json.dumps(n)}")
+    return out, n
+
+
+def ex_prune_full_width(dev) -> dict:
+    """The prune example's steps at qwen2-0.5b's full width on the card:
+    one fused greedy-MAP launch (counted), its picks against the plain
+    loop's on the same kernel (``compare_maps``), its device time beside
+    its bound, err_dpp and err_mag."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import greedy_map as gm
+    cfg = get_config(EX_PRUNE_ARCH)
+    prune = ex_module("prune_ffn_dpp")
+    t0 = time.perf_counter()
+    res, n = ex_counted(
+        lambda: prune.run(cfg=cfg, probe=EX_PROBE, device=dev),
+        f"prune_ffn_dpp at full width ({EX_PRUNE_ARCH}, probe {EX_PROBE})",
+        {"greedy_map_kdpp", "threefry2x32"})
+    wall = time.perf_counter() - t0
+    check(n["greedy_map_kdpp"] == 1, f"the prune's MAP launched the fused "
+          f"kernel {n['greedy_map_kdpp']} times, not once")
+    L, k, N = res["kernel"], res["keep"], cfg.d_ff
+    pk = res["map_picks"]
+    check(pk.is_cuda and pk.dtype == torch.int32 and tuple(pk.shape) == (k,),
+          f"the prune's picks: {pk.dtype} {tuple(pk.shape)} on {pk.device}")
+    pk = pk.cpu().numpy()
+    check(len(set(pk.tolist())) == k and pk.min() >= 0 and pk.max() < N,
+          "the prune's picks are not k distinct units")
+    # the Gram matrix's rank: eigenvalues of L above its 1e-4 ridge
+    ev = torch.linalg.eigvalsh(L)
+    rank = int((ev > 2e-4).sum())
+    t1 = time.perf_counter()
+    pp = gm.greedy_map_kdpp_plain(L, k)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t1
+    cmp = compare_maps(L, pk, pp.cpu().numpy(),
+                       f"prune map({k}) at N = {N}: kernel vs plain")
+    live = greedy_live_steps(L, pk)
+    b_ms, b_by, b_row = kdpp_bound(N, k, [live])
+    plan = gm.greedy_map_kdpp_plan(N, k, L.device)
+    times = {"ms": device_ms(partial(gm.greedy_map_kdpp_cuda, L, k), 3, 1,
+                             expect="greedy_map_kdpp_kernel", sole=True),
+             "ms_loop": cuda_ms(partial(gm.greedy_map_kdpp_cuda, L, k), 3,
+                                1),
+             "plain_ms": device_ms(partial(gm.greedy_map_kdpp_plain, L, k),
+                                   1, 0),
+             "plain_ms_loop": plain_wall * 1e3,
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+             "bound_row_ms": b_row, "live_steps": [live], "steps": k,
+             "plan": plan, "launches": n["greedy_map_kdpp"],
+             "shapes": {"N": N, "k": k, "H": 1}}
+    times["per_step_ms"] = times["ms"] / k
+    check(np.isfinite([res["err_dpp"], res["err_mag"]]).all(),
+          f"prune errors {res['err_dpp']}, {res['err_mag']}")
+    out = {"arch": EX_PRUNE_ARCH, "probe": EX_PROBE, "d_ff": N, "keep": k,
+           "gram_rank": rank, "kernel_min_eig": float(ev[0]),
+           "err_dpp": res["err_dpp"],
+           "err_mag": res["err_mag"],
+           "winner": "diverse" if res["err_dpp"] <= res["err_mag"]
+           else "magnitude", "wall_s": wall, "plain_wall_s": plain_wall,
+           "map_vs_plain": cmp, "times": times, "launches": n}
+    print(f"  prune at full width: d_ff {N} -> {k}, Gram rank {rank}, "
+          f"reconstruction MSE DPP-diverse {res['err_dpp']!r} vs magnitude "
+          f"{res['err_mag']!r}; the fused MAP {times['ms']!r} ms "
+          f"(device), {times['per_step_ms'] * 1e3!r} µs a step, bound "
+          f"{b_ms!r} ms ({b_by}), plain loop {times['plain_ms']!r} ms "
+          f"(device) {times['plain_ms_loop']!r} ms (wall); plan "
+          f"{json.dumps(plan)}")
+    return out
+
+
+def ex_compat_on_card(dev) -> dict:
+    """The JAX package's single-sample compat surface on the card:
+    ``sampling.batched.phase2_select(key, ...)`` (one ``threefry2x32`` and
+    one phase-2 launch) against ``phase2_select_reference`` on the same
+    uniforms (``compare_picks``), and the deprecated
+    ``core.sample_krondpp_batch`` (the keyed batched sampler)."""
+    import warnings
+    from repro_torch import dpp
+    from repro_torch import random as prng
+    from repro_torch.core import sample_krondpp_batch
+    from repro_torch.sampling import batched as tb
+    gen = torch.Generator(device=dev).manual_seed(29)
+    model = dpp.random_kron(gen, (100, 100), device=dev).rescale(20.0)
+    spec = model.spectrum()
+    k_max = spec.suggested_k_max()
+    _, ke, G1, Gr = phase1_inputs(spec, k_max, 1, gen)
+    key = prng.PRNGKey(29, dev)
+    picks, n_sel = ex_counted(
+        lambda: tb.phase2_select(key, (G1[0], Gr[0]), spec.sizes, ke[0]),
+        "sampling.batched.phase2_select(key, ...)",
+        {"phase2_select", "threefry2x32"})
+    check(n_sel["phase2_select"] == 1 and picks.is_cuda, f"phase2_select("
+          f"key, ...): {n_sel}, picks on {picks.device}")
+    us = prng.uniform(key, (k_max,), backend="reference")
+    ref = tb.phase2_select_reference(us, (G1[0], Gr[0]), spec.sizes, ke[0])
+    agree = compare_picks(picks.cpu().numpy()[None], ref.cpu().numpy()[None],
+                          us[None], ke[:1], G1[:1], Gr[:1],
+                          "phase2_select(key) vs phase2_select_reference")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        rows, n_batch = ex_counted(
+            lambda: sample_krondpp_batch(key, model.to_krondpp(), 64),
+            "core.sample_krondpp_batch", {"phase2_select", "threefry2x32"})
+    check(len(rows) == 64 and all(len(set(r)) == len(r) for r in rows),
+          "core.sample_krondpp_batch: rows")
+    return {"phase2_select_key": agree, "launches": {
+        "phase2_select_key": n_sel, "sample_krondpp_batch": n_batch}}
+
+
+def examples_path(dev, card: str, power_limit: str) -> dict:
+    """Phase 29: the four ``examples/port/`` scripts on the card as
+    subprocesses at their defaults; each example's steps in this process
+    with every launch count from 0 (quickstart's sample, condition and
+    map(10); the KV client's two streams; 16 steps of the DPP-selected
+    trainer); the prune example at qwen2-0.5b's full width."""
+    t_phase = time.perf_counter()
+    out = {"card": card, "power_limit": power_limit}
+    ck = ROOT / "build" / "examples_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    ck.mkdir(parents=True)
+    try:
+        out["scripts"] = ex_scripts(ck / "scripts")
+        quick = ex_module("quickstart")
+        res, n_quick = ex_counted(
+            lambda: quick.run(dev), "quickstart",
+            {"phase2_select", "threefry2x32", "greedy_map_kdpp"})
+        check(n_quick["greedy_map_kdpp"] == 1 and n_quick["phase2_select"]
+              == 1, f"quickstart: {n_quick}, not one sample and one map")
+        check(res["map"].is_cuda and res["batch"].indices.is_cuda,
+              "quickstart's draws or map left the card")
+        out["quickstart"] = {"lls": res["fit"].log_likelihoods,
+                             "map": sorted(int(i) for i in res["map"]),
+                             "cond_expected_size": res["cond_expected_size"]}
+        serve = ex_module("serve_kv_compaction")
+        res, n_serve = ex_counted(
+            lambda: serve.run(dev, run_log=ck / "run_log.jsonl"),
+            "serve_kv_compaction", {"phase2_select", "threefry2x32"})
+        check(0 < res["device_calls"] < res["heads_selected"],
+              f"serve: {res['device_calls']} device calls for "
+              f"{res['heads_selected']} heads")
+        out["serve"] = {k: res[k] for k in ("device_calls",
+                                            "heads_selected")}
+        train = ex_module("train_dpp_selection")
+        res, n_train = ex_counted(
+            lambda: train.run(train.parse_args(
+                ["--steps", str(EX_TRAIN_STEPS), "--device", str(dev),
+                 "--checkpoint-dir", str(ck / "train")])),
+            f"train_dpp_selection "
+            f"--steps {EX_TRAIN_STEPS}", {"phase2_select", "threefry2x32"})
+        ll0, ll1 = res["calibration_ll"]
+        check(ll1 >= ll0 and res["result"]["final_step"] == EX_TRAIN_STEPS,
+              f"train: calibration {ll0} -> {ll1}, final step "
+              f"{res['result']['final_step']}")
+        out["train"] = {"calibration_ll": [ll0, ll1],
+                        "losses": [h["loss"] for h in
+                                   res["result"]["history"]]}
+        del res
+        gc.collect()
+        out["compat"] = ex_compat_on_card(dev)
+        out["prune"] = ex_prune_full_width(dev)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    out["launches"] = {"quickstart": n_quick, "serve_kv_compaction": n_serve,
+                       "train_dpp_selection": n_train,
+                       "prune_ffn_dpp_full_width": out["prune"]["launches"],
+                       **out["compat"]["launches"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"examples and DPP pruning at full width (phase 29): "
+          f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -6687,6 +6974,9 @@ def main() -> None:
     # -- 28. the families' sharded steps and the planner ------------------
     lpl = lm_planner_path(dev, card, power_limit)
 
+    # -- 29. the examples, and DPP pruning at full width -------------------
+    ex = examples_path(dev, card, power_limit)
+
     for t in (times[64], times[1], times["global"],
               sel_times["kdpp_phase2"], inf["phase2"],
               sv["kv"]["phase2_times"], lms["phase2_times"],
@@ -6698,7 +6988,8 @@ def main() -> None:
            "launches": launches,
            "max_abs_err": max(a["max_boundary_gap"] for a in
                               [*agree.values(), *edges, agree_main,
-                               agree_kdpp, inf["agree"]]),
+                               agree_kdpp, inf["agree"],
+                               ex["compat"]["phase2_select_key"]]),
            **times[64], "agree_rows": agree[64]["agree_rows"],
            "b1": times[1], "agree_rows_b1": agree[1]["agree_rows"],
            "global_300x300_b8": times["global"],
@@ -6912,6 +7203,22 @@ def main() -> None:
                       "power_limit": power_limit, "nvidia_smi": smi}))
     print(json.dumps({"sharded_families": lpl, "card": card,
                       "power_limit": power_limit, "nvidia_smi": smi}))
+    ex_launch = ex["launches"]
+    row["launches_per_path"]["examples"] = {
+        k: v["phase2_select"] for k, v in ex_launch.items()}
+    tf_row["launches_per_path"]["examples"] = {
+        k: v["threefry2x32"] for k, v in ex_launch.items()}
+    kdpp_row["launches_per_path"]["examples"] = {
+        k: v["greedy_map_kdpp"] for k, v in ex_launch.items()}
+    kdpp_row["prune_n4864_k2432"] = ex["prune"]["times"]
+    kdpp_row["prune_map_vs_plain"] = ex["prune"]["map_vs_plain"]
+    kdpp_row["max_abs_err"] = max(
+        kdpp_row["max_abs_err"],
+        ex["prune"]["map_vs_plain"].get("tie_gap", 0.0))
+    print(json.dumps({"examples": {k: v for k, v in ex.items()
+                                   if k != "launches"},
+                      "card": card, "power_limit": power_limit,
+                      "nvidia_smi": smi}))
     print(json.dumps({"kernels": [row, *pt_rows, gm_row, kdpp_row, km_row,
                                   tf_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,

@@ -15,15 +15,20 @@ M-step:
     the Stiefel manifold by QR.
 
 The JAX package's gradient ``jax.grad`` becomes ``torch.autograd.grad`` of
-``core.dpp.log_likelihood``. The deprecated ``fit_em`` shim and its
-``EMResult`` are not ported: fit through ``learning.fit(algorithm="em")``
-or ``dpp.Dense(L).fit(batch)``.
+``core.dpp.log_likelihood``. ``fit_em`` is the JAX package's deprecated
+shim: it warns and delegates to ``learning.fit(algorithm="em")`` (or
+``dpp.Dense(L).fit(batch)``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import warnings
+from typing import List
+
 import torch
 
+from .._device import DeviceLike
 from .dpp import SubsetBatch, gather_submatrix, log_likelihood, \
     masked_inv_and_logdet
 
@@ -65,3 +70,28 @@ def eigvec_ascent(lam: torch.Tensor, V: torch.Tensor, batch: SubsetBatch,
     Vn, _ = torch.linalg.qr(V + lr * g)
     sgn = torch.sign((Vn * V).sum(0))
     return Vn * torch.where(sgn == 0, torch.ones_like(sgn), sgn)[None, :]
+
+
+@dataclasses.dataclass
+class EMResult:
+    L: torch.Tensor
+    log_likelihoods: List[float]
+    step_times: List[float]
+
+
+def fit_em(L0: torch.Tensor, batch: SubsetBatch, iters: int = 10,
+           lr: float = 1e-2, track_ll: bool = True,
+           device: DeviceLike = "cuda") -> EMResult:
+    """.. deprecated::
+        Thin delegate into ``repro_torch.learning.fit(algorithm="em")`` on
+        ``device``; use ``repro_torch.dpp.Dense(L).fit(batch)`` — the
+        facade."""
+    warnings.warn(
+        "core.fit_em is deprecated; use "
+        "repro_torch.dpp.Dense(L).fit(batch, algorithm='em') instead",
+        DeprecationWarning, stacklevel=2)
+    from ..learning.api import fit as _fit
+
+    rep = _fit(L0, batch, algorithm="em", iters=iters, a=lr,
+               track_ll=track_ll, device=device)
+    return EMResult(rep.model, rep.log_likelihoods, rep.sweep_times)

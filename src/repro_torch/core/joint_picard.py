@@ -13,19 +13,23 @@ No monotonicity guarantee (the paper drops it after Fig. 1 for this reason);
 it is kept as a faithful comparison algorithm. As in the reference,
 sgn(U_11) = 0 gives α = 0 and a division by zero.
 
-The deprecated ``fit_joint_picard`` shim is not ported: fit through
-``learning.fit(algorithm="joint")`` or ``dpp.Kron(factors).fit(batch,
-algorithm="joint")``.
+``fit_joint_picard`` is the JAX package's deprecated shim: it warns and
+delegates to ``learning.fit(algorithm="joint")`` (or
+``dpp.Kron(factors).fit(batch, algorithm="joint")``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+import warnings
+from typing import List, Tuple
 
 import torch
 
+from .._device import DeviceLike
 from . import kron
 from .dpp import SubsetBatch
+from .krondpp import KronDPP
 from .krk_picard import theta_matrix_kron
 
 
@@ -55,3 +59,28 @@ def joint_picard_step(L1: torch.Tensor, L2: torch.Tensor, batch: SubsetBatch,
     L1_new = L1 + a * (alpha * L1UL1 - L1)
     L2_new = L2 + a * ((sigma / alpha) * L2VL2 - L2)
     return 0.5 * (L1_new + L1_new.T), 0.5 * (L2_new + L2_new.T)
+
+
+@dataclasses.dataclass
+class JointResult:
+    model: KronDPP
+    log_likelihoods: List[float]
+    step_times: List[float]
+
+
+def fit_joint_picard(model: KronDPP, batch: SubsetBatch, iters: int = 10,
+                     a: float = 1.0, track_ll: bool = True,
+                     device: DeviceLike = "cuda") -> JointResult:
+    """.. deprecated::
+        Thin delegate into ``repro_torch.learning.fit(algorithm="joint")``
+        on ``device``; use
+        ``repro_torch.dpp.Kron(factors).fit(batch, algorithm='joint')``."""
+    warnings.warn(
+        "core.fit_joint_picard is deprecated; use "
+        "repro_torch.dpp.Kron(factors).fit(batch, algorithm='joint') instead",
+        DeprecationWarning, stacklevel=2)
+    from ..learning.api import fit as _fit
+
+    rep = _fit(model, batch, algorithm="joint", iters=iters, a=a,
+               track_ll=track_ll, device=device)
+    return JointResult(rep.model, rep.log_likelihoods, rep.sweep_times)

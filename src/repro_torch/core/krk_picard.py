@@ -21,19 +21,24 @@ builds Θ (N x N) once per evaluation and contracts it with the
 partial-trace kernels of ``kernels.ops`` — the hand-written CUDA kernels
 on a card, their plain versions on the CPU.
 
-The deprecated ``fit_krk_picard`` loop of the JAX package is not ported;
-``repro_torch.learning.fit`` (or ``dpp.Kron.fit``) is the entry point.
+``fit_krk_picard`` is the JAX package's deprecated shim: it warns and
+delegates to ``repro_torch.learning.fit`` (or ``dpp.Kron.fit``), the entry
+point.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from typing import Optional, Tuple
 
 import torch
 
+from .._device import DeviceLike
 from ..kernels import ops as kernel_ops
 from .dpp import SubsetBatch, identity_padded, masked_inv_and_logdet, \
     scatter_theta
+from .krondpp import KronDPP
 
 
 # ---------------------------------------------------------------------------
@@ -197,3 +202,45 @@ def krk_picard_stochastic_step(L1, L2, minibatch: SubsetBatch, a: float = 1.0,
     """Identical update with Δ built from a minibatch: O(Nκ^2 + N^{3/2})."""
     return krk_picard_step(L1, L2, minibatch, a, use_dense_theta,
                            fresh_theta, backend)
+
+
+# ---------------------------------------------------------------------------
+# Fit loop — deprecated delegate into the learning engine
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FitResult:
+    model: KronDPP
+    log_likelihoods: list
+    step_times: list
+
+
+def fit_krk_picard(model: KronDPP, batch: SubsetBatch, iters: int = 10,
+                   a: float = 1.0, minibatch_size: Optional[int] = None,
+                   seed: int = 0, track_ll: bool = True,
+                   use_dense_theta: bool = False,
+                   fresh_theta: bool = True,
+                   device: DeviceLike = "cuda") -> FitResult:
+    """Run Alg. 1 (batch, or stochastic if minibatch_size is set) on
+    ``device``.
+
+    .. deprecated::
+        Thin delegate into ``repro_torch.learning.fit``; call
+        ``repro_torch.dpp.Kron(factors).fit(batch, ...)`` — the facade —
+        for schedules, chunked LL tracking, checkpointing and the
+        distributed mode. The stochastic path draws its minibatches from
+        ``PRNGKey(seed)``: the JAX package's minibatches for the same
+        seed.
+    """
+    warnings.warn(
+        "core.fit_krk_picard is deprecated; use "
+        "repro_torch.dpp.Kron(factors).fit(batch, algorithm='krk') instead",
+        DeprecationWarning, stacklevel=2)
+    from ..learning.api import fit as _fit
+
+    rep = _fit(model, batch,
+               algorithm="krk" if minibatch_size is None else "krk-stochastic",
+               iters=iters, a=a, minibatch_size=minibatch_size, seed=seed,
+               track_ll=track_ll, use_dense_theta=use_dense_theta,
+               fresh_theta=fresh_theta, device=device)
+    return FitResult(rep.model, rep.log_likelihoods, rep.sweep_times)

@@ -8,7 +8,8 @@ compute in float64 numpy on the CPU, one subset a call. They consume the
 generator as the JAX package's do (one ``rng.random(N)`` for phase 1, one
 ``rng.choice`` a phase-2 step), so the same seed gives the same draws.
 The facade's ``sample`` runs the batched device sampler
-(``sampling.batched``), never these.
+(``sampling.batched``), never these. ``sample_krondpp_batch`` is the JAX
+package's deprecated shim onto that batched sampler.
 
 ``greedy_map_kdpp`` is the kernel-free greedy MAP the tests hold
 ``kernels.ops.greedy_map_kdpp`` against, as the JAX tests do.
@@ -20,7 +21,8 @@ KronDPP m=3:   O(N + N k^3)
 
 from __future__ import annotations
 
-from typing import List
+import warnings
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -107,6 +109,28 @@ def sample_krondpp(rng: np.random.Generator, dpp) -> List[int]:
             v = np.outer(v, vecs[f][:, parts[f]]).reshape(-1)
         cols.append(v)
     return _phase2_select(rng, np.stack(cols, axis=1))
+
+
+def sample_krondpp_batch(key, dpp, num_samples: int,
+                         k_max: Optional[int] = None) -> List[List[int]]:
+    """Batched sampling where ``dpp``'s factors live — delegates to the
+    batched subsystem (``sampling.batched.sample_krondpp_batched``; the
+    JAX package's rows for the same key).
+
+    .. deprecated::
+        Use the ``repro_torch.dpp`` facade:
+        ``Kron(factors).sample(key, num_samples)``, or ``model.service()``
+        for repeated micro-batched use.
+    """
+    warnings.warn(
+        "core.sample_krondpp_batch is deprecated; use "
+        "repro_torch.dpp.Kron(factors).sample(key, num_samples) instead",
+        DeprecationWarning, stacklevel=2)
+    from ..sampling.batched import picks_to_lists, sample_krondpp_batched
+    from ..sampling.spectral import default_cache
+    spec = default_cache().spectrum(dpp)
+    picks, _, _ = sample_krondpp_batched(key, spec, k_max, num_samples)
+    return picks_to_lists(picks)
 
 
 def greedy_map_kdpp(L: torch.Tensor, k: int) -> torch.Tensor:

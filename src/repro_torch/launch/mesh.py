@@ -9,6 +9,12 @@ data, model) = (2, 32, 8)``.
 
 Defined as FUNCTIONS (never module-level constants): importing this module
 touches no process group.
+
+Every rank of a mesh must run with one ``PYTHONHASHSEED``: DTensor breaks
+ties between sharding strategies of equal cost in an order that follows
+string hashes, so ranks whose hashes differ may place one op apart and
+wait in different collectives for ever. ``make_mesh_from_devices`` checks
+it first and raises on every rank instead.
 """
 
 from __future__ import annotations
@@ -16,11 +22,13 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 NODE_CARDS = 8          # the model axis: the cards of one NVLink node
 POD_CARDS = 256         # the reference's pod (16 x 16 chips)
+HASH_PROBE = "repro_torch.launch.mesh"   # hashed alike under one hash seed
 
 
 def production_shape(world: int, multi_pod: bool = False
@@ -60,14 +68,44 @@ def make_mesh_from_devices(ranks: Sequence[int], shape, axes,
     names the type of the shards it places (``DTensor.from_local`` moves a
     shard to its mesh's device type). Every rank of the group calls it,
     as ``DeviceMesh`` asks; a rank outside the mesh gets an object it must
-    not use."""
+    not use. Raises ``RuntimeError`` on every rank when the ranks run
+    under different ``PYTHONHASHSEED``s (``check_hash_seed``)."""
     n = int(np.prod(shape))
     assert len(ranks) >= n, (len(ranks), shape)
+    checked = dist.is_initialized()
+    if checked:
+        check_hash_seed()
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     grid = np.asarray(list(ranks)[:n], dtype=np.int64).reshape(shape)
-    return DeviceMesh(device_type, grid.tolist(),
-                      mesh_dim_names=tuple(axes))
+    mesh = DeviceMesh(device_type, grid.tolist(), mesh_dim_names=tuple(axes))
+    if not checked:
+        # DeviceMesh started the default group from the environment
+        check_hash_seed()
+    return mesh
+
+
+def check_hash_seed() -> None:
+    """All-gather ``hash(HASH_PROBE)`` over the default process group and
+    raise ``RuntimeError`` on every rank if the ranks' values differ: they
+    run under different ``PYTHONHASHSEED``s. A collective of the whole
+    group, so every rank calls it; skipped on a world of one and on the
+    planner's "fake" group, whose collectives move no data."""
+    if dist.get_world_size() == 1 or dist.get_backend() == "fake":
+        return
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    mine = torch.tensor([hash(HASH_PROBE)], dtype=torch.int64, device=dev)
+    seen = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(seen, mine)
+    values = [int(v) for v in seen]
+    if len(set(values)) > 1:
+        raise RuntimeError(
+            f"rank {dist.get_rank()}: the ranks hash strings apart (hash of "
+            f"{HASH_PROBE!r} per rank: {values}); start every rank with one "
+            f"PYTHONHASHSEED, e.g. PYTHONHASHSEED=0, or DTensor may place "
+            f"an op apart on two ranks and hang them in different "
+            f"collectives")
 
 
 def data_axes(mesh) -> Tuple[str, ...]:

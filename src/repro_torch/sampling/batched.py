@@ -23,6 +23,14 @@ from per-row PRNG keys exactly as the JAX package does
 explicit ``torch.Generator``. A spectrum with a ``sample_rows`` hook (the
 low-rank ``DualSpectrum``) draws its rows through the hook instead. Both
 take ``runtime=``: a ``Mesh`` shards the rows' keys (``map_keys``).
+
+The JAX package's single-sample compat surface is here too:
+``phase2_select_reference`` (the plain chain rule on one sample, i.e.
+``kernels.phase2_select.phase2_select_plain`` at B = 1) and
+``phase2_select(key, ...)`` (the uniforms from a key, then one
+``kernels.ops.phase2_select`` call: the CUDA kernel on the card), with
+``compile_cache_size``, whose answer is -1: the port compiles nothing per
+shape.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 from .. import random as prng
 from ..core.kron import split_indices_multi
 from ..kernels import ops as kernel_ops
+from ..kernels.phase2_select import canonical_pair, phase2_select_plain
 from .spectral import FactorSpectrum, log_product_spectrum
 
 
@@ -104,6 +113,32 @@ def assemble_eigvecs(spectrum_vecs: Sequence[torch.Tensor],
             G = P[:, p]
             V = (V[:, None, :] * G[None, :, :]).reshape(-1, sel.shape[0])
     return V * valid[None, :].to(V.dtype)
+
+
+def phase2_select_reference(us: torch.Tensor, Gs: Sequence[torch.Tensor],
+                            sizes: Sequence[int], k_eff) -> torch.Tensor:
+    """Projection-DPP selection of one sample from k_eff orthonormal
+    Kronecker columns in factored form (``gather_factor_columns``), one
+    uniform a step in ``us`` (k_max,): (k_max,) int32 picks, -1 in padded
+    slots. The plain chain rule (``phase2_select_plain``) on a batch of
+    one, on any device; ``sizes`` as in the JAX package's signature."""
+    G1, Gr = canonical_pair(tuple(G[None] for G in Gs))
+    k_eff = torch.as_tensor(k_eff, device=us.device).to(
+        torch.int32).reshape(1)
+    return phase2_select_plain(us[None], k_eff, G1, Gr)[0]
+
+
+def phase2_select(key, Gs: Sequence[torch.Tensor], sizes: Sequence[int],
+                  k_eff, backend: Optional[str] = None) -> torch.Tensor:
+    """Single-sample phase-2 selection from a PRNG key (compat surface).
+
+    Draws the k_max uniforms from ``key`` on the columns' device (the JAX
+    package's ``uniform(key, (k_max,))``) and makes one
+    ``kernels.ops.phase2_select`` call at B = 1: the CUDA kernel for
+    columns on the card, the plain version for CPU ones; ``backend``
+    forces one."""
+    us = prng.uniform(prng.as_key(key, Gs[0].device), (Gs[0].shape[1],))
+    return kernel_ops.phase2_select(us, Gs, sizes, k_eff, backend=backend)
 
 
 def _phase1_from_uniforms(u: torch.Tensor, us: torch.Tensor,
@@ -261,3 +296,10 @@ def picks_to_lists(picks: torch.Tensor) -> List[List[int]]:
     """(B, k_max) padded picks -> python lists (host boundary)."""
     arr = picks.cpu().numpy()
     return [row[row >= 0].tolist() for row in arr]
+
+
+def compile_cache_size() -> int:
+    """The JAX package's count of compiled (k_max, batch) specializations;
+    -1, its answer when there is no compile cache to inspect: the port
+    runs eagerly and compiles nothing per shape."""
+    return -1

@@ -44,7 +44,9 @@ from repro_torch.serving import (AsyncSamplingService, ContinuousBatcher,
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "tools").glob("*.py")) + \
+    sorted((ROOT / "examples" / "port").glob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
 
 
 def test_importing_the_port_loads_no_jax_and_no_jax_package():
@@ -262,3 +264,89 @@ def test_the_jax_reference_computes_on_the_cpu():
     model = jdpp.from_kernel(jnp.eye(3) * 2.0)
     assert model.log_prob(model.sample(jax.random.PRNGKey(0), 2)).devices() \
         == {cpu}
+
+
+# The JAX package's public names with no counterpart in the port, each with
+# its reason: a module path (a whole module, or every module under a
+# directory ending in "/") or "module:name".
+UNPORTED = {
+    "analysis/": "a lint engine over the JAX package's own sources (its "
+                 "rules check jax.shard_map, Pallas and PRNG use); it has "
+                 "nothing to check in the port, whose import hygiene this "
+                 "file pins",
+    "kernels/ref.py": "the Pallas kernels' jnp oracles: each CUDA kernel's "
+                      "plain PyTorch version beside it plays that role",
+    "kernels/phase2_select.py:phase2_select_pallas":
+        "a Pallas TPU kernel: ported as csrc/phase2_select.cu "
+        "(phase2_select_cuda)",
+    "kernels/partial_trace.py:partial_trace_A_pallas":
+        "a Pallas TPU kernel: ported as csrc/partial_trace.cu "
+        "(partial_trace_A_cuda)",
+    "kernels/partial_trace.py:partial_trace_C_pallas":
+        "a Pallas TPU kernel: ported as csrc/partial_trace.cu "
+        "(partial_trace_C_cuda)",
+    "kernels/greedy_map.py:greedy_map_update_pallas":
+        "a Pallas TPU kernel: ported as csrc/greedy_map.cu "
+        "(greedy_map_update_cuda; greedy_map_kdpp_cuda for the whole "
+        "selection)",
+    "kernels/kron_matvec.py:kron_matvec_pallas":
+        "a Pallas TPU kernel: ported as csrc/kron_matvec.cu "
+        "(kron_matvec_cuda)",
+    "core/distributed.py:shard_map_compat":
+        "a shim over jax.shard_map's moving API; the port's sharded sweep "
+        "runs over dpp.runtime.Mesh and needs no shard_map",
+    "launch/dryrun.py:SDS": "jax.ShapeDtypeStruct; the port's planner "
+                            "takes shapes as meta and fake tensors",
+    "launch/dryrun.py:parse_collectives":
+        "reads XLA's compiled HLO text; the port's planner counts "
+        "collectives as they run (CommDebugMode and its dispatch mode)",
+}
+
+
+def _public_surface(path: Path):
+    """(a module's own top-level public definitions and ``__all__``, every
+    name it binds at top level): functions, classes, assigned names and
+    imports."""
+    tree = ast.parse(path.read_text())
+    own, bound, exported = set(), set(), set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            own.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            for t in targets:
+                if not isinstance(t, ast.Name):
+                    continue
+                own.add(t.id)
+                if t.id == "__all__":
+                    exported |= {e.value for e in node.value.elts
+                                 if isinstance(e, ast.Constant)}
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            bound |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    public = {n for n in own | exported if not n.startswith("_")}
+    return public, own | bound | exported
+
+
+def test_every_public_name_of_the_reference_has_a_counterpart():
+    """Walk ``src/repro/**`` against ``src/repro_torch/**`` file by file:
+    every top-level public name and export of the JAX package is defined,
+    imported or exported by the port's module of the same path, or is on
+    ``UNPORTED`` with its reason — and everything on ``UNPORTED`` is
+    still missing."""
+    ref_root, port_root = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
+    missing = set()
+    for ref in sorted(ref_root.rglob("*.py")):
+        rel = ref.relative_to(ref_root).as_posix()
+        port = port_root / rel
+        if not port.is_file():
+            top = rel.split("/")[0] + "/"
+            missing.add(top if f"{top}" in UNPORTED else rel)
+            continue
+        public, _ = _public_surface(ref)
+        _, have = _public_surface(port)
+        missing |= {f"{rel}:{n}" for n in public - have}
+    assert missing == set(UNPORTED), (
+        sorted(missing - set(UNPORTED)), sorted(set(UNPORTED) - missing))
+    assert all(reason.strip() for reason in UNPORTED.values())
