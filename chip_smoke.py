@@ -14,10 +14,13 @@ non-zero and prints no result line.
 3. the phase-2 kernel against its plain PyTorch version on the card, at
    the main path's shapes (N = 100 x 100, E|Y| = 20, B = 1 and 64) and at
    the edges (m = 1, m = 3, degenerate columns), on the same uniforms, all
-   on the "on_chip" route; at 300 x 300, B = 8 on the "global" route; at
-   32 x 32, E|Y| = 250 (k_max past 238), B = 16 on the "global_basis"
-   route (``phase2_select_route`` asserted for each case); the on-chip layout's
-   bytes from the C side equal ``onchip_geometry``'s;
+   on the "on_chip" route; at 300 x 300, B = 8 and at 32 x 32, E|Y| = 250
+   (k_max past 238), B = 16 on the "cluster" route (a thread-block cluster
+   a sample); past a 16-CTA cluster, 16 x 4096 (E|Y| = 20), B = 8 on the
+   "global" route and 64 x 256, E|Y| = 250, B = 4 on the "global_basis"
+   route (``phase2_select_route`` asserted for each case); the on-chip
+   layout's bytes from the C side equal ``onchip_geometry``'s, and the C
+   side's cluster plan equals ``cluster_geometry``'s;
 4. statistics on the kernel path: singleton marginals of a (2, 3) kernel
    from 3000 draws against diag K;
 5. the main path: ``dpp.random_kron(gen, (100, 100)).rescale(20.0)``,
@@ -32,7 +35,10 @@ non-zero and prints no result line.
    device time from ``torch.profiler`` and CUDA events around a loop;
    each call one ``phase2_select_kernel_onchip`` and nothing else), the
    bound on the whole card and the longest row's on one SM, the time per
-   step of the longest row; the global route's time at 300 x 300; the
+   step of the longest row; the cluster route's time at 300 x 300, with
+   the global route's on the same inputs beside it (``global_route_ms``,
+   launched through the C launcher's route argument) and the longest
+   row's bound on the cluster's C SMs (``bound_cluster_ms``); the
    DPP's phase 1 alone (uniforms, phase 1 and the column gather) at B = 16
    and 64, from a generator and from a key (``keyed_*``); one
    ``svc.sample(16)`` request on the host clock;
@@ -130,7 +136,7 @@ non-zero and prints no result line.
    finite), the cross-path identity ``cond.log_prob(B') = main.log_prob(B
    ∪ A) - log main.marginal(A)`` for three small B, and ``condition`` of
    the 64 x 64 phase-13 model (N = 4096) against the CPU copy in full;
-   ``cond.sample(gen, 64)``: m = 1 at N = 9995 takes phase 2's "global"
+   ``cond.sample(gen, 64)``: m = 1 at N = 9995 takes phase 2's "cluster"
    route (asserted), one launch (counted, reset just before and read just
    after), each row distinct and in range, the picks held against
    ``phase2_select_plain`` on the replayed uniforms; a (2, 3) model
@@ -228,7 +234,7 @@ non-zero and prints no result line.
    each head's phase-2 picks, replayed from the
    card's eigh and the plain twin's uniforms, against the plain phase 2 on
    a CPU copy (phase 3's rule) and among the served picks; the route
-   ("global") and one phase-2 launch a head; whether a batched eigh of
+   ("cluster") and one phase-2 launch a head; whether a batched eigh of
    the 16 heads is bitwise each head's own (printed); one head by
    ``method="map"`` (one fused launch, no step launch, no plain dispatch;
    its greedy order against the plain loop on a CPU copy, phase 13's
@@ -886,7 +892,8 @@ DEVICE_TIMES = []        # kernel_times rows whose device times are owed
 
 
 def kernel_times(kern, plain, library, reps: int, plain_reps: int,
-                 expect: str, sole: bool = False, **keys) -> dict:
+                 expect: str, sole: bool = False, extra: dict = None,
+                 **keys) -> dict:
     """The timing keys of a ``kernels`` row, every row measured the same
     way. Now, ``ms_loop``, ``plain_ms_loop`` and ``library_ms_loop``
     (``cuda_ms``). Later, in ``fill_device_times``, once every host-clock
@@ -895,23 +902,27 @@ def kernel_times(kern, plain, library, reps: int, plain_reps: int,
     device times (``device_ms``), the plain version and the library call
     measured before and after the kernel and the lesser kept, both
     readings in ``*_runs_ms``. ``sole``: the kernel's calls must each run
-    one ``expect`` kernel and nothing else (``device_ms``). ``keys``
-    (bound, shapes) go into the same dict."""
+    one ``expect`` kernel and nothing else (``device_ms``). ``extra``:
+    more callables by name, timed as the plain version is (``<name>_ms``;
+    the global route beside the cluster route). ``keys`` (bound, shapes)
+    go into the same dict."""
     out = {"ms_loop": cuda_ms(kern, reps, 3), "library_ms": None, **keys}
-    for name, fn in (("plain", plain), ("library", library)):
+    extra = dict(extra or {})
+    for name, fn in (("plain", plain), ("library", library),
+                     *extra.items()):
         if fn is not None:
             out[f"{name}_ms_loop"] = cuda_ms(fn, plain_reps, 1)
     DEVICE_TIMES.append((out, kern, plain, library, reps, plain_reps,
-                         expect, sole))
+                         expect, sole, extra))
     return out
 
 
 def fill_device_times() -> None:
     """The device times owed to every ``kernel_times`` row."""
-    for out, kern, plain, library, reps, plain_reps, expect, sole in \
-            DEVICE_TIMES:
-        others = {k: f for k, f in (("plain", plain), ("library", library))
-                  if f is not None}
+    for out, kern, plain, library, reps, plain_reps, expect, sole, extra \
+            in DEVICE_TIMES:
+        others = {k: f for k, f in (("plain", plain), ("library", library),
+                                    *extra.items()) if f is not None}
         before = {k: device_ms(f, plain_reps, 1) for k, f in others.items()}
         out["ms"] = device_ms(kern, reps, 3, expect=expect, sole=sole)
         for k, f in others.items():
@@ -962,12 +973,68 @@ def bound(picks: np.ndarray, N1: int, Nr: int, k: int):
 def bound_row(picks: np.ndarray, N1: int, Nr: int, k: int) -> float:
     """Least time (ms) of the longest row alone: its operations (as in
     ``bound``) on one SM, at FP32_FLOPS / 132. The steps of a sample are
-    sequential and one block runs it, so no batch runs faster."""
+    sequential and one block runs it, so no batch runs faster on a
+    one-block route (on the cluster route, C SMs: ``bound_row`` / C)."""
     N = N1 * Nr
     s = int((picks >= 0).sum(axis=1).max())
     flops = 2.0 * N * k + s * (2.0 * N + 8.0 * k * k) \
         + max(s - 1, 0) * (2.0 * N * k + 3.0 * N)
     return flops / (FP32_FLOPS / SMS) * 1e3
+
+
+def launch_global_route(us, ke, G1, Gr):
+    """One launch of the route that the cluster route replaced, on these
+    inputs: "global", or "global_basis" where the global kernel's basis
+    passes a block, through the C launcher's ``route`` argument over
+    ctypes (counted nowhere). Returns the picks."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import phase2_select as p2
+    lib = _build.load_library("phase2_select", p2.bind)
+    B, k = int(us.shape[0]), int(us.shape[1])
+    N1, Nr = int(G1.shape[1]), int(Gr.shape[1])
+    dev = us.device
+    route = ("global" if p2.global_smem_bytes(k) <= p2._smem_optin(dev.index)
+             else "global_basis")
+    scratch = torch.empty(B * N1 * Nr + (route == "global_basis") * B * 2
+                          * k * k, dtype=torch.float32, device=dev)
+    picks = torch.empty((B, k), dtype=torch.int32, device=dev)
+    rc = lib.phase2_select_launch(
+        us.data_ptr(), ke.data_ptr(), G1.data_ptr(), Gr.data_ptr(),
+        scratch.data_ptr(), picks.data_ptr(), B, N1, Nr, k, p2.THREADS,
+        p2.ROUTES.index(route), torch.cuda.current_stream(dev).cuda_stream)
+    check(rc == 0, f"the {route} route's launch failed: CUDA error {rc}")
+    return picks
+
+
+def cluster_row(us, ke, G1, Gr, picks: np.ndarray, label: str):
+    """A cluster-route row's own keys and its ``extra`` timing: the
+    route is "cluster" (asserted); ``cluster``, the C side's cluster size
+    (its plan equal to ``cluster_geometry``'s); ``bound_cluster_ms``, the
+    longest row's operations on C SMs; ``global_route``, the global route
+    on the same inputs (``launch_global_route``), its picks held against
+    the plain version once, timed beside the kernel."""
+    from repro_torch.kernels import phase2_select as p2
+    B, k = int(us.shape[0]), int(us.shape[1])
+    N1, Nr = int(G1.shape[1]), int(Gr.shape[1])
+    dev = us.device
+    route = p2.phase2_select_route(N1, Nr, k)
+    check(route == "cluster", f"{label}: phase 2 takes route {route}, not "
+          f"cluster")
+    plan = p2.cluster_plan(N1, Nr, k, B, dev.index)
+    host = p2.cluster_geometry(N1, Nr, k, B, p2._smem_optin(dev.index),
+                               torch.cuda.get_device_properties(
+                                   dev).multi_processor_count)
+    check(tuple(plan[:6]) == tuple(host), f"{label}: the C side's cluster "
+          f"plan {plan} is not the host's {host}")
+    pg = launch_global_route(us, ke, G1, Gr).cpu().numpy()
+    pp = p2.phase2_select_plain(us, ke, G1, Gr).cpu().numpy()
+    agree = compare_picks(pg, pp, us, ke, G1, Gr,
+                          f"{label}, the global route vs plain")
+    keys = {"cluster": plan[0], "cluster_plan": list(plan),
+            "bound_cluster_ms": bound_row(picks, N1, Nr, k) / plan[0],
+            "global_route_agree_rows": agree["agree_rows"]}
+    return keys, {"global_route": partial(launch_global_route, us, ke, G1,
+                                          Gr)}
 
 
 # ---------------------------------------------------------------------------
@@ -1687,12 +1754,12 @@ def inference_path(main, guard, batch, fit_rows, gen, dev) -> dict:
                                            cache_c)
     inference["schur_4096"] = check_schur(guard, gen, dev)
     # the conditioned model's draw: m = 1 at N = 9995 takes phase 2's
-    # global route; its one launch is counted and held against the plain
+    # cluster route; its one launch is counted and held against the plain
     # version on the draw's replayed uniforms
     k_c = spec_c.suggested_k_max()
     route_c = p2.phase2_select_route(cond.N, 1, k_c)
-    check(route_c == "global", f"phase 2 of the conditioned draw (N = "
-          f"{cond.N}, k_max {k_c}) takes the {route_c} route, not global")
+    check(route_c == "cluster", f"phase 2 of the conditioned draw (N = "
+          f"{cond.N}, k_max {k_c}) takes the {route_c} route, not cluster")
     gen_c = torch.Generator(device=dev).manual_seed(4)
     cond_state = gen_c.get_state()
     cond_tracker = obs.InMemoryTracker()
@@ -1719,7 +1786,7 @@ def inference_path(main, guard, batch, fit_rows, gen, dev) -> dict:
     pk_c = torch.where(cb.mask, cb.indices, -1).cpu().numpy()
     pp_c = p2.phase2_select_plain(us_c, ke_c, G1_c, Gr_c).cpu().numpy()
     agree_cond = compare_picks(pk_c, pp_c, us_c, ke_c, G1_c, Gr_c,
-                               f"conditioned m=1 N={cond.N} B=64 (global)")
+                               f"conditioned m=1 N={cond.N} B=64 (cluster)")
     inference["conditioned_marginal_err"] = check_conditioned_marginals(gen)
     s20 = pool[:20]
     inf_times["log_prob_ms"] = cuda_ms(lambda: main.log_prob(batch), reps=10,
@@ -1729,10 +1796,13 @@ def inference_path(main, guard, batch, fit_rows, gen, dev) -> dict:
     inf_times["cond_sample64_ms"] = cuda_ms(
         lambda: cond.sample(gen, 64, cache=cache_c), reps=5, warmup=1)
     b_ms, b_by = bound(pk_c, cond.N, 1, k_c)
+    more, extra = cluster_row(us_c, ke_c, G1_c, Gr_c, pk_c,
+                              "the conditioned draw")
     times_c = kernel_times(
         partial(p2.phase2_select_cuda, us_c, ke_c, G1_c, Gr_c),
         partial(p2.phase2_select_plain, us_c, ke_c, G1_c, Gr_c), None,
-        reps=5, plain_reps=2, expect="phase2_select_kernel", sole=True,
+        reps=5, plain_reps=2, expect="phase2_select_kernel_cluster",
+        sole=True, extra=extra, **more,
         kernel_route=route_c, bound_ms=b_ms, bound_by=b_by,
         bound_row_ms=bound_row(pk_c, cond.N, 1, k_c),
         live_steps=int((pk_c >= 0).sum()),
@@ -3270,7 +3340,7 @@ def sv_kv(dev) -> dict:
             Ls_all.append(Ls)
             lams.append(lam)
     route = p2.phase2_select_route(KV_S, 1, k)
-    check(route == "global", f"a KV head's phase 2 takes route {route}")
+    check(route == "cluster", f"a KV head's phase 2 takes route {route}")
     us_c, ke_c, G1_c, Gr_c = (torch.cat([x[j] for x in ins]).cpu()
                               for j in range(4))
     pp = p2.phase2_select_plain(us_c, ke_c, G1_c, Gr_c).numpy()
@@ -3313,14 +3383,17 @@ def sv_kv(dev) -> dict:
           "window")
     out["map_vs_cpu"] = compare_maps(Lm, order_k, order_p,
                                      "KV map head, card vs CPU copy")
-    # the global route's time on a head's inputs (device times later)
+    # the cluster route's time on a head's inputs, the global route's
+    # beside it (device times later)
     us1, ke1, G11, Gr1 = ins[0]
     picks1 = p2.phase2_select_cuda(us1, ke1, G11, Gr1).cpu().numpy()
     b_ms, b_by = bound(picks1, KV_S, 1, k)
+    more, extra = cluster_row(us1, ke1, G11, Gr1, picks1, "a KV head")
     out["phase2_times"] = kernel_times(
         partial(p2.phase2_select_cuda, us1, ke1, G11, Gr1),
         partial(p2.phase2_select_plain, us1, ke1, G11, Gr1), None,
-        reps=5, plain_reps=2, expect="phase2_select_kernel", sole=True,
+        reps=5, plain_reps=2, expect="phase2_select_kernel_cluster",
+        sole=True, extra=extra, **more,
         kernel_route=route, bound_ms=b_ms, bound_by=b_by,
         bound_row_ms=bound_row(picks1, KV_S, 1, k),
         max_row_steps=int((picks1 >= 0).sum(axis=1).max()),
@@ -4244,6 +4317,7 @@ def lm_serve_path(dev) -> dict:
                 kept_client[t][u, b, h],
                 f"client {t} head (unit {u}, b {b}, h {h})"))
     route = p2.phase2_select_route(LM_PROMPT, 1, k)
+    check(route == "cluster", f"an LM KV head's phase 2 takes route {route}")
     us_c, ke_c, G1_c, Gr_c = (torch.cat([x[0][j] for x in ins]).cpu()
                               for j in range(4))
     pp = p2.phase2_select_plain(us_c, ke_c, G1_c, Gr_c).numpy()
@@ -4303,10 +4377,12 @@ def lm_serve_path(dev) -> dict:
     (us1, ke1, G11, Gr1), raw1 = ins[0][:2]
     picks1 = raw1.cpu().numpy()
     b_ms, b_by = bound(picks1, LM_PROMPT, 1, k)
+    more, extra = cluster_row(us1, ke1, G11, Gr1, picks1, "an LM KV head")
     out["phase2_times"] = kernel_times(
         partial(p2.phase2_select_cuda, us1, ke1, G11, Gr1),
         partial(p2.phase2_select_plain, us1, ke1, G11, Gr1), None,
-        reps=5, plain_reps=2, expect="phase2_select_kernel", sole=True,
+        reps=5, plain_reps=2, expect="phase2_select_kernel_cluster",
+        sole=True, extra=extra, **more,
         kernel_route=route, bound_ms=b_ms, bound_by=b_by,
         bound_row_ms=bound_row(picks1, LM_PROMPT, 1, k),
         max_row_steps=int((picks1 >= 0).sum(axis=1).max()),
@@ -4493,6 +4569,7 @@ def lt_selector_vs_cpu(sel, cpu_sel, chosen) -> dict:
     pp = p2.phase2_select_plain(us, ke, G1, Gr).cpu().numpy()
     route = p2.phase2_select_route(int(G1.shape[1]), int(Gr.shape[1]),
                                    svc.k_max)
+    check(route == "cluster", f"the selector's phase 2 takes route {route}")
     out = {"rows": len(rows_k), "k_max": svc.k_max, "samples_drawn": B,
            "route": route,
            "kernel_vs_plain": compare_picks(
@@ -4513,10 +4590,12 @@ def lt_selector_vs_cpu(sel, cpu_sel, chosen) -> dict:
     # the flush's phase 2 as the service launches it (device times filled
     # in phase 25)
     b_ms, b_by = bound(pk, int(G1.shape[1]), int(Gr.shape[1]), svc.k_max)
+    more, extra = cluster_row(us, ke, G1, Gr, pk, "the selector's flush")
     out["phase2_times"] = kernel_times(
         partial(p2.phase2_select_cuda, us, ke, G1, Gr),
         partial(p2.phase2_select_plain, us, ke, G1, Gr), None, reps=5,
-        plain_reps=2, expect="phase2_select_kernel", sole=True,
+        plain_reps=2, expect="phase2_select_kernel_cluster", sole=True,
+        extra=extra, **more,
         kernel_route=route, bound_ms=b_ms, bound_by=b_by,
         bound_row_ms=bound_row(pk, int(G1.shape[1]), int(Gr.shape[1]),
                                svc.k_max),
@@ -6305,6 +6384,7 @@ def examples_path(dev, card: str, power_limit: str) -> dict:
 
 
 def main() -> None:
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -6383,22 +6463,34 @@ def main() -> None:
     ked = torch.full((64,), kd, dtype=torch.int32, device=dev)
     edges.append(compare(usd, ked, G1d.contiguous(), Grd.contiguous(),
                          "degenerate columns B=64", span=kd - 1))
-    # the global route: 300 x 300, whose norms alone pass a block's shared
+    # the cluster route: 300 x 300, whose norms alone pass a block's shared
     # memory
     big = dpp.random_kron(gen, (300, 300), device=dev).rescale(20.0, cache)
     s_big = big.spectrum(cache)
     glob_in = phase1_inputs(s_big, s_big.suggested_k_max(), 8, gen)
-    edges.append(compare(*glob_in, "kron 300x300 B=8", route="global"))
-    # the global_basis route: 32 x 32 at E|Y| = 250 (k_max past 238, the
-    # KronDPP batch selector's shape), whose k x k basis passes a block's
-    # shared memory; its own generator, so that later phases draw as before
+    edges.append(compare(*glob_in, "kron 300x300 B=8", route="cluster"))
+    # and 32 x 32 at E|Y| = 250 (k_max past 238, the KronDPP batch
+    # selector's shape), whose k x k basis passes a block's shared memory;
+    # its own generator, so that later phases draw as before
     gen_w = torch.Generator(device=dev).manual_seed(3)
     wide = dpp.random_kron(gen_w, (32, 32), device=dev).rescale(250.0, cache)
     s_wide = wide.spectrum(cache)
     edges.append(compare(*phase1_inputs(s_wide, s_wide.suggested_k_max(), 16,
                                         gen_w),
                          f"kron 32x32 k_max {s_wide.suggested_k_max()} B=16",
-                         route="global_basis"))
+                         route="cluster"))
+    # past a cluster of 16 CTAs (each would hold all of Grᵀ): the global
+    # route at 16 x 4096, the global_basis route at 64 x 256, E|Y| = 250
+    # (k_max past 238); their own generator too
+    gen_g = torch.Generator(device=dev).manual_seed(5)
+    for sizes, size, B, route in (((16, 4096), 20.0, 8, "global"),
+                                  ((64, 256), 250.0, 4, "global_basis")):
+        mg = dpp.random_kron(gen_g, sizes, device=dev).rescale(size, cache)
+        sg = mg.spectrum(cache)
+        kg = sg.suggested_k_max()
+        edges.append(compare(*phase1_inputs(sg, kg, B, gen_g),
+                             f"kron {sizes[0]}x{sizes[1]} k_max {kg} B={B}",
+                             route=route))
     # the host's layout of the on-chip route against the kernel's own
     lib = _build.load_library("phase2_select", p2.bind)
     for n1, nr, kk in itertools.product((1, 4, 20, 30, 100, 300, 400, 1100),
@@ -6411,6 +6503,22 @@ def main() -> None:
     print(f"phase2_select: on-chip layout bytes agree (host and kernel) at "
           f"128 shapes; the device's opt-in limit "
           f"{p2._smem_optin(dev.index)} bytes")
+    # the C side's cluster plan against the host's mirror
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = 0
+    for (n1, nr, kk), nb in itertools.product(
+            ((1024, 1, 192), (512, 1, 120), (9995, 1, 46), (300, 300, 46),
+             (32, 32, 333), (400, 1, 224), (100, 100, 239), (2000, 3, 46),
+             (60, 700, 20)), (1, 8, 16, 64, 512)):
+        host = p2.cluster_geometry(n1, nr, kk, nb, p2._smem_optin(dev.index),
+                                   sms)
+        plan = p2.cluster_plan(n1, nr, kk, nb, dev.index)
+        check(host is not None and tuple(plan[:6]) == tuple(host),
+              f"cluster plan at {n1} x {nr}, k {kk}, B {nb}: kernel {plan}, "
+              f"host {host}")
+        plans += 1
+    print(f"phase2_select: cluster plans agree (host and kernel) at {plans} "
+          f"shapes and batches; {sms} SMs")
 
     # -- 4. statistics on the kernel path -----------------------------------
     small = dpp.random_kron(gen, (2, 3), device=dev)
@@ -6503,12 +6611,17 @@ def main() -> None:
                     shapes={"N1": N1_, "Nr": Nr_, "k_max": k_,
                             "B": int(us.shape[0])})
         on_chip = route == "on_chip"
+        extra = None
+        if not on_chip:
+            more, extra = cluster_row(us, ke, G1, Gr, picks_k,
+                                      f"phase2_select {B}")
+            keys.update(more)
         times[B] = kernel_times(
             partial(p2.phase2_select_cuda, us, ke, G1, Gr),
             partial(p2.phase2_select_plain, us, ke, G1, Gr), None,
             reps=20 if on_chip else 5, plain_reps=5 if on_chip else 2,
-            expect=("phase2_select_kernel_onchip" if on_chip
-                    else "phase2_select_kernel"), sole=True, **keys)
+            expect=f"phase2_select_kernel_{route.replace('_', '')}",
+            sole=True, extra=extra, **keys)
         print(f"  phase2_select B={B}: {json.dumps(times[B])}")
     # the DPP's phase 1 alone: the request's uniforms, the Bernoulli draw
     # and compaction, the factor-column gather (svc.sample(16) runs B = 16)
@@ -7227,6 +7340,7 @@ def main() -> None:
                                  "phase2_select_b64": times[64],
                                  "phase2_select_b1": times[1],
                                  "dpp_phase1_ms": phase1_ms},
+                      "run_s": time.perf_counter() - t_run,
                       "card": card, "power_limit": power_limit}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

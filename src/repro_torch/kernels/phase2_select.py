@@ -21,14 +21,16 @@ Output: (B, k_max) int32 picks, -1 in padded and dead slots.
 
 ``phase2_select_plain`` runs this as batched tensor code (any device);
 ``phase2_select_cuda`` launches ``csrc/phase2_select.cu`` on CUDA tensors
-and raises on anything else, by one of three routes
-(``phase2_select_route``): "on_chip" keeps both factors and the residual
-norms in the block's shared memory for the whole run, "global" (shapes
-whose on-chip layout passes the device's shared memory per block) keeps
-the norms in a (B, N) scratch in device memory, and "global_basis" (a k
-whose k x k basis passes it too) also the basis, as B and Bᵀ in a
-(B, 2, k, k) scratch. The kernel and the plain version agree draw for
-draw except where
+and raises on anything else, by one of four routes
+(``phase2_select_route``, the first that fits): "on_chip" keeps both
+factors and the residual norms in the block's shared memory for the whole
+run; "cluster" (shapes whose on-chip layout passes the device's shared
+memory per block) spreads a sample over a thread-block cluster of up to 16
+CTAs, its G1 rows, norms and basis rows split over their shared memory;
+"global" (shapes past such a cluster) keeps the norms in a (B, N) scratch
+in device memory, and "global_basis" (a k whose k x k basis passes a
+block's shared memory too) also the basis, as B and Bᵀ in a (B, 2, k, k)
+scratch. The kernel and the plain version agree draw for draw except where
 ``us · total`` lands within roundoff of a CDF boundary (the kernel's
 block-parallel scan rounds differently from ``torch.cumsum``), or where
 the residual mass after the span is exhausted is float32 roundoff near
@@ -60,12 +62,21 @@ MASS_EPS = 1e-6
 #: with 32-bit ints.
 MAX_K = 4096
 
-#: Threads per block of the kernel (one block per sample).
+#: Threads per block of the kernel (one block, or one cluster of blocks,
+#: per sample).
 THREADS = 256
 
 #: The routes of ``phase2_select_cuda``, in the order of the C launcher's
-#: route code.
-ROUTES = ("on_chip", "global", "global_basis")
+#: route code (``phase2_select_route`` tries on_chip, cluster, global,
+#: global_basis).
+ROUTES = ("on_chip", "global", "global_basis", "cluster")
+
+#: The largest cluster of the "cluster" route, in CTAs (a non-portable
+#: size on Hopper).
+CLUSTER_MAX = 16
+
+#: The most runs of c a tile's downdate is split into on the cluster route.
+MAX_RUNS = 32
 
 #: The on-chip route's register tile: 4 rows of G1 by TN rows of Gr a
 #: thread, TN the first of these that gives every tile a thread of the
@@ -213,25 +224,88 @@ def global_smem_bytes(k: int, basis_in_smem: bool = True) -> int:
     return 4 * ((k * k if basis_in_smem else 0) + 4 * k + 32) + 4 * 64
 
 
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def cluster_runs(n1c: int, Nr: int, k: int) -> int:
+    """Runs of c a tile's downdate is split into on the cluster route: as
+    many as give every thread of the block a (tile, run) pair, at most
+    ``MAX_RUNS`` and k."""
+    tn, n1p, pr, _ = onchip_geometry(n1c, Nr, k)
+    tiles = (n1p // TILE_ROWS) * (pr // tn)
+    return max(1, min(MAX_RUNS, k, THREADS // tiles))
+
+
+def cluster_bytes(N1: int, Nr: int, k: int, cs: int) -> int:
+    """Shared memory of one CTA of a ``cs``-CTA cluster on the cluster
+    route; mirrors ``cluster_geom`` in ``csrc/phase2_select.cu``. A CTA
+    owns n1c = ceil(N1 / cs) rows of G1 and kr = ceil(k / cs) rows of the
+    basis: G1ᵀ of its rows and all of Grᵀ, k-major and padded as on the
+    on-chip route (``onchip_geometry`` of the (n1c, Nr) slice), its
+    (N1p, Pr) norms grid and, where the downdate runs in several runs of c
+    (``cluster_runs``), one such grid a run; its kr x k rows of the basis,
+    its kr rows of the CGS2 vector, coef and the new column (k each), the
+    two Gram-Schmidt passes' inboxes (cs x k each), the masses', the |q|²
+    parts' and the picks' inboxes (cs, cs and 2 cs), 32 warp partials and
+    64 ints, in 4-byte words."""
+    n1c, kr = -(-N1 // cs), -(-k // cs)
+    _, n1p, pr, _ = onchip_geometry(n1c, Nr, k)
+    runs = cluster_runs(n1c, Nr, k)
+    words = (k * n1p + k * pr + n1p * pr * (1 + (runs > 1) * runs)
+             + _round4(kr * k) + _round4(kr) + 2 * _round4(k) + 2 * cs * k
+             + 4 * cs + 32 + 64)
+    return 4 * words
+
+
+def cluster_geometry(N1: int, Nr: int, k: int, B: int, limit: int, sms: int
+                     ) -> Optional[Tuple[int, int, int, int, int, int]]:
+    """``(C, TN, n1c, kr, runs, smem_bytes)`` of the cluster route for B
+    samples on a device with ``sms`` SMs and ``limit`` bytes of opt-in
+    shared memory a block, or None when no cluster of at most
+    ``CLUSTER_MAX`` CTAs fits; mirrors ``cluster_size`` in
+    ``csrc/phase2_select.cu``. C is the least power of two whose layout
+    (``cluster_bytes``) fits, doubled while the doubled cluster's B·2C CTAs
+    still number at most ``sms``, C < CLUSTER_MAX and the doubled layout
+    fits."""
+    cs = 1
+    while cs <= CLUSTER_MAX and cluster_bytes(N1, Nr, k, cs) > limit:
+        cs *= 2
+    if cs > CLUSTER_MAX:
+        return None
+    while cs < CLUSTER_MAX and 2 * B * cs <= sms \
+            and cluster_bytes(N1, Nr, k, 2 * cs) <= limit:
+        cs *= 2
+    n1c = -(-N1 // cs)
+    return (cs, onchip_geometry(n1c, Nr, k)[0], n1c, -(-k // cs),
+            cluster_runs(n1c, Nr, k), cluster_bytes(N1, Nr, k, cs))
+
+
 def phase2_select_route(N1: int, Nr: int, k: int,
                         limit: Optional[int] = None) -> str:
-    """"on_chip" when the on-chip layout (``onchip_geometry``) fits
-    ``limit`` bytes of shared memory a block, else "global" when the
-    global route's basis does (``global_smem_bytes``), else
-    "global_basis". ``limit`` None: the current CUDA device's opt-in
-    limit, asked once per device (``_smem_optin``)."""
+    """The first route that fits ``limit`` bytes of shared memory a
+    block: "on_chip" when the on-chip layout (``onchip_geometry``) does,
+    else "cluster" when a cluster of at most ``CLUSTER_MAX`` CTAs'
+    layout (``cluster_bytes``) does, else "global" when the global
+    route's basis does (``global_smem_bytes``), else "global_basis". A
+    choice by shape alone, made before launch. ``limit`` None: the
+    current CUDA device's opt-in limit, asked once per device
+    (``_smem_optin``)."""
     if limit is None:
         limit = _smem_optin(torch.cuda.current_device())
     if onchip_geometry(N1, Nr, k)[3] <= limit:
-        return ROUTES[0]
-    return ROUTES[1] if global_smem_bytes(k) <= limit else ROUTES[2]
+        return "on_chip"
+    if cluster_geometry(N1, Nr, k, 1, limit, 1) is not None:
+        return "cluster"
+    return "global" if global_smem_bytes(k) <= limit else "global_basis"
 
 
 @functools.lru_cache(maxsize=None)
 def _smem_optin(device_index: int) -> int:
     """The opt-in shared memory a block may use on this device, asked once;
-    the query also raises both kernels' dynamic shared-memory caps to it,
-    so that no launch queries or configures the device."""
+    the query also raises every kernel's dynamic shared-memory cap to it
+    (and lets the cluster kernels take 16 CTAs), so that no launch
+    configures the device."""
     from ._build import load_library
     lib = load_library("phase2_select", bind)
     limit = ctypes.c_int(0)
@@ -244,15 +318,39 @@ def _smem_optin(device_index: int) -> int:
     return limit.value
 
 
+@functools.lru_cache(maxsize=256)
+def cluster_plan(N1: int, Nr: int, k: int, B: int, device_index: int
+                 ) -> Tuple[int, int, int, int, int, int, int]:
+    """The C side's plan of the cluster route for B samples of
+    (N1, Nr, k) on a device (``phase2_select_cluster_plan``):
+    ``(C, TN, n1c, kr, runs, smem_bytes, clusters)``, the first six as
+    ``cluster_geometry`` gives them for that device, ``clusters`` the
+    clusters of that shape the card holds at once. Raises
+    ``RuntimeError`` when no cluster fits or the card grants none."""
+    from ._build import load_library
+    lib = load_library("phase2_select", bind)
+    _smem_optin(device_index)          # the kernels' attributes are set
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device_index):
+        rc = lib.phase2_select_cluster_plan(N1, Nr, k, B, out)
+    if rc != 0:
+        msg = lib.phase2_select_error_string(rc).decode()
+        raise RuntimeError(f"phase2_select: the card grants no cluster for "
+                           f"{B} samples of {N1} x {Nr}, k {k}: CUDA error "
+                           f"{rc} ({msg})")
+    return tuple(out)
+
+
 def phase2_select_cuda(us: torch.Tensor, k_eff: torch.Tensor,
                        G1: torch.Tensor, Gr: torch.Tensor) -> torch.Tensor:
     """Launch the Hopper kernel (``csrc/phase2_select.cu``): one thread
-    block per sample, on PyTorch's current stream, by the route
-    ``phase2_select_route`` gives (the global routes' scratch is
-    allocated here: the (B, N) norms, then on "global_basis" the
-    (B, 2, k, k) basis). Same contract as ``phase2_select_plain``.
+    block or one thread-block cluster per sample, on PyTorch's current
+    stream, by the route ``phase2_select_route`` gives (the global routes'
+    scratch is allocated here: the (B, N) norms, then on "global_basis"
+    the (B, 2, k, k) basis; the cluster route's plan is checked here,
+    ``cluster_plan``). Same contract as ``phase2_select_plain``.
     Raises on CPU tensors, wrong dtypes, non-contiguous inputs, bad
-    shapes, and a refused launch."""
+    shapes, a cluster the card does not grant, and a refused launch."""
     require_real("phase2_select_cuda", us, k_eff, G1, Gr)
     global launches
     nb, N1, Nr, k = _check_cuda_inputs(us, k_eff, G1, Gr)
@@ -261,12 +359,15 @@ def phase2_select_cuda(us: torch.Tensor, k_eff: torch.Tensor,
         return picks
     from ._build import load_library
     lib = load_library("phase2_select", bind)
-    route = ROUTES.index(phase2_select_route(N1, Nr, k,
-                                             _smem_optin(us.device.index)))
+    name = phase2_select_route(N1, Nr, k, _smem_optin(us.device.index))
+    if name == "cluster":   # raises where the card grants no such cluster
+        cluster_plan(N1, Nr, k, nb, us.device.index)
+    route = ROUTES.index(name)
     scratch = None
-    if route >= 1:      # the norms, then on "global_basis" B and Bᵀ
-        scratch = torch.empty(nb * N1 * Nr + (route == 2) * nb * 2 * k * k,
-                              dtype=torch.float32, device=us.device)
+    if name in ("global", "global_basis"):   # the norms, then B and Bᵀ
+        scratch = torch.empty(
+            nb * N1 * Nr + (name == "global_basis") * nb * 2 * k * k,
+            dtype=torch.float32, device=us.device)
     stream = torch.cuda.current_stream(us.device).cuda_stream
     with torch.cuda.device(us.device):
         rc = lib.phase2_select_launch(
@@ -293,6 +394,9 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.phase2_select_onchip_bytes.argtypes = [
         i, i, i, ctypes.POINTER(ctypes.c_longlong)]
     lib.phase2_select_onchip_bytes.restype = ctypes.c_int
+    lib.phase2_select_cluster_plan.argtypes = [i, i, i, i,
+                                               ctypes.POINTER(ctypes.c_int)]
+    lib.phase2_select_cluster_plan.restype = ctypes.c_int
     lib.phase2_select_error_string.argtypes = [ctypes.c_int]
     lib.phase2_select_error_string.restype = ctypes.c_char_p
 

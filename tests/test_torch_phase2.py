@@ -35,7 +35,10 @@ from repro.sampling.batched import (_phase1_one, gather_factor_columns,
                                     phase2_select, sample_krondpp_batched)
 from repro_torch.convert import spectrum_from_numpy
 from repro_torch.kernels import ops
-from repro_torch.kernels.phase2_select import (THREADS, canonical_pair,
+from repro_torch.kernels.phase2_select import (CLUSTER_MAX, THREADS,
+                                               canonical_pair,
+                                               cluster_bytes,
+                                               cluster_geometry,
                                                first_difference,
                                                global_smem_bytes,
                                                is_roundoff_tie,
@@ -176,8 +179,9 @@ def test_cuda_backend_refuses_cpu_tensors():
 
 
 # The opt-in shared memory a block may use on the H100 (227 KB), the limit
-# the route tests hand to phase2_select_route.
+# the route tests hand to phase2_select_route, and its SM count.
 H100_SMEM_OPTIN = 232_448
+H100_SMS = 132
 
 
 @pytest.mark.parametrize("N1,Nr,k,want", [
@@ -200,43 +204,139 @@ def test_onchip_geometry(N1, Nr, k, want):
     assert (n1p // 4) * (pr // tn) <= THREADS
 
 
+# (N1, Nr, k, B): the cluster route's five shapes on the port's paths —
+# a KV head (``sample_kdpp_dense``), an LM KV head, the conditioned draw
+# (m = 1, N = 9995), 300 x 300 and the batch selector's flush
+CLUSTER_SHAPES = {"kv_head": (1024, 1, 192, 1), "lm_kv_head": (512, 1, 120, 1),
+                  "conditioned": (9995, 1, 46, 64),
+                  "kron_300x300": (300, 300, 46, 8),
+                  "selector": (32, 32, 333, 16)}
+
+
+@pytest.mark.parametrize("name,want", [
+    ("kv_head", (8, 152_672, 16, 105_648, 16)),
+    ("lm_kv_head", (2, 177_616, 16, 55_008, 32)),
+    ("conditioned", (16, 133_824, 16, 133_824, 1)),
+    ("kron_300x300", (4, 166_896, 16, 91_424, 1)),
+    ("selector", (4, 196_704, 8, 145_488, 32)),
+])
+def test_cluster_geometry(name, want):
+    """The cluster route's layout by hand: (least C that fits, its bytes
+    a CTA, C at the shape's batch, its bytes a CTA, its runs of the
+    downdate). C is a power of two of at most 16, the least that fits
+    227 KB, doubled while B·2C <= 132 SMs; a CTA holds G1ᵀ of its
+    n1c = ceil(N1 / C) rows and all of Grᵀ (padded as on the on-chip
+    route), its norms slice and, when a tile's downdate runs in R > 1 runs
+    of c (R = 256 / tiles, at most 32), R grids of partial sums;
+    kr = ceil(k / C) rows of the basis and of the CGS2 vector, coef and q,
+    the two passes' inboxes (C k each), the masses', |q|²'s and picks'
+    inboxes, 32 partials and 64 ints."""
+    N1, Nr, k, B = CLUSTER_SHAPES[name]
+    c_min, b_min, c_b, b_b, runs_b = want
+    assert phase2_select_route(N1, Nr, k, limit=H100_SMEM_OPTIN) == "cluster"
+    least = cluster_geometry(N1, Nr, k, 1, H100_SMEM_OPTIN, 1)
+    assert (least[0], least[5]) == (c_min, b_min)
+    assert c_min == 1 or cluster_bytes(N1, Nr, k, c_min // 2) \
+        > H100_SMEM_OPTIN
+    cs, tn, n1c, kr, runs, nbytes = cluster_geometry(
+        N1, Nr, k, B, H100_SMEM_OPTIN, H100_SMS)
+    assert (cs, nbytes, runs) == (c_b, b_b, runs_b)
+    assert cs & (cs - 1) == 0 and c_min <= cs <= CLUSTER_MAX
+    assert cs == CLUSTER_MAX or 2 * B * cs > H100_SMS
+    assert nbytes <= H100_SMEM_OPTIN and b_min <= H100_SMEM_OPTIN
+    assert (n1c, kr) == (-(-N1 // cs), -(-k // cs))
+    tn_, n1p, pr, _ = onchip_geometry(n1c, Nr, k)
+    assert tn == tn_
+    assert runs == max(1, min(32, k, THREADS // ((n1p // 4) * (pr // tn))))
+    grids = 1 + (runs if runs > 1 else 0)
+    assert nbytes == 4 * (k * (n1p + pr) + n1p * pr * grids
+                          + -(-kr * k // 4) * 4 + -(-kr // 4) * 4
+                          + 2 * -(-k // 4) * 4 + 2 * cs * k + 4 * cs + 96)
+
+
 @pytest.mark.parametrize("N1,Nr,k,want", [
     (100, 100, 46, "on_chip"), (400, 1, 46, "on_chip"),
-    (20, 500, 46, "on_chip"), (300, 300, 46, "global"),
-    (100, 100, 224, "global"), (400, 1, 224, "global"),
-    (100, 100, 238, "global"), (100, 100, 239, "global_basis"),
-    (32, 32, 333, "global_basis"), (1024, 1, 333, "global_basis"),
+    (20, 500, 46, "on_chip"), (300, 300, 46, "cluster"),
+    (100, 100, 224, "cluster"), (400, 1, 224, "cluster"),
+    (100, 100, 238, "cluster"), (100, 100, 239, "cluster"),
+    (32, 32, 333, "cluster"), (1024, 1, 333, "cluster"),
+    (1024, 1, 192, "cluster"), (512, 1, 120, "cluster"),
+    (9995, 1, 46, "cluster"),
+    (100_000, 1, 46, "global"), (64, 2048, 46, "global"),
+    (64, 256, 238, "global"), (100, 1200, 46, "global"),
+    (64, 256, 239, "global_basis"), (64, 256, 333, "global_basis"),
+    (4096, 1, 333, "global_basis"), (2048, 4, 333, "global_basis"),
 ])
 def test_route_at_the_h100_limit(N1, Nr, k, want):
     """The main path's 100 x 100 at k_max 46 and the m = 1 and m = 3 edges
-    fit a block; 300 x 300 (its norms alone 360 KB) and k = 224 do not;
-    past k = 238 neither does the global route's basis (the KronDPP batch
-    selector's 1024 documents draw k_max 333)."""
+    fit a block; 300 x 300 (its norms alone 360 KB), k = 224, a KV head
+    (N = 1024, k = 192), an LM KV head, the conditioned draw at N = 9995
+    and the KronDPP batch selector's 32 x 32 at k_max 333 fit a cluster of
+    at most 16 CTAs. Past a cluster (m = 1 at N = 10⁵; a Gr of 2048 or
+    1200 rows, whose Grᵀ each CTA holds whole) the global route takes
+    them, and past k = 238 (the global route's basis passes a block) the
+    global_basis route."""
     assert phase2_select_route(N1, Nr, k, limit=H100_SMEM_OPTIN) == want
-    if want != "on_chip":
+    fits_cluster = cluster_geometry(N1, Nr, k, 1, H100_SMEM_OPTIN, 1)
+    assert (fits_cluster is not None) == (want == "cluster") or \
+        want == "on_chip"
+    if want in ("global", "global_basis"):
         basis_fits = global_smem_bytes(k) <= H100_SMEM_OPTIN
         assert basis_fits == (want == "global")
         assert global_smem_bytes(k, basis_in_smem=False) < 8 * 1024
+        assert all(cluster_bytes(N1, Nr, k, c) > H100_SMEM_OPTIN
+                   for c in (1, 2, 4, 8, 16))
 
 
 @pytest.mark.parametrize("N1,Nr,k", [(100, 100, 46), (400, 1, 46),
                                      (20, 500, 46), (100, 100, 224)])
 def test_route_switches_at_the_limit(N1, Nr, k):
-    """On-chip up to exactly its byte count, global one byte below it; and
-    along N1 at Nr = 1 the route turns global once and stays so."""
+    """On-chip up to exactly its byte count, a cluster one byte below it;
+    and along N1 at Nr = 1 the route runs on_chip..., cluster...,
+    global... (global_basis past k = 238), each once."""
     nbytes = onchip_geometry(N1, Nr, k)[3]
     assert phase2_select_route(N1, Nr, k, limit=nbytes) == "on_chip"
-    assert phase2_select_route(N1, Nr, k, limit=nbytes - 1) == "global"
+    assert phase2_select_route(N1, Nr, k, limit=nbytes - 1) == "cluster"
+    order = ("on_chip", "cluster", "global", "global_basis")
     routes = [phase2_select_route(n, 1, k, limit=H100_SMEM_OPTIN)
-              for n in range(1, 4000, 37)]
-    assert routes == sorted(routes, reverse=True)     # on_chip..., global...
+              for n in range(1, 40_000, 397)]
+    assert routes == sorted(routes, key=order.index)
+    assert "cluster" in routes and routes[-1] == "global"
 
 
-# one shape of each route: the on-chip route's small shape, 300 x 300
-# (N = 9·10^4), whose norms alone pass the H100's 227 KB a block, and the
-# batch selector's 32 x 32 at E|Y| = 250, whose k x k basis passes it
-ON_CARD = {"on_chip": ((30, 40), 64, 10.0), "global": ((300, 300), 8, 10.0),
-           "global_basis": ((32, 32), 16, 250.0)}
+def test_cluster_plan_the_card_refuses_raises(monkeypatch):
+    """A cluster the card does not grant (the C side's plan returns an
+    error) raises a RuntimeError naming the shape; no other route is
+    taken in its place. The C library is a stand-in here."""
+    from contextlib import nullcontext
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import phase2_select as p2
+
+    class RefusingLibrary:
+        def phase2_select_cluster_plan(self, N1, Nr, k, B, out):
+            return 9                   # cudaErrorInvalidConfiguration
+
+        def phase2_select_error_string(self, rc):
+            return b"invalid configuration argument"
+
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name, bind: RefusingLibrary())
+    monkeypatch.setattr(p2, "_smem_optin", lambda index: H100_SMEM_OPTIN)
+    monkeypatch.setattr(torch.cuda, "device", lambda index: nullcontext())
+    p2.cluster_plan.cache_clear()
+    with pytest.raises(RuntimeError, match="grants no cluster .* 1024 x 1"):
+        p2.cluster_plan(1024, 1, 192, 1, 0)
+    p2.cluster_plan.cache_clear()
+
+
+# one shape of each route: the on-chip route's small shape; 300 x 300
+# (N = 9·10^4), whose norms alone pass the H100's 227 KB a block, on a
+# cluster; 16 x 4096, whose Grᵀ alone passes a CTA's; and 64 x 256 at
+# E|Y| = 250, whose Grᵀ passes a CTA's and whose k x k basis a block's
+ON_CARD = {"on_chip": ((30, 40), 64, 10.0), "cluster": ((300, 300), 8, 10.0),
+           "global": ((16, 4096), 8, 10.0),
+           "global_basis": ((64, 256), 4, 250.0)}
 
 
 @pytest.mark.cuda
