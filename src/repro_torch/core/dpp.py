@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from .._device import DeviceLike, resolve_device
 
 
@@ -144,13 +145,14 @@ def scatter_theta(N: int, idx: torch.Tensor, mask: torch.Tensor,
     n = 1000) were bitwise equal: the accumulation did not sum in a varying
     order there (``chip_smoke.py`` phase 9 checks it on every run).
     """
-    n = idx.shape[0]
-    idx = idx.long()
-    vals = inv * (mask[:, :, None] & mask[:, None, :])
-    theta = torch.zeros((N, N), dtype=inv.dtype, device=inv.device)
-    theta.index_put_((idx[:, :, None], idx[:, None, :]), vals,
-                     accumulate=True)
-    return theta / n
+    with obs.spans.start_span("learning.theta_scatter"):
+        n = idx.shape[0]
+        idx = idx.long()
+        vals = inv * (mask[:, :, None] & mask[:, None, :])
+        theta = torch.zeros((N, N), dtype=inv.dtype, device=inv.device)
+        theta.index_put_((idx[:, :, None], idx[:, None, :]), vals,
+                         accumulate=True)
+        return theta / n
 
 
 def theta_matrix(L: torch.Tensor, batch: SubsetBatch) -> torch.Tensor:

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import obs
 from .._device import DeviceLike
 from ..kernels import ops as kernel_ops
 from .dpp import SubsetBatch, identity_padded, masked_inv_and_logdet, \
@@ -185,10 +186,13 @@ def theta_matrix_kron(L1: torch.Tensor, L2: torch.Tensor,
     floats, 400 MB at N = 10^4. On an H100 the same batch and factors gave
     the same Θ bit for bit in two builds (``chip_smoke.py`` phase 9).
     """
-    _, _, L1rr, L2uu = _subset_blocks(L1, L2, batch)
-    inv, _ = masked_inv_and_logdet(identity_padded(L1rr * L2uu, batch.mask))
-    return scatter_theta(L1.shape[0] * L2.shape[0], batch.indices,
-                         batch.mask, inv)
+    with obs.spans.start_span("learning.theta_build"):
+        _, _, L1rr, L2uu = _subset_blocks(L1, L2, batch)
+        with obs.spans.start_span("learning.subset_inverse"):
+            inv, _ = masked_inv_and_logdet(identity_padded(L1rr * L2uu,
+                                                           batch.mask))
+        return scatter_theta(L1.shape[0] * L2.shape[0], batch.indices,
+                             batch.mask, inv)
 
 
 # ---------------------------------------------------------------------------

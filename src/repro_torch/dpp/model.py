@@ -25,6 +25,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import obs
 from .._device import FLOAT, DeviceLike, as_float, resolve_device
 from ..core.dpp import SubsetBatch
 from ..core.kron import split_indices_multi
@@ -176,31 +177,34 @@ class DPPModel:
             returned on ``device``.
         backend: deprecated placement strings ("device"/"host"), shimmed
             onto runtimes with a DeprecationWarning."""
-        rt = runtime_mod.resolve(runtime, backend=backend)
-        dev = resolve_device(device)
-        shape = (batch_shape,) if isinstance(batch_shape, int) \
-            else tuple(batch_shape)
-        n = 1
-        for s in shape:
-            n *= int(s)
-        if rt.kind == "host":
+        with obs.spans.start_span("dpp.sample"):
+            rt = runtime_mod.resolve(runtime, backend=backend)
+            dev = resolve_device(device)
+            shape = (batch_shape,) if isinstance(batch_shape, int) \
+                else tuple(batch_shape)
+            n = 1
+            for s in shape:
+                n *= int(s)
+            if rt.kind == "host":
+                if k is not None:
+                    raise ValueError("the Host runtime implements the "
+                                     "plain DPP oracle only (k=None); use "
+                                     "Local/Mesh for k-DPP draws")
+                return self._sample_host(key, n, dev)
+            if rt.is_mesh:
+                rt.home(dev)
+            with obs.spans.start_span("sampling.spectrum"):
+                spec = self.spectrum(cache, runtime=rt).to(dev)
             if k is not None:
-                raise ValueError("the Host runtime implements the plain "
-                                 "DPP oracle only (k=None); use Local/Mesh "
-                                 "for k-DPP draws")
-            return self._sample_host(key, n, dev)
-        if rt.is_mesh:
-            rt.home(dev)
-        spec = self.spectrum(cache, runtime=rt).to(dev)
-        if k is not None:
-            # exact-k draws cannot overflow their k-slot budget
-            return _picks_to_subsets(sample_kdpp_batched(key, spec, int(k),
-                                                         n, runtime=rt))
-        if k_max is None:
-            k_max = spec.suggested_k_max()
-        picks, _, truncated = sample_krondpp_batched(key, spec, int(k_max),
-                                                     n, runtime=rt)
-        return _picks_to_subsets(picks, truncated)
+                # exact-k draws cannot overflow their k-slot budget
+                return _picks_to_subsets(sample_kdpp_batched(
+                    key, spec, int(k), n, runtime=rt))
+            if k_max is None:
+                with obs.spans.start_span("sampling.k_max"):
+                    k_max = spec.suggested_k_max()
+            picks, _, truncated = sample_krondpp_batched(
+                key, spec, int(k_max), n, runtime=rt)
+            return _picks_to_subsets(picks, truncated)
 
     def _sample_host(self, key, n: int, device: torch.device
                      ) -> SubsetBatch:
@@ -321,8 +325,9 @@ class DPPModel:
         ``kernels.ops.greedy_map_kdpp``: one launch of the fused
         greedy-MAP kernel on the card) as (k,) int32 on the model's device. Kron kernels run on the
         dense materialization, guarded by ``max_dense``."""
-        return kernel_ops.greedy_map_kdpp(self.dense_kernel(max_dense),
-                                          int(k))
+        with obs.spans.start_span("dpp.map"):
+            return kernel_ops.greedy_map_kdpp(self.dense_kernel(max_dense),
+                                              int(k))
 
     # -- learning -----------------------------------------------------------
     def fit(self, batch: SubsetBatch, algorithm: Optional[str] = None,

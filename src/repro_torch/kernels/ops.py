@@ -3,7 +3,10 @@
 The dispatch rule: a CUDA tensor goes to the hand-written kernel, a CPU
 tensor to the kernel's plain PyTorch version — decided by where the
 tensor lies, never by whether a build or a launch worked. Each dispatch
-emits a ``kernels.<op>.<engine>`` counter through ``obs.current_tracker()``
+runs inside a ``kernels.<op>`` region on the profiler's timeline while it
+records (``obs.spans.profiler_region``), so each wrapper's device time
+reads off a trace, and, where a tracker listens, emits a
+``kernels.<op>.<engine>`` counter through ``obs.current_tracker()``
 (once per executed call; the JAX package counts once per compiled
 specialization).
 """
@@ -25,15 +28,22 @@ from .phase2_select import (canonical_pair, phase2_select_cuda,
 from .threefry import threefry2x32_cuda, threefry2x32_plain
 
 
-def _count_dispatch(op: str, engine: str) -> None:
-    obs.current_tracker().counter(f"kernels.{op}.{engine}")
+def _dispatch_span(op: str, engine: str, counted: Optional[str] = None):
+    """One dispatch of ``op`` to ``engine``: where a tracker listens, the
+    ``kernels.<counted or op>.<engine>`` counter; returns the
+    ``kernels.<op>`` span around the dispatch, which only the profiler
+    sees (``NULL_SPAN`` while it does not record)."""
+    tracker = obs.current_tracker()
+    if obs.enabled(tracker):
+        tracker.counter(f"kernels.{counted or op}.{engine}")
+    return obs.spans.profiler_region("kernels." + op)
 
 
 def _resolve_backend(op: str, x: torch.Tensor, name: str,
                      backend: Optional[str]) -> str:
     """None -> "cuda" for a CUDA tensor ``x``, "reference" otherwise;
     "reference" and "cuda" pass through; "cuda" on a CPU tensor and any
-    other value raise ``ValueError``. Emits the dispatch counter."""
+    other value raise ``ValueError``."""
     if backend is None:
         backend = "cuda" if x.is_cuda else "reference"
     if backend not in ("reference", "cuda"):
@@ -42,7 +52,6 @@ def _resolve_backend(op: str, x: torch.Tensor, name: str,
     if backend == "cuda" and not x.is_cuda:
         raise ValueError(f"{op} backend='cuda' needs CUDA tensors, got "
                          f"{name} on {x.device}")
-    _count_dispatch(op, backend)
     return backend
 
 
@@ -59,12 +68,14 @@ def threefry2x32(keys: torch.Tensor, n: int, mode: str,
     words. ``mode`` and the shapes returned as in ``kernels.threefry``
     ("split_uniform" returns two tensors, of n and n2 columns);
     ``backend`` as for ``phase2_select``."""
-    if _resolve_backend("threefry2x32", keys, "keys",
-                        backend) == "reference":
-        return threefry2x32_plain(keys, n, mode, data, minval, maxval, n2)
-    return threefry2x32_cuda(
-        keys.contiguous(), n, mode,
-        None if data is None else data.contiguous(), minval, maxval, n2)
+    backend = _resolve_backend("threefry2x32", keys, "keys", backend)
+    with _dispatch_span("threefry2x32", backend):
+        if backend == "reference":
+            return threefry2x32_plain(keys, n, mode, data, minval, maxval,
+                                      n2)
+        return threefry2x32_cuda(
+            keys.contiguous(), n, mode,
+            None if data is None else data.contiguous(), minval, maxval, n2)
 
 
 # ---------------------------------------------------------------------------
@@ -75,9 +86,12 @@ def kron_matvec(A: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
                 backend: Optional[str] = None) -> torch.Tensor:
     """Batched (A ⊗ B) X[b]; X (batch, N1·N2) float32 or bfloat16, output
     in X's dtype. ``backend`` as for ``phase2_select``."""
-    if _resolve_backend("kron_matvec", X, "X", backend) == "reference":
-        return kron_matvec_plain(A, B, X)
-    return kron_matvec_cuda(A.contiguous(), B.contiguous(), X.contiguous())
+    backend = _resolve_backend("kron_matvec", X, "X", backend)
+    with _dispatch_span("kron_matvec", backend):
+        if backend == "reference":
+            return kron_matvec_plain(A, B, X)
+        return kron_matvec_cuda(A.contiguous(), B.contiguous(),
+                                X.contiguous())
 
 
 def kron_eigvec_batch(P1: torch.Tensor, P2: torch.Tensor, i: torch.Tensor,
@@ -119,17 +133,18 @@ def phase2_select(us: torch.Tensor, Gs: Sequence[torch.Tensor],
         raise ValueError(f"sizes {tuple(sizes)} inconsistent with the "
                          f"factor-column row counts {got}")
     backend = _resolve_backend("phase2_select", us, "us", backend)
-    batched = us.dim() == 2
-    k_eff = torch.as_tensor(k_eff, device=us.device).to(torch.int32)
-    if not batched:
-        Gs = tuple(G[None] for G in Gs)
-        us, k_eff = us[None], k_eff.reshape(1)
-    G1, Gr = canonical_pair(tuple(Gs))
-    if backend == "reference":
-        picks = phase2_select_plain(us, k_eff, G1, Gr)
-    else:
-        picks = phase2_select_cuda(us.contiguous(), k_eff.contiguous(),
-                                   G1.contiguous(), Gr.contiguous())
+    with _dispatch_span("phase2_select", backend):
+        batched = us.dim() == 2
+        k_eff = torch.as_tensor(k_eff, device=us.device).to(torch.int32)
+        if not batched:
+            Gs = tuple(G[None] for G in Gs)
+            us, k_eff = us[None], k_eff.reshape(1)
+        G1, Gr = canonical_pair(tuple(Gs))
+        if backend == "reference":
+            picks = phase2_select_plain(us, k_eff, G1, Gr)
+        else:
+            picks = phase2_select_cuda(us.contiguous(), k_eff.contiguous(),
+                                       G1.contiguous(), Gr.contiguous())
     return picks if batched else picks[0]
 
 
@@ -142,10 +157,11 @@ def partial_trace_A(theta: torch.Tensor, L2: torch.Tensor, N1: int, N2: int,
     """A[k,l] = Σ_{u,v} Θ4[k,u,l,v] L2[v,u] of the N x N ``theta``
     (N = N1·N2) -> (N1, N1). ``backend`` as for ``phase2_select``."""
     theta4 = theta.reshape(N1, N2, N1, N2)
-    if _resolve_backend("partial_trace_A", theta, "theta",
-                        backend) == "reference":
-        return partial_trace_A_plain(theta4, L2)
-    return partial_trace_A_cuda(theta4.contiguous(), L2.contiguous())
+    backend = _resolve_backend("partial_trace_A", theta, "theta", backend)
+    with _dispatch_span("partial_trace_A", backend):
+        if backend == "reference":
+            return partial_trace_A_plain(theta4, L2)
+        return partial_trace_A_cuda(theta4.contiguous(), L2.contiguous())
 
 
 def partial_trace_C(theta: torch.Tensor, L1: torch.Tensor, N1: int, N2: int,
@@ -153,10 +169,11 @@ def partial_trace_C(theta: torch.Tensor, L1: torch.Tensor, N1: int, N2: int,
     """C[u,v] = Σ_{i,j} L1[i,j] Θ4[i,u,j,v] of the N x N ``theta``
     -> (N2, N2). ``backend`` as for ``phase2_select``."""
     theta4 = theta.reshape(N1, N2, N1, N2)
-    if _resolve_backend("partial_trace_C", theta, "theta",
-                        backend) == "reference":
-        return partial_trace_C_plain(theta4, L1)
-    return partial_trace_C_cuda(theta4.contiguous(), L1.contiguous())
+    backend = _resolve_backend("partial_trace_C", theta, "theta", backend)
+    with _dispatch_span("partial_trace_C", backend):
+        if backend == "reference":
+            return partial_trace_C_plain(theta4, L1)
+        return partial_trace_C_cuda(theta4.contiguous(), L1.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -169,10 +186,12 @@ def greedy_map_update(lcol: torch.Tensor, C: torch.Tensor, cj: torch.Tensor,
     """One fast-greedy MAP step -> (e, d_new): lcol (N,), C (N, k) (any
     strides), cj (k,), dj (1,), d (N,). ``backend`` as for
     ``phase2_select``."""
-    if _resolve_backend("greedy_map_update", d, "d", backend) == "reference":
-        return greedy_map_update_plain(lcol, C, cj, dj, d)
-    return greedy_map_update_cuda(lcol.contiguous(), C, cj.contiguous(),
-                                  dj.contiguous(), d.contiguous())
+    backend = _resolve_backend("greedy_map_update", d, "d", backend)
+    with _dispatch_span("greedy_map_update", backend):
+        if backend == "reference":
+            return greedy_map_update_plain(lcol, C, cj, dj, d)
+        return greedy_map_update_cuda(lcol.contiguous(), C, cj.contiguous(),
+                                      dj.contiguous(), d.contiguous())
 
 
 def greedy_map_kdpp(L: torch.Tensor, k: int,
@@ -185,7 +204,8 @@ def greedy_map_kdpp(L: torch.Tensor, k: int,
     On a CUDA tensor one launch of ``greedy_map_kdpp_cuda`` runs every step
     of every matrix; on a CPU tensor (or with ``backend="reference"``)
     ``greedy_map_kdpp_plain`` runs the k-step loop over the plain update.
-    ``backend`` as for ``phase2_select``. The dispatch counter keeps the
+    ``backend`` as for ``phase2_select``. The span is
+    ``kernels.greedy_map_kdpp``; the dispatch counter keeps the
     reference's name, ``kernels.greedy_map_update.<engine>``, once a call
     (the JAX package counts the step once per traced ``scan``).
 
@@ -193,13 +213,15 @@ def greedy_map_kdpp(L: torch.Tensor, k: int,
     k - N zeros (past N its argmax over all ``-inf`` takes item 0). On the
     card the kernel selects min(k, N) and the picks are padded with int32
     zeros on L's device."""
-    if _resolve_backend("greedy_map_update", L, "L",
-                        backend) == "reference":
-        return greedy_map_kdpp_plain(L, k)
-    k, N = int(k), int(L.shape[-1])
-    picks = greedy_map_kdpp_cuda(L.contiguous(), min(k, N))
-    if k <= N:
-        return picks
-    pad = torch.zeros(picks.shape[:-1] + (k - N,), dtype=picks.dtype,
-                      device=picks.device)
-    return torch.cat([picks, pad], -1)
+    backend = _resolve_backend("greedy_map_update", L, "L", backend)
+    with _dispatch_span("greedy_map_kdpp", backend,
+                        counted="greedy_map_update"):
+        if backend == "reference":
+            return greedy_map_kdpp_plain(L, k)
+        k, N = int(k), int(L.shape[-1])
+        picks = greedy_map_kdpp_cuda(L.contiguous(), min(k, N))
+        if k <= N:
+            return picks
+        pad = torch.zeros(picks.shape[:-1] + (k - N,), dtype=picks.dtype,
+                          device=picks.device)
+        return torch.cat([picks, pad], -1)

@@ -37,7 +37,7 @@ from ..checkpoint import CheckpointConfig, CheckpointManager
 from ..core.dpp import SubsetBatch
 from ..core.krondpp import KronDPP
 from . import schedules as schedules_mod
-from .engine import ALGORITHMS, LearnerState, LearningEngine
+from .engine import ALGORITHMS, LearnerState, LearningEngine, host_read
 
 
 @dataclasses.dataclass
@@ -185,81 +185,85 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
                            key=key, log_every=log_every,
                            track_ll=track_ll, ll_mode=ll_mode,
                            runtime=runtime, health=health, device=device)
-    rt = runtime_mod.resolve(runtime, mesh=mesh, stacklevel=3)
-    if rt.kind == "host":
-        raise ValueError("learning has no host runtime; use Local() or "
-                         "Mesh(...)")
-    if algorithm not in ALGORITHMS:
-        raise ValueError(f"algorithm must be one of {ALGORITHMS}, "
-                         f"got {algorithm!r}")
-    dev = rt.home(device) if rt.is_mesh else resolve_device(device)
-    if rt.is_mesh and generator is not None:
-        raise ValueError("a Mesh runtime draws its minibatches from PRNG "
-                         "keys (key= or seed=), not a torch.Generator")
-    if algorithm == "krk" and minibatch_size is not None:
-        algorithm = "krk-stochastic"   # a minibatch request IS stochastic
-    if schedule is None:
-        schedule = schedules_mod.constant(a)
-    if ll_mode is None:
-        ll_mode = "sweep" if track_ll else "none"
+    with obs.spans.start_span("learning.setup"):
+        rt = runtime_mod.resolve(runtime, mesh=mesh, stacklevel=3)
+        if rt.kind == "host":
+            raise ValueError("learning has no host runtime; use Local() or "
+                             "Mesh(...)")
+        if algorithm not in ALGORITHMS:
+            raise ValueError(f"algorithm must be one of {ALGORITHMS}, "
+                             f"got {algorithm!r}")
+        dev = rt.home(device) if rt.is_mesh else resolve_device(device)
+        if rt.is_mesh and generator is not None:
+            raise ValueError("a Mesh runtime draws its minibatches from "
+                             "PRNG keys (key= or seed=), not a "
+                             "torch.Generator")
+        if algorithm == "krk" and minibatch_size is not None:
+            # a minibatch request IS stochastic
+            algorithm = "krk-stochastic"
+        if schedule is None:
+            schedule = schedules_mod.constant(a)
+        if ll_mode is None:
+            ll_mode = "sweep" if track_ll else "none"
 
-    stats = None
-    if rt.is_mesh:
-        stats = _mesh_statistics(rt, algorithm, use_dense_theta,
-                                 minibatch_size, batch)
-    engine = LearningEngine(algorithm=algorithm, schedule=schedule,
-                            minibatch_size=minibatch_size,
-                            use_dense_theta=use_dense_theta,
-                            fresh_theta=fresh_theta, ll_mode=ll_mode,
-                            power_iters=power_iters, backend=backend,
-                            stats=stats)
-    batch = SubsetBatch(batch.indices.to(dev), batch.mask.to(dev))
-    state = engine.init_state(_normalize_params(model, algorithm, dev),
-                              batch, seed=seed, generator=generator,
-                              device=dev, key=key)
+        stats = None
+        if rt.is_mesh:
+            stats = _mesh_statistics(rt, algorithm, use_dense_theta,
+                                     minibatch_size, batch)
+        engine = LearningEngine(algorithm=algorithm, schedule=schedule,
+                                minibatch_size=minibatch_size,
+                                use_dense_theta=use_dense_theta,
+                                fresh_theta=fresh_theta, ll_mode=ll_mode,
+                                power_iters=power_iters, backend=backend,
+                                stats=stats)
+        batch = SubsetBatch(batch.indices.to(dev), batch.mask.to(dev))
+        state = engine.init_state(_normalize_params(model, algorithm, dev),
+                                  batch, seed=seed, generator=generator,
+                                  device=dev, key=key)
 
-    manager = None
-    if checkpoint_dir is not None:
-        manager = CheckpointManager(CheckpointConfig(
-            directory=checkpoint_dir,
-            save_interval_steps=max(1, save_every or iters)))
-        if resume and manager.latest_step() is not None:
-            state = manager.restore(target=state)
+        manager = None
+        if checkpoint_dir is not None:
+            manager = CheckpointManager(CheckpointConfig(
+                directory=checkpoint_dir,
+                save_interval_steps=max(1, save_every or iters)))
+            if resume and manager.latest_step() is not None:
+                state = manager.restore(target=state)
 
-    start_sweep = int(state.sweep)
-    remaining = max(0, iters - start_sweep)
+        start_sweep = host_read(state.sweep, int)
+        remaining = max(0, iters - start_sweep)
 
-    if isinstance(health, obs.HealthMonitor):
-        monitor = health
-    elif isinstance(health, obs.HealthThresholds):
-        monitor = obs.HealthMonitor(thresholds=health, component="learning")
-    elif health is None and obs.enabled(obs.current_tracker()):
-        monitor = obs.HealthMonitor(component="learning")
-    else:
-        monitor = None
-    if monitor is not None:
-        # checked on the INITIAL params too, so a rank-deficient or
-        # ill-conditioned starting kernel is flagged even when the
-        # updates immediately move away from it
-        monitor.check_learning(
-            state.params, algorithm,
-            ll=float(state.ll) if ll_mode != "none" else None)
+        if isinstance(health, obs.HealthMonitor):
+            monitor = health
+        elif isinstance(health, obs.HealthThresholds):
+            monitor = obs.HealthMonitor(thresholds=health,
+                                        component="learning")
+        elif health is None and obs.enabled(obs.current_tracker()):
+            monitor = obs.HealthMonitor(component="learning")
+        else:
+            monitor = None
+        if monitor is not None:
+            # checked on the INITIAL params too, so a rank-deficient or
+            # ill-conditioned starting kernel is flagged even when the
+            # updates immediately move away from it
+            monitor.check_learning(
+                state.params, algorithm,
+                ll=host_read(state.ll) if ll_mode != "none" else None)
 
-    lls: List[float] = []
-    ll_sweeps: List[int] = []
-    if ll_mode != "none" and start_sweep == 0:
-        lls.append(float(state.ll))
-        ll_sweeps.append(0)
+        lls: List[float] = []
+        ll_sweeps: List[int] = []
+        if ll_mode != "none" and start_sweep == 0:
+            lls.append(host_read(state.ll))
+            ll_sweeps.append(0)
 
-    last_saved = start_sweep
+        last_saved = start_sweep
 
-    def checkpoint_cb(st: LearnerState):
-        nonlocal last_saved
-        sweep = int(st.sweep)
-        if manager is not None and save_every and \
-                sweep - last_saved >= save_every:
-            manager.save(sweep, st)
-            last_saved = sweep
+        def checkpoint_cb(st: LearnerState):
+            nonlocal last_saved
+            sweep = int(st.sweep)
+            if manager is not None and save_every and \
+                    sweep - last_saved >= save_every:
+                manager.save(sweep, st)
+                last_saved = sweep
 
     with obs.spans.start_span("learning.fit", algorithm=algorithm,
                               runtime=rt.kind, iters=iters):
@@ -268,10 +272,11 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
             callback=checkpoint_cb, health=monitor)
     lls.extend(run_lls)
     ll_sweeps.extend(run_sweeps)
+    sweeps = host_read(state.sweep, int)
 
     if manager is not None:
         if remaining:
-            manager.save(int(state.sweep), state)
+            manager.save(sweeps, state)
         manager.wait()
 
     total_t = sum(times)
@@ -281,12 +286,12 @@ def fit(model, batch: SubsetBatch, algorithm: str = "krk", iters: int = 10,
     if obs.enabled(tracker):
         tracker.event(
             "learning.fit", algorithm=algorithm, runtime=rt.kind,
-            sweeps=int(state.sweep), iters=iters,
+            sweeps=sweeps, iters=iters,
             sweeps_per_sec=sweeps_per_sec,
             log_likelihood=(lls[-1] if lls else None),
-            backtracks=int(state.sched.backtracks))
+            backtracks=host_read(state.sched.backtracks, int))
     return FitReport(
         model=_to_model(state.params, algorithm), state=state,
         log_likelihoods=lls, ll_sweeps=ll_sweeps, sweep_times=times,
-        sweeps=int(state.sweep), sweeps_per_sec=sweeps_per_sec,
+        sweeps=sweeps, sweeps_per_sec=sweeps_per_sec,
         health=health_report)

@@ -196,8 +196,9 @@ def krk_sweep(params, data, a_trial, schedule: schedules.Schedule, stats,
     armijo = schedule.kind == "armijo"
 
     A, C0 = stats.AC(L1, L2, data)
-    d1, P1 = torch.linalg.eigh(L1)
-    d2, P2 = torch.linalg.eigh(L2)
+    with obs.spans.start_span("learning.factor_eigh"):
+        d1, P1 = torch.linalg.eigh(L1)
+        d2, P2 = torch.linalg.eigh(L2)
     alpha, beta0 = _alpha_beta(d1, d2)
     G1 = L1 @ A @ L1 - (P1 * (d1 ** 2 * alpha)[None, :]) @ P1.T
 
@@ -215,7 +216,9 @@ def krk_sweep(params, data, a_trial, schedule: schedules.Schedule, stats,
 
     if fresh_theta:
         C = stats.C(L1n, L2, data)
-        _, beta = _alpha_beta(torch.linalg.eigvalsh(L1n), d2)
+        with obs.spans.start_span("learning.factor_eigh"):
+            d1n = torch.linalg.eigvalsh(L1n)
+        _, beta = _alpha_beta(d1n, d2)
     else:
         C, beta = C0, beta0
     G2 = L2 @ C @ L2 - (P2 * beta[None, :]) @ P2.T
@@ -233,8 +236,16 @@ def krk_sweep(params, data, a_trial, schedule: schedules.Schedule, stats,
 
 
 def _sync(x: torch.Tensor) -> None:
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
+    with obs.spans.start_span("learning.host_sync"):
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+
+
+def host_read(x: torch.Tensor, cast: Callable = float):
+    """``cast(x)`` of a tensor on the device: a blocking read, inside a
+    ``learning.host_sync`` span."""
+    with obs.spans.start_span("learning.host_sync"):
+        return cast(x)
 
 
 class LearningEngine:
@@ -290,9 +301,10 @@ class LearningEngine:
 
     # -- objective -----------------------------------------------------------
     def _ll_value(self, params, batch) -> torch.Tensor:
-        if self.algorithm == "em":
-            return log_likelihood_eig(params[0], params[1], batch)
-        return log_likelihood_factored(tuple(params), batch)
+        with obs.spans.start_span("learning.log_likelihood"):
+            if self.algorithm == "em":
+                return log_likelihood_eig(params[0], params[1], batch)
+            return log_likelihood_factored(tuple(params), batch)
 
     # -- one chunk -----------------------------------------------------------
     def _chunk(self, state: LearnerState, batch: SubsetBatch, chunk_len: int,
@@ -304,19 +316,21 @@ class LearningEngine:
         data = self.stats.place(batch) if data is None else data
         lls = []
         for _ in range(chunk_len):
-            key = state.key
-            k_sel = key
-            if not isinstance(key, torch.Generator):
-                key, k_sel = prng.split(key)
-            sub = (self.stats.select(k_sel, data, self.minibatch_size)
-                   if self.minibatch_size else data)
-            a_trial = schedules.trial_step(self.schedule, state.sched)
-            params, a_acc, n_bt = self._sweep(state.params, sub, a_trial)
-            sched = schedules.advance(self.schedule, state.sched, a_acc, n_bt)
-            ll = (self._ll_value(params, batch)
-                  if self.ll_mode == "sweep" else state.ll)
-            state = LearnerState(tuple(params), state.sweep + 1, key, sched,
-                                 ll)
+            with obs.spans.start_span("learning.sweep"):
+                key = state.key
+                k_sel = key
+                if not isinstance(key, torch.Generator):
+                    key, k_sel = prng.split(key)
+                sub = (self.stats.select(k_sel, data, self.minibatch_size)
+                       if self.minibatch_size else data)
+                a_trial = schedules.trial_step(self.schedule, state.sched)
+                params, a_acc, n_bt = self._sweep(state.params, sub, a_trial)
+                sched = schedules.advance(self.schedule, state.sched, a_acc,
+                                          n_bt)
+                ll = (self._ll_value(params, batch)
+                      if self.ll_mode == "sweep" else state.ll)
+                state = LearnerState(tuple(params), state.sweep + 1, key,
+                                     sched, ll)
             lls.append(ll)
         if self.ll_mode == "chunk":
             state = dataclasses.replace(
@@ -405,12 +419,12 @@ class LearningEngine:
         lls: List[float] = []
         ll_sweeps: List[int] = []
         times: List[float] = []
-        start = int(state.sweep)
+        start = host_read(state.sweep, int)
         done = 0
         tracker = obs.current_tracker()
         track = obs.enabled(tracker)
         need_bt = track or health is not None
-        prev_bt = int(state.sched.backtracks) if need_bt else 0
+        prev_bt = host_read(state.sched.backtracks, int) if need_bt else 0
         data = self.stats.place(batch)
         while done < iters:
             n = min(log_every, iters - done)
@@ -423,14 +437,15 @@ class LearningEngine:
             done += n
             chunk_track_lls: List[float] = []
             if self.ll_mode == "sweep":
-                chunk_track_lls = torch.stack(chunk_lls).cpu().tolist()
+                chunk_track_lls = host_read(torch.stack(chunk_lls),
+                                            torch.Tensor.tolist)
                 lls.extend(chunk_track_lls)
                 ll_sweeps.extend(range(start + done - n + 1, start + done + 1))
             elif self.ll_mode == "chunk":
-                chunk_track_lls = [float(state.ll)]
+                chunk_track_lls = [host_read(state.ll)]
                 lls.append(chunk_track_lls[0])
                 ll_sweeps.append(start + done)
-            bt_now = int(state.sched.backtracks) if need_bt else 0
+            bt_now = host_read(state.sched.backtracks, int) if need_bt else 0
             if track:
                 emit_sweep_metrics(
                     tracker, algorithm=self.algorithm,

@@ -29,6 +29,7 @@ from typing import Callable, Tuple
 
 import torch
 
+from .. import obs
 from .._device import DeviceLike, resolve_device
 
 # fp slack on the ascent test: accept steps that hold LL to within
@@ -133,7 +134,9 @@ def armijo_halfstep(sched: Schedule,
         ll = ll_fn(cand)
         ok = (lam_min > 0.0) & (ll >= ll_ref - _ASCENT_TOL) \
             & torch.isfinite(ll)
-        return cand, ll, bool(ok)
+        with obs.spans.start_span("learning.host_sync"):
+            ok = bool(ok)
+        return cand, ll, ok
 
     a = a_trial
     cand, ll, ok = evaluate(a)

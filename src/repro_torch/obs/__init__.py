@@ -18,6 +18,23 @@ with ``configure()`` or temporarily with ``use()``::
 A JSONL run log (``configure(jsonl="run_log.jsonl")``) exports to
 ``chrome://tracing`` with ``ChromeTraceExporter`` and summarizes with
 ``python -m repro_torch.obs.report run_log.jsonl [--trace out.json]``.
+
+On the card, no tracker is needed to see where a call's time goes: while
+``torch.profiler`` records, every span of the port (``spans.start_span``)
+is also a ``repro_torch.<name>`` region on the profiler's timeline, the
+clock of the device's kernels::
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        model.sample(key, 1024)
+    p.export_chrome_trace("trace.json")    # read the repro_torch.* regions
+
+The benchmark reads the same regions: ``python3 bench/run.py --workload
+<cell> --seed <n> --seconds <s> --trace 1`` prints the program spans'
+per-layer metrics and a breakdown of the device's idle time by what the
+host was in, and ``python3 tools/trace_spans.py --workload <cell> --seed
+<n>`` writes that idle time by benchmark span, program span and operation.
 """
 
 from . import export, health, spans

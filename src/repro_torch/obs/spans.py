@@ -11,11 +11,22 @@ operation with causal identity:
     reassembled into a tree or a Chrome/Perfetto trace-event file (the
     JAX package's exporters read the same record shape).
 
-Spans ride the existing ``Tracker`` seam: finishing a span emits ONE
-``event("span", ...)`` record, so every sink (JSONL run log, in-memory,
-tee) captures traces with zero new plumbing, and the ``NullTracker``
-default stays zero-overhead — ``start_span`` against a null sink returns
-one shared inert context manager and allocates nothing.
+A span has two sinks behind one gate. It is live when its tracker is
+enabled or ``torch.profiler`` is recording in this process:
+
+  * tracker enabled: finishing the span emits ONE ``event("span", ...)``
+    record under its own name, so every sink (JSONL run log, in-memory,
+    tee) captures traces with zero new plumbing;
+  * profiler recording: the span also opens the profiler's region
+    ``repro_torch.<name>`` (``_record_function``), so it lies on the
+    profiler's timeline, the clock of the device's kernels, with the aten
+    operations, CUDA runtime calls and kernels it makes nested under it;
+  * neither: ``start_span`` returns the shared inert ``NULL_SPAN`` after
+    one check and allocates nothing.
+
+Spans synthesized after the fact with ``emit_span`` reach the tracker
+only; ``profiler_region`` opens the profiler's half alone, for sites whose
+tracker side is a counter (the kernel wrappers' dispatches).
 
 Propagation is context-local (``contextvars``), so nested ``start_span``
 calls inside one thread parent automatically:
@@ -42,7 +53,28 @@ import os
 import time
 from typing import Optional, Tuple, Union
 
+import torch
+
 from .tracker import Tracker, current_tracker, enabled
+
+#: A span's name on the profiler's timeline is its own under this prefix.
+PROFILER_PREFIX = "repro_torch."
+
+#: True while ``torch.profiler`` (or the autograd profiler) records in this
+#: process: the profiler's half of the span gate, a fraction of a
+#: microsecond a call.
+profiling = torch._C._autograd._profiler_enabled
+
+
+def _record_function(name: str):
+    """The profiler's region of the span ``name``: a region of function
+    scope, as an operator's. ``torch.profiler.record_function`` opens one
+    of user scope, which the profiler also projects onto the device's row
+    as a ``gpu_user_annotation`` over the kernels it launched: a reader of
+    the device's row would count that shadow as device work. Kernels
+    launched straight under a function-scope region (the port's own, over
+    ``ctypes``) are linked to it, so its device time reads off the trace."""
+    return torch._C._profiler._RecordFunctionFast(PROFILER_PREFIX + name)
 
 # ids are "<process prefix>-<counter>": unique within a process, and the
 # prefix keeps ids from colliding when several processes append to one
@@ -78,13 +110,16 @@ class Span:
     """One timed operation. Use as a context manager (``start_span``):
     entering records the start (wall + monotonic) and installs the span
     as the context-local parent; exiting restores the previous parent
-    and emits the ``event("span", ...)`` record through the tracker."""
+    and emits the ``event("span", ...)`` record through the tracker.
+    Opened while the profiler records, it also spans a profiler region
+    of the same extent."""
 
     __slots__ = ("tracker", "name", "trace_id", "span_id", "parent_id",
-                 "tags", "ts", "_t0", "_token")
+                 "tags", "ts", "_t0", "_token", "_region")
 
     def __init__(self, tracker: Tracker, name: str, trace_id: str,
-                 parent_id: Optional[str], tags: dict):
+                 parent_id: Optional[str], tags: dict,
+                 profiled: bool = False):
         self.tracker = tracker
         self.name = name
         self.trace_id = trace_id
@@ -93,8 +128,11 @@ class Span:
         self.tags = tags
         self.ts = None          # wall-clock start (unix s), set on enter
         self._t0 = None         # monotonic start, set on enter
+        self._region = _record_function(name) if profiled else None
 
     def __enter__(self) -> "Span":
+        if self._region is not None:
+            self._region.__enter__()
         self.ts = time.time()
         self._t0 = time.perf_counter()
         self._token = _CURRENT.set(self)
@@ -106,6 +144,8 @@ class Span:
         emit_span(self.tracker, self.name, trace_id=self.trace_id,
                   span_id=self.span_id, parent_id=self.parent_id,
                   ts=self.ts, dur_s=dur, **self.tags)
+        if self._region is not None:
+            self._region.__exit__(*exc)
         return False
 
     def __repr__(self) -> str:
@@ -133,7 +173,35 @@ class _NullSpan:
 
 NULL_SPAN = _NullSpan()
 
+
+class _ProfiledSpan(_NullSpan):
+    """A span that only the profiler sees (no tracker listens): its
+    profiler region, and None ids as ``NULL_SPAN`` has."""
+
+    __slots__ = ("name", "_region")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._region = _record_function(name)
+
+    def __enter__(self) -> "_ProfiledSpan":
+        self._region.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._region.__exit__(*exc)
+        return False
+
 ParentLike = Union["Span", Tuple[str, Optional[str]], None]
+
+
+def profiler_region(name: str) -> _NullSpan:
+    """A span that only the profiler sees: the ``repro_torch.<name>``
+    region while the profiler records, else ``NULL_SPAN`` after one check.
+    For sites whose tracker side is a counter, such as the kernel
+    wrappers' dispatches: no span record, and no trace of its own, per
+    call."""
+    return _ProfiledSpan(name) if profiling() else NULL_SPAN
 
 
 def start_span(name: str, tracker: Optional[Tracker] = None,
@@ -143,7 +211,8 @@ def start_span(name: str, tracker: Optional[Tracker] = None,
 
     tracker: emission sink (default: the process-wide tracker). A
         ``NullTracker`` sink short-circuits to the shared ``NULL_SPAN``
-        — no allocation, no contextvar writes.
+        — no allocation, no contextvar writes — unless the profiler
+        records, when the span is the profiler's region alone.
     parent: explicit lineage — a ``Span`` (e.g. one captured with
         ``current_span()`` before a thread hop) or a
         ``(trace_id, span_id)`` pair (the ``SampleTicket`` spelling).
@@ -154,7 +223,7 @@ def start_span(name: str, tracker: Optional[Tracker] = None,
     """
     tracker = tracker if tracker is not None else current_tracker()
     if not enabled(tracker):
-        return NULL_SPAN
+        return profiler_region(name)
     parent_span_id: Optional[str] = None
     if parent is not None:
         if isinstance(parent, tuple):
@@ -169,7 +238,7 @@ def start_span(name: str, tracker: Optional[Tracker] = None,
             trace_id, parent_span_id = cur.trace_id, cur.span_id
     if trace_id is None:
         trace_id = new_trace_id()
-    return Span(tracker, name, trace_id, parent_span_id, tags)
+    return Span(tracker, name, trace_id, parent_span_id, tags, profiling())
 
 
 def emit_span(tracker: Tracker, name: str, *, trace_id: str,

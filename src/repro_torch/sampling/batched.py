@@ -39,6 +39,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import obs
 from .. import random as prng
 from ..core.kron import split_indices_multi
 from ..kernels import ops as kernel_ops
@@ -149,12 +150,13 @@ def _phase1_from_uniforms(u: torch.Tensor, us: torch.Tensor,
     u (B, N) picks the eigen-indices (u < sigmoid(log λ)); us (B, k_max)
     passes through to phase 2. Returns (us, Gs, k_eff (B,) int32,
     truncated (B,) bool)."""
-    sizes = tuple(int(lam.shape[0]) for lam in lams)
-    ll = log_product_spectrum(tuple(lams))
-    mask = u < torch.sigmoid(ll)[None, :]
-    sel, valid, truncated = compact_selection(mask, k_max)
-    k_eff = torch.clamp_max(mask.sum(dim=-1), k_max).to(torch.int32)
-    Gs = gather_factor_columns(vecs, sizes, sel, valid)
+    with obs.spans.start_span("sampling.phase1"):
+        sizes = tuple(int(lam.shape[0]) for lam in lams)
+        ll = log_product_spectrum(tuple(lams))
+        mask = u < torch.sigmoid(ll)[None, :]
+        sel, valid, truncated = compact_selection(mask, k_max)
+        k_eff = torch.clamp_max(mask.sum(dim=-1), k_max).to(torch.int32)
+        Gs = gather_factor_columns(vecs, sizes, sel, valid)
     return us, Gs, k_eff, truncated
 
 
@@ -183,7 +185,8 @@ def keyed_uniforms(row_keys: torch.Tensor, n: int, k: int
     u = uniform(k1, (n,)), us = uniform(k2, (k,)); row_keys (B, 2) ->
     u (B, n), us (B, k) float32 on the keys' device, from one
     ``threefry2x32`` launch (``random.split_uniform``)."""
-    return prng.split_uniform(row_keys, n, k)
+    with obs.spans.start_span("sampling.uniforms"):
+        return prng.split_uniform(row_keys, n, k)
 
 
 def is_mesh_runtime(runtime) -> bool:
@@ -276,7 +279,8 @@ def sample_krondpp_batched(key, spectrum: FactorSpectrum,
         k_max = spectrum.suggested_k_max()
     dev = spectrum.device
     if not isinstance(key, torch.Generator):
-        keys = prng.split(prng.as_key(key, dev), int(num_samples))
+        with obs.spans.start_span("sampling.keys"):
+            keys = prng.split(prng.as_key(key, dev), int(num_samples))
         return sample_krondpp_keyed(keys, spectrum, int(k_max),
                                     backend=backend, runtime=runtime)
     rows_hook = getattr(spectrum, "sample_rows", None)
@@ -284,10 +288,11 @@ def sample_krondpp_batched(key, spectrum: FactorSpectrum,
         return rows_hook(key, int(k_max), backend=backend,
                          num_samples=int(num_samples), runtime=runtime)
     refuse_generator_on_mesh(runtime)
-    u = torch.rand((num_samples, spectrum.N), generator=key,
-                   dtype=torch.float32, device=dev)
-    us = torch.rand((num_samples, int(k_max)), generator=key,
-                    dtype=torch.float32, device=dev)
+    with obs.spans.start_span("sampling.uniforms"):
+        u = torch.rand((num_samples, spectrum.N), generator=key,
+                       dtype=torch.float32, device=dev)
+        us = torch.rand((num_samples, int(k_max)), generator=key,
+                        dtype=torch.float32, device=dev)
     return sample_krondpp_from_uniforms(u, us, spectrum, int(k_max),
                                         backend=backend)
 

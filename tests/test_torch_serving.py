@@ -657,14 +657,22 @@ def test_async_span_tree_matches_the_sync_path(tmp_path):
              if is_span_record(r)]
     sync_tree = _span_tree(spans, sync_ticket.trace_id)
     async_tree = _span_tree(spans, async_ticket.trace_id)
-    want = {"service.request": None, "queue-wait": "service.request",
-            "coalesce": "service.request", "device-call": "service.request",
-            "scatter": "service.request"}
-    assert sync_tree == want
-    assert async_tree == want           # parity: same ops, same parents
-    # async spans are tenant-tagged, every one of them
+    service = {"service.request": None, "queue-wait": "service.request",
+               "coalesce": "service.request",
+               "device-call": "service.request",
+               "scatter": "service.request"}
+    # the sampler's own spans nest under the device call
+    sampler = {"sampling.uniforms": "device-call",
+               "sampling.phase1": "device-call"}
+    # parity: same ops, same parents, but for the rows' keys: the sync
+    # flush splits its key into them (sampling.keys), the async flush
+    # takes them from its keyring
+    assert sync_tree == dict(service, **sampler,
+                             **{"sampling.keys": "device-call"})
+    assert async_tree == dict(service, **sampler)
+    # the service's async spans are tenant-tagged, every one of them
     assert {s["op"] for s in spans if s["trace"] == async_ticket.trace_id
-            and s.get("tenant") == "a"} == set(want)
+            and s.get("tenant") == "a"} == set(service)
 
     # and the run log exports to a well-formed Chrome trace
     out = tmp_path / "trace.json"
