@@ -51,21 +51,31 @@ non-zero and prints no result line.
 9. at the init, on the full batch, the A and C of the dense route through
    the kernels, of the dense route through the plain versions
    (``backend="reference"``) and of the per-subset route
-   (``accumulate_AC``) agree; the dense Θ built twice from the same batch
-   and factors, compared bitwise (entries that differ, max |Δ|);
+   (``accumulate_AC``) agree; the Θ-scatter kernel
+   (``csrc/theta_scatter.cu``) at the benchmark's shape (the n = 1000
+   subsets padded to k_max 46) against its plain version on the card
+   (entries that differ, max |Δ| within ``TS_TOL``) and, bit for bit, in
+   one CPU thread, also with repeated items; an all-padded batch gives
+   zeros; the dense Θ built twice from the same batch and factors,
+   bitwise (entries that differ: 0), one launch and one
+   ``kernels.theta_scatter.cuda`` count a build;
 10. the learning main path: ``model.fit(batch, algorithm="krk",
    use_dense_theta=True, schedule=armijo(a0=1.5), iters=5, log_every=5)``
    under an ``InMemoryTracker`` (so the health check reads CUDA factors).
    The partial-trace launch counts and the ``kernels.partial_trace_*.cuda``
    counters are reset just before and read just after: 5 sweeps make 5 A
    and 10 C launches (A once per sweep; C once per Θ build, twice with the
-   block-CCCP refresh). The tracked LL never falls by more than
+   block-CCCP refresh), and as many ``theta_scatter`` launches as C's,
+   none of its plain version. The tracked LL never falls by more than
    ``_ASCENT_TOL``, ends above the init's, both factors stay PD, and
    ``FitReport.health`` is present. The same 5 sweeps with the plain
    partial traces give the same accepted step and backtrack count and
    factors within tolerance;
 11. times of each partial trace (``kernel_times`` of the kernel, the plain
-   version and the ``torch.einsum`` library call; the bound); with CUDA
+   version and the ``torch.einsum`` library call; the bound); of the
+   Θ scatter at the benchmark's shape and with no padding (1000 subsets of
+   20 items), beside the plain version, the ``index_put_`` call it
+   replaced and the bound (Θ written once); with CUDA
    events around a loop, the Θ build and its
    steps, a factor eigh and one log-likelihood, and one sweep on the host
    clock (both fits run after a 1-sweep warm-up fit);
@@ -1094,6 +1104,111 @@ def check_partial_traces(gen, dev) -> dict:
         if main is None:
             main = (t4, L1, L2)
     return {"err": err, "main": main}
+
+
+#: |kernel - plain version on the card| <= TS_TOL · (the same sum over
+#: |inv|) elementwise: the card's ``index_put_`` sums a run of 32 or more
+#: equal keys as a warp tree, the kernel in subset order (float32, runs of
+#: up to ~80 real terms at the GENES shape: under 5e-6 of the sum).
+TS_TOL = 1e-5
+
+
+def ts_bound(N: int, n: int, k: int, live: int):
+    """Least time (ms) of one Θ scatter and what bounds it: bytes. Θ
+    written once (4 N²), the slots' keys (4 n k) and the ``live`` real
+    inverse entries (Σ|Y|², 4 bytes each) read once; one add a term."""
+    t_ops = live / FP32_FLOPS
+    t_bytes = 4.0 * (N * N + n * k + live) / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def ts_serial_plain(N: int, idx, mask, inv):
+    """``theta_scatter_plain`` on a CPU copy in one thread, where
+    ``index_put_`` adds in (s, a, b) order at any size: the kernel's
+    order."""
+    from repro_torch.kernels.theta_scatter import theta_scatter_plain
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return theta_scatter_plain(N, idx.cpu(), mask.cpu(), inv.cpu())
+    finally:
+        torch.set_num_threads(threads)
+
+
+def ts_inputs(L1, L2, idx, mask):
+    """The subsets' inverses at the factors L1, L2, as the Θ build makes
+    them, made contiguous as ``ops.theta_scatter`` does: (idx, mask,
+    inv)."""
+    from repro_torch.core.dpp import (SubsetBatch, identity_padded,
+                                      masked_inv_and_logdet)
+    from repro_torch.core.krk_picard import _subset_blocks
+    _, _, B1, B2 = _subset_blocks(L1, L2, SubsetBatch(idx, mask))
+    inv, _ = masked_inv_and_logdet(identity_padded(B1 * B2, mask))
+    return idx, mask, inv.contiguous()
+
+
+def check_theta_scatter(L1, L2, rows, k_max: int, dev) -> dict:
+    """Phase 9: the Θ-scatter kernel against its plain version at the
+    benchmark's shape (the fit's n subsets padded to the service's k_max,
+    inverses at L1, L2): entries that differ from the plain version on the
+    card and max |Δ| against ``TS_TOL``, bitwise against the plain version
+    on a CPU copy in one thread; the same with each subset's second slot
+    repeating its first item (no DPP sample); an all-padded batch gives
+    zeros; one launch a call. Returns the report and the inputs."""
+    from repro_torch.core.dpp import SubsetBatch
+    from repro_torch.kernels import theta_scatter as ts
+    N = L1.shape[0] * L2.shape[0]
+    b = SubsetBatch.from_lists(rows, k_max=k_max, device=dev)
+    args = ts_inputs(L1, L2, b.indices, b.mask)
+    before = ts.theta_scatter_cuda.launches
+    got = ts.theta_scatter_cuda(N, *args)
+    launches = ts.theta_scatter_cuda.launches - before
+    plain = ts.theta_scatter_plain(N, *args)
+    scale = ts.theta_scatter_plain(N, b.indices, b.mask, args[2].abs())
+    torch.cuda.synchronize()
+    diff = (got - plain).abs()
+    sizes = b.sizes()
+    out = {"shape": {"N": N, "n": b.n, "k_max": k_max,
+                     "mean_size": float(sizes.float().mean()),
+                     "padded_share": 1.0 - float(sizes.sum()) / b.mask.numel()},
+           "launches": launches,
+           "entries_differing": int((got.view(torch.int32)
+                                     != plain.view(torch.int32)).sum()),
+           "max_abs_diff": float(diff.max()),
+           "max_abs": float(plain.abs().max()), "tol": TS_TOL,
+           "beyond_tol": int((diff > TS_TOL * scale).sum()),
+           "bitwise_plain_on_card": same_bits(got, plain),
+           "bitwise_plain_cpu_serial": same_bits(
+               got.cpu(), ts_serial_plain(N, *args))}
+    del plain, scale, diff, got
+    second = torch.arange(k_max, device=dev) == 1
+    rep = torch.where(second & b.mask, b.indices[:, :1], b.indices)
+    out["repeats_bitwise_plain_cpu_serial"] = same_bits(
+        ts.theta_scatter_cuda(N, rep, b.mask, args[2]).cpu(),
+        ts_serial_plain(N, rep, b.mask, args[2]))
+    out["all_padded_nonzero"] = int(ts.theta_scatter_cuda(
+        N, b.indices, torch.zeros_like(b.mask), args[2]).count_nonzero())
+    print(f"theta_scatter kernel vs plain: {json.dumps(out)}")
+    check(launches == 1, f"theta_scatter launched {launches} times, not 1")
+    check(out["beyond_tol"] == 0, f"theta_scatter: {out['beyond_tol']} "
+          f"entries beyond {TS_TOL} of the plain version on the card")
+    check(out["bitwise_plain_cpu_serial"]
+          and out["repeats_bitwise_plain_cpu_serial"],
+          "theta_scatter differs from the plain version in one CPU thread")
+    check(out["all_padded_nonzero"] == 0,
+          "theta_scatter of an all-padded batch is not zero")
+    return {"report": out, "args": args}
+
+
+def ts_library(N: int, idx, mask, inv):
+    """The ``index_put_`` library call the kernel replaced: every slot
+    pair, padded ones as zeros, into a zero N x N buffer."""
+    ii = idx.long()
+    vals = inv * (mask[:, :, None] & mask[:, None, :])
+    return torch.zeros((N, N), dtype=inv.dtype, device=inv.device
+                       ).index_put_((ii[:, :, None], ii[:, None, :]), vals,
+                                    accumulate=True)
 
 
 def max_rel(got, want) -> float:
@@ -6418,7 +6533,7 @@ def main() -> None:
     # -- 2. build: one nvcc per source, started together --------------------
     t0 = time.perf_counter()
     sources = ("phase2_select", "partial_trace", "greedy_map", "kron_matvec",
-               "threefry")
+               "threefry", "theta_scatter")
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
@@ -6666,16 +6781,29 @@ def main() -> None:
           f"|Y| {float(batch.sizes().float().mean())!r}")
 
     # -- 9. the routes agree at the init -------------------------------------
-    theta = theta_matrix_kron(L1, L2, batch)
-    # the dense Θ of the same batch and factors once more: bitwise equal
-    # unless the scatter sums in another order
-    theta_again = theta_matrix_kron(L1, L2, batch)
+    from repro_torch.kernels import theta_scatter as ts
+    ts_check = check_theta_scatter(L1, L2, fit_rows, k_max, dev)
+    ts_tracker = obs.InMemoryTracker()
+    ts_before = ts.theta_scatter_cuda.launches
+    with obs.use(ts_tracker):
+        theta = theta_matrix_kron(L1, L2, batch)
+        # the dense Θ of the same batch and factors once more: bitwise
+        # equal unless the scatter sums in another order
+        theta_again = theta_matrix_kron(L1, L2, batch)
     theta_repeat = {
         "entries_differing": int((theta != theta_again).sum()),
         "max_abs_diff": float((theta - theta_again).abs().max()),
-        "max_abs": float(theta.abs().max()), "entries": theta.numel()}
+        "max_abs": float(theta.abs().max()), "entries": theta.numel(),
+        "launches": ts.theta_scatter_cuda.launches - ts_before,
+        "counted": int(ts_tracker.counter_value(
+            "kernels.theta_scatter.cuda"))}
     del theta_again
     print(f"dense Θ built twice, bitwise: {json.dumps(theta_repeat)}")
+    check(theta_repeat["entries_differing"] == 0, "two builds of the same "
+          "dense Θ differ")
+    check(theta_repeat["launches"] == theta_repeat["counted"] == 2,
+          f"two Θ builds launched theta_scatter {theta_repeat['launches']} "
+          f"times, counted {theta_repeat['counted']}, not 2")
     A_k, C_k = AC_from_dense_theta(theta, L1, L2)
     A_r, C_r = AC_from_dense_theta(theta, L1, L2, backend="reference")
     A_s, C_s = accumulate_AC(L1, L2, batch)
@@ -6704,11 +6832,21 @@ def main() -> None:
     fit_tracker = obs.InMemoryTracker()
     pt.partial_trace_A_cuda.launches = 0
     pt.partial_trace_C_cuda.launches = 0
+    ts.theta_scatter_cuda.launches = 0
     with obs.use(fit_tracker):
         rep = init.fit(batch, **fit_kw)
         torch.cuda.synchronize()
     fit_launches = {"A": pt.partial_trace_A_cuda.launches,
                     "C": pt.partial_trace_C_cuda.launches}
+    ts_fit = {"launches": ts.theta_scatter_cuda.launches,
+              "counted": int(fit_tracker.counter_value(
+                  "kernels.theta_scatter.cuda")),
+              "reference": int(fit_tracker.counter_value(
+                  "kernels.theta_scatter.reference"))}
+    print(f"fit: theta_scatter {json.dumps(ts_fit)}")
+    check(ts_fit["launches"] == ts_fit["counted"] == fit_launches["C"]
+          and not ts_fit["reference"], f"the fit's {fit_launches['C']} Θ "
+          f"builds (one C each) launched theta_scatter {ts_fit}")
     fit_counts = {k: int(fit_tracker.counter_value(
         f"kernels.partial_trace_{k}.cuda")) for k in ("A", "C")}
     lls = rep.log_likelihoods
@@ -6768,6 +6906,28 @@ def main() -> None:
             expect=f"partial_trace_{k}_", bound_ms=b_ms, bound_by=b_by)
         print(f"  partial_trace_{k} {PT_SHAPES[0]}: "
               f"{json.dumps(pt_times[k])}")
+    # the Θ scatter at the benchmark's shape and with no padding (n subsets
+    # of 20 distinct items, k = 20), the kernel beside its bound, the plain
+    # version and the index_put_ call
+    N_ts = L1.shape[0] * L2.shape[0]
+    pick = torch.rand((batch.n, N_ts), generator=gen, device=dev)
+    full = pick.argsort(dim=1)[:, :20].to(torch.int32)
+    del pick
+    ts_times = {}
+    for label, args in (
+            ("padded", ts_check["args"]),
+            ("no_padding", ts_inputs(L1, L2, full, torch.ones_like(
+                full, dtype=torch.bool)))):
+        n_, k_ = (int(x) for x in args[0].shape)
+        live = int((args[1].sum(-1) ** 2).sum())
+        b_ms, b_by = ts_bound(N_ts, n_, k_, live)
+        ts_times[label] = kernel_times(
+            partial(ts.theta_scatter_cuda, N_ts, *args),
+            partial(ts.theta_scatter_plain, N_ts, *args),
+            partial(ts_library, N_ts, *args), reps=20, plain_reps=2,
+            expect="theta_scatter_kernel", bound_ms=b_ms, bound_by=b_by,
+            shapes={"N": N_ts, "n": n_, "k": k_, "live_terms": live})
+        print(f"  theta_scatter {label}: {json.dumps(ts_times[label])}")
     theta_ms = cuda_ms(lambda: theta_matrix_kron(L1, L2, batch), reps=5,
                        warmup=1)
     # where a sweep's time goes: the Θ build's steps, a factor eigh, and
@@ -6795,7 +6955,8 @@ def main() -> None:
         "fit_n": batch.n, "fit_k_max": batch.k_max,
         "backtracks": int(rep.state.sched.backtracks),
         "pt_shape": PT_SHAPES[0], "partial_trace_A": pt_times["A"],
-        "partial_trace_C": pt_times["C"], "theta_repeat": theta_repeat}
+        "partial_trace_C": pt_times["C"], "theta_repeat": theta_repeat,
+        "theta_scatter": ts_times}
 
     # -- 12. greedy-MAP and Kronecker-matvec kernels vs plain ----------------
     from repro_torch.kernels import greedy_map as gm
@@ -7121,6 +7282,16 @@ def main() -> None:
                 "shapes": {"N1": PT_SHAPES[0][0], "N2": PT_SHAPES[0][1]},
                 "card": card, "power_limit": power_limit}
                for k, line in (("A", 51), ("C", 72))]
+    ts_row = {"name": "theta_scatter", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/theta_scatter.cu",
+              "replaces": "no Pallas kernel: the JAX package's mean of n "
+                          "dense N x N, src/repro/core/krk_picard.py:157",
+              "launches": ts_fit["launches"],
+              "launches_per_build": theta_repeat["launches"] / 2,
+              "max_abs_err": ts_check["report"]["max_abs_diff"],
+              "check": ts_check["report"], **ts_times["padded"],
+              "no_padding": ts_times["no_padding"],
+              "card": card, "power_limit": power_limit}
     # the step kernel: its own entry point, ops.greedy_map_update, makes
     # its launch; no selection path launches it any more
     gm_row = {"name": "greedy_map_update", "route": "cuda",
@@ -7332,8 +7503,8 @@ def main() -> None:
                                    if k != "launches"},
                       "card": card, "power_limit": power_limit,
                       "nvidia_smi": smi}))
-    print(json.dumps({"kernels": [row, *pt_rows, gm_row, kdpp_row, km_row,
-                                  tf_row]}))
+    print(json.dumps({"kernels": [row, *pt_rows, ts_row, gm_row, kdpp_row,
+                                  km_row, tf_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,
                                  "svc_sample16_median_ms":
                                      float(np.median(req)),

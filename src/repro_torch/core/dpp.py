@@ -21,6 +21,7 @@ import torch
 
 from .. import obs
 from .._device import DeviceLike, resolve_device
+from ..kernels import ops as kernel_ops
 
 
 @dataclasses.dataclass
@@ -135,24 +136,19 @@ def log_likelihood(L: torch.Tensor, batch: SubsetBatch) -> torch.Tensor:
 
 def scatter_theta(N: int, idx: torch.Tensor, mask: torch.Tensor,
                   inv: torch.Tensor) -> torch.Tensor:
-    """(1/n) Σ_i U_i inv_i U_i^T: the (n, k, k) masked inverses scattered
-    into ONE N x N buffer (``index_put_`` with ``accumulate=True``) and
-    divided by n.
+    """(1/n) Σ_i U_i inv_i U_i^T: the (n, k, k) masked inverses summed
+    into ONE N x N buffer (``kernels.ops.theta_scatter``: the
+    ``theta_scatter`` kernel on a card, which skips padded slots, the
+    accumulating ``index_put_`` on the CPU).
 
     The JAX package builds one dense N x N per subset and takes the mean,
     which needs n·N² floats (400 GB at N = 10^4, n = 1000); this is the
-    same sum in N² floats. On an H100 two builds of the same Θ (N = 10^4,
-    n = 1000) were bitwise equal: the accumulation did not sum in a varying
-    order there (``chip_smoke.py`` phase 9 checks it on every run).
+    same sum in N² floats. The kernel adds each entry's terms in subset
+    order, without atomics: two builds of the same Θ are equal bit for bit
+    (``chip_smoke.py`` phase 9 checks it on every run).
     """
     with obs.spans.start_span("learning.theta_scatter"):
-        n = idx.shape[0]
-        idx = idx.long()
-        vals = inv * (mask[:, :, None] & mask[:, None, :])
-        theta = torch.zeros((N, N), dtype=inv.dtype, device=inv.device)
-        theta.index_put_((idx[:, :, None], idx[:, None, :]), vals,
-                         accumulate=True)
-        return theta / n
+        return kernel_ops.theta_scatter(N, idx, mask, inv)
 
 
 def theta_matrix(L: torch.Tensor, batch: SubsetBatch) -> torch.Tensor:

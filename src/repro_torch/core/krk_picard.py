@@ -103,6 +103,22 @@ def AC_from_dense_theta(theta: torch.Tensor, L1: torch.Tensor,
 # Closed-form (I+L)^{-1} contractions via factor eigendecompositions
 # ---------------------------------------------------------------------------
 
+def factor_eigh(L: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d, P) of a factor: ``eigh`` computed in float64, returned in L's
+    dtype.
+
+    A float32 ``eigh`` mixes the eigenvectors of near-equal eigenvalues,
+    and the update's term P diag(d² α) Pᵀ carries that error whatever the
+    step. Where the ascent has slowed it dominates a sweep's change: on an
+    H100, GENES 100 x 100 with n = 1000, after ~2000 sweeps the kernel's
+    change over 10 sweeps differed from float64 sweeps' by 31–42 % of its
+    norm with a float32 ``eigh`` and by 4–5 % with this one. The
+    eigenvalues alone (``eigvalsh``) are accurate in float32.
+    """
+    d, P = torch.linalg.eigh(L.double())
+    return d.to(L.dtype), P.to(L.dtype)
+
+
 def _alpha_beta(d1: torch.Tensor, d2: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     denom = 1.0 + torch.outer(d1, d2)            # (N1, N2)
@@ -155,8 +171,8 @@ def krk_picard_step(L1: torch.Tensor, L2: torch.Tensor, batch: SubsetBatch,
 
     # ---- update L1 (holding L2) ----
     A, C0 = compute_AC(L1, L2, batch, use_dense_theta, backend)
-    d1, P1 = torch.linalg.eigh(L1)
-    d2, P2 = torch.linalg.eigh(L2)
+    d1, P1 = factor_eigh(L1)
+    d2, P2 = factor_eigh(L2)
     alpha, beta0 = _alpha_beta(d1, d2)
     L1BL1 = (P1 * (d1 ** 2 * alpha)[None, :]) @ P1.T
     L1_new = L1 + (a / N2) * (L1 @ A @ L1 - L1BL1)
@@ -181,10 +197,11 @@ def theta_matrix_kron(L1: torch.Tensor, L2: torch.Tensor,
 
     The JAX package builds one dense N x N per subset and takes their
     mean: n·N² floats, 400 GB at N = 10^4 and n = 1000. Here every
-    subset's masked inverse is scatter-added into one N x N buffer, which
-    is divided by n (``core.dpp.scatter_theta``): the same sum in N²
-    floats, 400 MB at N = 10^4. On an H100 the same batch and factors gave
-    the same Θ bit for bit in two builds (``chip_smoke.py`` phase 9).
+    subset's masked inverse is summed into one N x N buffer and divided by
+    n (``core.dpp.scatter_theta``: the ``theta_scatter`` kernel on a card):
+    the same sum in N² floats, 400 MB at N = 10^4. The same batch and
+    factors give the same Θ bit for bit in two builds (``chip_smoke.py``
+    phase 9).
     """
     with obs.spans.start_span("learning.theta_build"):
         _, _, L1rr, L2uu = _subset_blocks(L1, L2, batch)

@@ -3,6 +3,8 @@ plain PyTorch versions, and the ``ops`` dispatch seam.
 
 phase2_select.py   fused phase-2 projection-DPP selection (sampling)
 partial_trace.py   Appendix-B contractions A and C of the dense Θ (KrK)
+theta_scatter.py   the dense Θ of a subset batch, padded slots skipped
+                   (no Pallas counterpart)
 greedy_map.py      fast greedy k-DPP MAP: one update step, and the whole
                    selection of a batch of matrices in one launch
                    (``map``, "map" KV compaction)

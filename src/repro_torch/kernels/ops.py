@@ -25,6 +25,7 @@ from .partial_trace import (partial_trace_A_cuda, partial_trace_A_plain,
                             partial_trace_C_cuda, partial_trace_C_plain)
 from .phase2_select import (canonical_pair, phase2_select_cuda,
                             phase2_select_plain)
+from .theta_scatter import theta_scatter_cuda, theta_scatter_plain
 from .threefry import threefry2x32_cuda, threefry2x32_plain
 
 
@@ -174,6 +175,25 @@ def partial_trace_C(theta: torch.Tensor, L1: torch.Tensor, N1: int, N2: int,
         if backend == "reference":
             return partial_trace_C_plain(theta4, L1)
         return partial_trace_C_cuda(theta4.contiguous(), L1.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# dense Θ (the dense-Θ route, full and joint Picard)
+# ---------------------------------------------------------------------------
+
+def theta_scatter(N: int, idx: torch.Tensor, mask: torch.Tensor,
+                  inv: torch.Tensor,
+                  backend: Optional[str] = None) -> torch.Tensor:
+    """The dense Θ = (1/n) Σ_s U_s (mask_s ⊙ inv_s) U_sᵀ (N x N) of
+    idx (n, k), mask (n, k) and the inverses inv (n, k, k): on a CUDA
+    tensor one launch of ``theta_scatter_cuda``, which never touches a
+    padded slot; on a CPU tensor the accumulating ``index_put_`` of
+    ``theta_scatter_plain``. ``backend`` as for ``phase2_select``."""
+    backend = _resolve_backend("theta_scatter", inv, "inv", backend)
+    with _dispatch_span("theta_scatter", backend):
+        if backend == "reference":
+            return theta_scatter_plain(N, idx, mask, inv)
+        return theta_scatter_cuda(N, idx, mask, inv.contiguous())
 
 
 # ---------------------------------------------------------------------------

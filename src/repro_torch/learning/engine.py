@@ -47,7 +47,8 @@ from .._device import DeviceLike, resolve_device
 from ..core.dpp import SubsetBatch
 from ..core.em import e_step, eigvec_ascent, m_step_eigvals
 from ..core.joint_picard import joint_picard_step
-from ..core.krk_picard import _alpha_beta, compute_AC, compute_C
+from ..core.krk_picard import (_alpha_beta, compute_AC, compute_C,
+                               factor_eigh)
 from . import schedules
 from .objective import log_likelihood_eig, log_likelihood_factored
 
@@ -197,8 +198,8 @@ def krk_sweep(params, data, a_trial, schedule: schedules.Schedule, stats,
 
     A, C0 = stats.AC(L1, L2, data)
     with obs.spans.start_span("learning.factor_eigh"):
-        d1, P1 = torch.linalg.eigh(L1)
-        d2, P2 = torch.linalg.eigh(L2)
+        d1, P1 = factor_eigh(L1)
+        d2, P2 = factor_eigh(L2)
     alpha, beta0 = _alpha_beta(d1, d2)
     G1 = L1 @ A @ L1 - (P1 * (d1 ** 2 * alpha)[None, :]) @ P1.T
 

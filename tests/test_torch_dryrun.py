@@ -277,7 +277,7 @@ def test_planner_refuses_a_running_group_and_removes_its_own(tmp_path):
 
 def _wrappers():
     from repro_torch.kernels import (greedy_map, kron_matvec, partial_trace,
-                                     phase2_select, threefry)
+                                     phase2_select, theta_scatter, threefry)
     f32 = torch.float32
     return {
         "phase2_select": lambda m: phase2_select.phase2_select_cuda(
@@ -296,6 +296,9 @@ def _wrappers():
             m((2, 2), f32), m((3, 3), f32), m((1, 6), f32)),
         "threefry2x32": lambda m: threefry.threefry2x32_cuda(
             m((4, 2), torch.int64), 8, "uniform"),
+        "theta_scatter": lambda m: theta_scatter.theta_scatter_cuda(
+            6, m((2, 3), torch.int32), m((2, 3), torch.bool),
+            m((2, 3, 3), f32)),
     }
 
 

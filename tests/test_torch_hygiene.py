@@ -227,7 +227,7 @@ def test_kernel_build_is_deferred_to_first_launch():
     assert _build.source_path("phase2_select").is_file()
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == \
         ["greedy_map", "kron_matvec", "partial_trace", "phase2_select",
-         "threefry"]
+         "theta_scatter", "threefry"]
     assert _build.library_path("phase2_select").parent == _build.BUILD_DIR
 
 

@@ -51,7 +51,7 @@ from repro_torch.convert import factors_to_numpy, subset_batch_from_numpy
 from repro_torch.core import KronDPP, log_likelihood
 from repro_torch.core.dpp import masked_inv_and_logdet, theta_matrix
 from repro_torch.core.krk_picard import (AC_from_dense_theta, accumulate_AC,
-                                         krk_picard_step,
+                                         factor_eigh, krk_picard_step,
                                          krk_picard_stochastic_step,
                                          theta_matrix_kron)
 from repro_torch.kernels.partial_trace import (partial_trace_A_cuda,
@@ -155,6 +155,19 @@ def test_krk_picard_step_matches_jax(data, init, jdata, jinit, dense, fresh):
                                use_dense_theta=dense, fresh_theta=fresh)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, np_(w), **STEP_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_factor_eigh_is_a_float64_eigh_in_the_factors_dtype(dtype):
+    """The sweeps' factor spectra come from a float64 ``eigh``, returned
+    in the factor's dtype (a float32 ``eigh`` mixes the eigenvectors of
+    near-equal eigenvalues)."""
+    X = np.random.default_rng(11).standard_normal((12, 12))
+    L = torch.from_numpy(X.T @ X).to(dtype)
+    d, P = factor_eigh(L)
+    d64, P64 = torch.linalg.eigh(L.double())
+    assert d.dtype == P.dtype == dtype
+    assert torch.equal(d, d64.to(dtype)) and torch.equal(P, P64.to(dtype))
 
 
 # ---------------------------------------------------------------------------
