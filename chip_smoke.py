@@ -415,6 +415,23 @@ non-zero and prints no result line.
    time beside ``kdpp_bound``, err_dpp and err_mag. An ``examples`` JSON
    line, ``launches_per_path.examples`` and the greedy-MAP row's
    ``prune_n4864_k2432``.
+30. pruning a mixture-of-experts layer at Moonlight-16B-A3B's width
+   (``MOE_PRUNE``: 64 experts of 1408 units, top-6 sigmoid routing with a
+   correction bias, 2 shared experts as one MLP of 2816): one layer's
+   seeded weights, one expert's bias set so low that no token reaches it,
+   a probe of 16 x 2048 positions of Zipf-skewed topics, and
+   ``models.prune.prune_moe_layer`` with every launch count from 0: two
+   launches of the fused greedy MAP, (64, 1408, 1408) with k = 704 and
+   2816² with k = 1408, and no other kernel. Each launch's kernels as the
+   call passed them: every head of the batched launch equal to its own
+   single launch, bit for bit; the idle expert's ridge-only kernel picks
+   0 .. 703; every head and the shared matrix against the plain loop
+   (``compare_maps``), where a first difference at or past a kernel's
+   rank (an expert's routed rows: past them only the 1e-4 ridge is left)
+   is a tie; both launches' device times beside ``kdpp_bound``. A
+   ``moe_prune`` JSON line, ``launches_per_path.moe_prune`` and the
+   greedy-MAP row's ``moe_prune_h64_n1408_k704`` and
+   ``moe_prune_shared_n2816_k1408``.
 
 Every row of the ``kernels`` line is timed by ``kernel_times``: ``ms``,
 ``plain_ms`` and ``library_ms`` are device times (the durations of the
@@ -6498,6 +6515,188 @@ def examples_path(dev, card: str, power_limit: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 30: pruning a mixture-of-experts layer at full width
+# ---------------------------------------------------------------------------
+
+# Moonlight-16B-A3B's MoE block (huggingface.co/moonshotai/Moonlight-16B-A3B,
+# config.json): hidden 2048, 64 routed experts of 1408 units, top 6 by
+# sigmoid scores with a correction bias, 2 shared experts, norm_topk_prob,
+# routed_scaling_factor 2.446; one layer, its probe as the benchmark's cell
+# draws it (16 documents x 2048 positions, a topic's centre plus noise, 16
+# topics with Zipf weights 1/r), keep half of every expert's units
+MOE_PRUNE = {"d_model": 2048, "d_ff": 1408, "n_experts": 64,
+             "experts_per_token": 6, "n_shared_experts": 2,
+             "routed_scaling": 2.446, "norm_eps": 1e-5, "documents": 16,
+             "positions": 2048, "topics": 16, "keep_fraction": 0.5}
+MOE_IDLE_EXPERT = 17       # its bias, -10, keeps every token from it
+
+
+def moe_prune_inputs(gen, dev):
+    """(config, one layer's weights, probe (T, d)) of phase 30, seeded:
+    gate and up N(0, 1/d), router N(0, 1/d), bias N(0, 0.01²) with
+    ``MOE_IDLE_EXPERT``'s at -10, norm scale 1 + 0.1 N(0, 1)."""
+    from repro_torch.config import ModelConfig
+    m = MOE_PRUNE
+    d, f, E = m["d_model"], m["d_ff"], m["n_experts"]
+    fs = m["n_shared_experts"] * f
+    cfg = ModelConfig(
+        name="moonlight-16b-a3b-moe", family="moe", n_layers=1, d_model=d,
+        n_heads=16, n_kv_heads=16, d_ff=f, vocab=163840,
+        norm_eps=m["norm_eps"], n_experts=E,
+        experts_per_token=m["experts_per_token"],
+        n_shared_experts=m["n_shared_experts"], router_scoring="sigmoid",
+        norm_topk_prob=True, routed_scaling=m["routed_scaling"],
+        dtype="float32", param_dtype="float32")
+
+    def normal(shape, std):
+        return std * torch.randn(shape, generator=gen, device=dev)
+
+    w = d ** -0.5
+    p = {"ln": 1.0 + normal((d,), 0.1), "router": normal((d, E), w),
+         "router_bias": normal((E,), 0.01),
+         "w_gate": normal((E, d, f), w), "w_up": normal((E, d, f), w),
+         "shared_gate": normal((d, fs), w), "shared_up": normal((d, fs), w)}
+    p["router_bias"][MOE_IDLE_EXPERT] = -10.0
+    ranks = torch.arange(1, m["topics"] + 1, dtype=torch.float32,
+                         device=dev)
+    topic = torch.multinomial(1.0 / ranks, m["documents"], replacement=True,
+                              generator=gen)
+    centres = torch.randn((m["topics"], d), generator=gen, device=dev)
+    x = centres[topic][:, None, :] + torch.randn(
+        (m["documents"], m["positions"], d), generator=gen, device=dev)
+    return cfg, p, x.reshape(-1, d)
+
+
+def moe_map_check(L, k: int, picks: np.ndarray, ranks: list,
+                  label: str) -> dict:
+    """One greedy-MAP launch of the prune, as the call made it: every head
+    of L (H, N, N) equal to its own single launch (for H > 1), and against
+    the plain loop (``compare_maps``) up to its rank ``ranks[h]``: a first
+    difference at or past it is a tie (only the ridge is left there).
+    Its device time beside ``kdpp_bound``."""
+    from repro_torch.kernels import greedy_map as gm
+    H, N = int(L.shape[0]), int(L.shape[-1])
+    for h in range(H if H > 1 else 0):
+        alone = gm.greedy_map_kdpp_cuda(L[h].contiguous(), k)
+        check(np.array_equal(alone.cpu().numpy(), picks[h]), f"{label} "
+              f"head {h}: the batched launch differs from its single launch")
+    t0 = time.perf_counter()
+    plain = gm.greedy_map_kdpp_plain(L, k).cpu().numpy()
+    plain_wall = time.perf_counter() - t0
+    worst, same, past_rank = 0.0, 0, 0
+    for h in range(H):
+        pk, pp, rank = picks[h], plain[h], min(int(ranks[h]), k)
+        check(len(set(pk.tolist())) == k and pk.min() >= 0 and pk.max() < N,
+              f"{label} head {h}: picks not {k} distinct items")
+        diff = np.nonzero(pk != pp)[0]
+        t = int(diff[0]) if diff.size else k
+        same += int(t == k)
+        if t < k and t >= rank:
+            past_rank += 1
+        elif t < rank:
+            worst = max(worst, compare_maps(
+                L[h], pk[:rank], pp[:rank], f"{label} head {h}",
+                quiet=True).get("tie_gap", 0.0))
+    live = [greedy_live_steps(L[h], picks[h]) for h in range(H)]
+    b_ms, b_by, b_row = kdpp_bound(N, k, live)
+    Lc = L if H > 1 else L[0]
+    times = {"ms": device_ms(partial(gm.greedy_map_kdpp_cuda, Lc, k), 3, 1,
+                             expect="greedy_map_kdpp_kernel", sole=True),
+             "ms_loop": cuda_ms(partial(gm.greedy_map_kdpp_cuda, Lc, k), 3,
+                                1),
+             "plain_ms": None, "plain_ms_loop": plain_wall * 1e3,
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+             "bound_row_ms": b_row, "live_steps_min": min(live),
+             "steps": k, "plan": gm.greedy_map_kdpp_plan(N, k, L.device),
+             "launches": 1, "shapes": {"N": N, "k": k, "H": H}}
+    times["per_step_ms"] = times["ms"] / k
+    out = {"heads": H, "identical_heads": same,
+           "first_difference_past_rank": past_rank, "max_tie_gap": worst,
+           "times": times}
+    print(f"  {label}: heads identical {same} of {H}, {past_rank} first "
+          f"differences past the rank, largest tie gap {worst!r}; "
+          f"{times['ms']!r} ms (device), bound {b_ms!r} ms ({b_by}), plain "
+          f"loop {plain_wall:.2f} s (wall); plan {json.dumps(times['plan'])}")
+    return out
+
+
+def moe_prune_path(dev, card: str, power_limit: str) -> dict:
+    """Phase 30: ``prune_moe_layer`` on one Moonlight-16B-A3B MoE layer
+    (``MOE_PRUNE``), counted: two fused greedy-MAP launches and no other
+    kernel; each launch's kernels (as the call passed them) against single
+    launches and the plain loop (``moe_map_check``); the idle expert
+    picks 0 .. 703 on its ridge-only kernel."""
+    from repro_torch.dpp import functional as dpp_functional
+    from repro_torch.models.prune import prune_moe_layer
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(30)
+    cfg, p, x = moe_prune_inputs(gen, dev)
+    keep = MOE_PRUNE["keep_fraction"]
+    launched = []
+    fused = dpp_functional.greedy_map_kdpp
+
+    def recorded(L, k, *args, **kwargs):
+        launched.append((L, int(k)))
+        return fused(L, k, *args, **kwargs)
+
+    dpp_functional.greedy_map_kdpp = recorded
+    try:
+        t0 = time.perf_counter()
+        res, n = map_counted(
+            lambda: prune_moe_layer(p, x, cfg, keep),
+            "prune_moe_layer at Moonlight's width", 2)
+        wall = time.perf_counter() - t0
+    finally:
+        dpp_functional.greedy_map_kdpp = fused
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del p, x
+    check(len(launched) == 2, f"prune_moe_layer called greedy_map_kdpp "
+          f"{len(launched)} times, not twice")
+    E, K, f = cfg.n_experts, cfg.experts_per_token, cfg.d_ff
+    (L_r, k_r), (L_s, k_s) = launched
+    T = MOE_PRUNE["documents"] * MOE_PRUNE["positions"]
+    check(tuple(L_r.shape) == (E, f, f) and k_r == int(f * keep)
+          and tuple(L_s.shape) == (2 * f, 2 * f) and k_s == int(2 * f * keep),
+          f"the prune's launches: {tuple(L_r.shape)} k {k_r}, "
+          f"{tuple(L_s.shape)} k {k_s}")
+    loads = res["tokens_per_expert"].cpu()
+    check(int(loads.sum()) == T * K and int(loads[MOE_IDLE_EXPERT]) == 0
+          and int(res["rows_computed"]) == T * K, f"the prune's loads: "
+          f"sum {int(loads.sum())}, idle expert {int(loads[MOE_IDLE_EXPERT])}"
+          f", rows computed {res['rows_computed']}")
+    routed, shared = res["routed"], res["shared"]
+    check(routed.dtype == torch.int32 and routed.is_cuda
+          and tuple(routed.shape) == (E, k_r) and shared.dtype == torch.int32
+          and tuple(shared.shape) == (k_s,), f"the prune's picks: "
+          f"{routed.dtype} {tuple(routed.shape)}, {shared.dtype} "
+          f"{tuple(shared.shape)}")
+    pk_r = routed.cpu().numpy()
+    check(pk_r[MOE_IDLE_EXPERT].tolist() == list(range(k_r)), f"the idle "
+          f"expert picks {pk_r[MOE_IDLE_EXPERT].tolist()[:12]}, not 0 .. "
+          f"{k_r - 1}")
+    lm = loads.double() / loads.double().mean()
+    out = {"card": card, "power_limit": power_limit, "shape": MOE_PRUNE,
+           "idle_expert": MOE_IDLE_EXPERT, "wall_s": wall,
+           "loads": {"max_over_mean": float(lm.max()),
+                     "min_over_mean": float(lm.min()),
+                     "experts_under_k": int((loads < k_r).sum())},
+           "launches": n}
+    out["routed"] = moe_map_check(L_r, k_r, pk_r, loads.tolist(),
+                                  f"routed experts ({E}, {f}, {f}) k {k_r}")
+    out["shared"] = moe_map_check(L_s[None], k_s, shared.cpu().numpy()[None],
+                                  [T], f"shared experts {2 * f}² k {k_s}")
+    del launched, L_r, L_s, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"pruning an MoE layer at full width (phase 30): loads "
+          f"{json.dumps(out['loads'])}, {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7251,6 +7450,9 @@ def main() -> None:
     # -- 29. the examples, and DPP pruning at full width -------------------
     ex = examples_path(dev, card, power_limit)
 
+    # -- 30. pruning a mixture-of-experts layer at full width -------------
+    moe = moe_prune_path(dev, card, power_limit)
+
     for t in (times[64], times[1], times["global"],
               sel_times["kdpp_phase2"], inf["phase2"],
               sv["kv"]["phase2_times"], lms["phase2_times"],
@@ -7320,7 +7522,8 @@ def main() -> None:
                     *(c.get("tie_gap", 0.0) for c in map_cmp.values())),
                 "max_abs_err_is": "largest float64 tie gap of a first "
                                   "difference, of max diag L, over phase "
-                                  "12, map(k), the KV and the LM heads",
+                                  "12, map(k), the KV and the LM heads "
+                                  "and the MoE prune",
                 **kdpp_times[200],
                 "k20": kdpp_times[20],
                 "lm_unit_n512_k120_h4": lms["kdpp_times"],
@@ -7503,6 +7706,15 @@ def main() -> None:
                                    if k != "launches"},
                       "card": card, "power_limit": power_limit,
                       "nvidia_smi": smi}))
+    kdpp_row["launches_per_path"]["moe_prune"] = \
+        moe["launches"]["greedy_map_kdpp"]
+    kdpp_row["moe_prune_h64_n1408_k704"] = moe["routed"]["times"]
+    kdpp_row["moe_prune_shared_n2816_k1408"] = moe["shared"]["times"]
+    kdpp_row["max_abs_err"] = max(kdpp_row["max_abs_err"],
+                                  moe["routed"]["max_tie_gap"],
+                                  moe["shared"]["max_tie_gap"])
+    print(json.dumps({"moe_prune": moe, "card": card,
+                      "power_limit": power_limit, "nvidia_smi": smi}))
     print(json.dumps({"kernels": [row, *pt_rows, ts_row, gm_row, kdpp_row,
                                   km_row, tf_row]}))
     print(json.dumps({"timing": {"svc_sample16_ms": req,

@@ -43,6 +43,13 @@ class ModelConfig:
     experts_per_token: int = 0
     moe_every: int = 1               # MoE FFN every k-th layer (1 = all)
     capacity_factor: float = 1.25
+    # DeepSeek-V3 routing (the defaults are the softmax top-k above)
+    n_shared_experts: int = 0        # shared experts, one MLP of n × d_ff
+    router_scoring: str = "softmax"  # softmax | sigmoid
+    norm_topk_prob: bool = True      # the K weights normalised to sum 1
+    routed_scaling: float = 1.0      # the routed weights' factor
+    n_group: int = 1                 # sigmoid: expert groups ...
+    topk_group: int = 1              # ... of which the best are kept
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -120,6 +127,7 @@ class ModelConfig:
                 total += di * d                                       # out_proj
             if kind in (LayerKind.ATTN_MOE, LayerKind.SSM_MOE):
                 total += self.n_experts * 3 * d * f + d * self.n_experts
+                total += self.n_shared_experts * 3 * d * f
             elif f > 0:
                 total += (2 if self.mlp_gelu else 3) * d * f
             total += 2 * d  # norms

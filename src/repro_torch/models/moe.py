@@ -15,6 +15,14 @@ expert shard (EP) or, where the experts do not divide "model", on its
 shard of the ffn-hidden dim (mixtral's 8 experts on a larger model
 axis), the outputs summed over "model". ``moe_aux_loss`` takes DTensors
 as they are (its means reduce over the batch shards).
+
+DeepSeek-V3's block (``router_scoring="sigmoid"``) routes by sigmoid
+scores with a correction bias used for selection only, within the best
+groups of experts, and adds shared experts (one MLP of
+``n_shared_experts · d_ff`` units that every token runs). Shared experts
+run on unsharded inputs only. ``dispatch_dropless`` gives every routed
+(token, slot) pair to its expert, with no capacity, for callers that must
+see every token an expert receives (``models.prune``).
 """
 
 from __future__ import annotations
@@ -35,8 +43,9 @@ def init_moe_params(key, cfg: ModelConfig, dtype: torch.dtype):
     """One layer's MoE weights from a key (..., 2); a batch of keys stacks
     them. The router is float32 whatever ``dtype``."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    ks = prng.split(key, 4)
-    return {
+    fs = cfg.n_shared_experts * f
+    ks = prng.split(key, 7 if fs else 4)
+    p = {
         "router": dense_init(ks[..., 0, :], (d, E), torch.float32),
         "w_gate": dense_init(ks[..., 1, :], (E, d, f), dtype, fan_in=d),
         "w_up": dense_init(ks[..., 2, :], (E, d, f), dtype, fan_in=d),
@@ -44,6 +53,16 @@ def init_moe_params(key, cfg: ModelConfig, dtype: torch.dtype):
         "ln": torch.ones(tuple(ks.shape[:-2]) + (d,), dtype=dtype,
                          device=ks.device),
     }
+    if cfg.router_scoring == "sigmoid":
+        # the correction bias: DeepSeek-V3 starts it at 0 and moves it by
+        # its load-balancing rule, not by gradients
+        p["router_bias"] = torch.zeros(tuple(ks.shape[:-2]) + (E,),
+                                       dtype=torch.float32, device=ks.device)
+    if fs:
+        p["shared_gate"] = dense_init(ks[..., 4, :], (d, fs), dtype)
+        p["shared_up"] = dense_init(ks[..., 5, :], (d, fs), dtype)
+        p["shared_down"] = dense_init(ks[..., 6, :], (fs, d), dtype)
+    return p
 
 
 def group_capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
@@ -53,21 +72,78 @@ def group_capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
 
 
 def route(p, h: torch.Tensor, cfg: ModelConfig):
-    """(probs (B, S, E), top_w (B, S, K) normalised, top_e (B, S, K)).
+    """(probs (..., E), top_w (..., K), top_e (..., K)) of h (..., d).
 
-    JAX promotes ``h.astype(f32) @ router`` to float32 whatever the
-    router's dtype (a bfloat16 router under bfloat16 compute); a torch
+    Softmax scoring: the K most probable experts, their probabilities
+    normalised. JAX promotes ``h.astype(f32) @ router`` to float32 whatever
+    the router's dtype (a bfloat16 router under bfloat16 compute); a torch
     product does not promote, so the router is upcast (exactly).
     ``lax.top_k`` takes the lower index first among equal probabilities;
     ``torch.topk`` promises no order among ties. A stable descending sort
     keeps equal values in index order, so its first K columns are
-    ``lax.top_k``'s choice, ties included."""
-    probs = torch.softmax(h.float() @ p["router"].float(), dim=-1)
-    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    ``lax.top_k``'s choice, ties included.
+
+    Sigmoid scoring (DeepSeek-V3, ``topk_method`` noaux_tc): s =
+    sigmoid(h·W_r); the choice is made on s + bias (``p["router_bias"]``,
+    where p holds one): a group's score is the sum of its 2 best biased scores, the
+    ``topk_group`` best groups are kept, and the K best biased scores
+    among their experts are taken, ties to the lower index as above. The
+    weights are the unbiased s of the K, normalised when
+    ``norm_topk_prob`` is set. Both times ``routed_scaling``; ``probs`` is
+    s."""
+    logits = h.float() @ p["router"].float()
     K = cfg.experts_per_token
-    top_w, top_e = top_w[..., :K], top_e[..., :K]
-    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    if cfg.router_scoring == "softmax":
+        probs = torch.softmax(logits, dim=-1)
+        top_w, top_e = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+        top_w, top_e = top_w[..., :K], top_e[..., :K]
+        if cfg.norm_topk_prob:
+            top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True),
+                                            1e-9)
+    elif cfg.router_scoring == "sigmoid":
+        probs = torch.sigmoid(logits)
+        choice = probs + p["router_bias"].float() if "router_bias" in p \
+            else probs
+        if cfg.topk_group < cfg.n_group:
+            grouped = choice.unflatten(-1, (cfg.n_group, -1))
+            best2 = torch.sort(grouped, dim=-1, descending=True).values
+            score = best2[..., :2].sum(-1)
+            keep = torch.sort(score, dim=-1, descending=True,
+                              stable=True).indices[..., :cfg.topk_group]
+            kept = torch.zeros_like(score, dtype=torch.bool).scatter_(
+                -1, keep, True)
+            choice = torch.where(kept[..., None], grouped,
+                                 float("-inf")).flatten(-2)
+        top_e = torch.sort(choice, dim=-1, descending=True,
+                           stable=True).indices[..., :K]
+        top_w = torch.gather(probs, -1, top_e)
+        if cfg.norm_topk_prob:
+            top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-20)
+    else:
+        raise ValueError(f"router_scoring must be 'softmax' or 'sigmoid', "
+                         f"got {cfg.router_scoring!r}")
+    if cfg.routed_scaling != 1.0:
+        top_w = top_w * cfg.routed_scaling
     return probs, top_w, top_e
+
+
+def dispatch_dropless(top_e: torch.Tensor, n_experts: int):
+    """Every routed (token, slot) pair of top_e (T, K), grouped by expert:
+    (order (T·K,) int64, the pairs t·K + k in expert order and, within an
+    expert, in (token, slot) order (a stable sort); counts (E,) int64, the
+    pairs each expert receives). No capacity: nothing is dropped."""
+    flat = top_e.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=n_experts)
+    return order, counts
+
+
+def shared_mlp(p, h: torch.Tensor) -> torch.Tensor:
+    """The shared experts' output (without the residual) of the normed
+    h: one SwiGLU MLP of ``n_shared_experts · d_ff`` units."""
+    return swiglu(h @ p["shared_gate"], h @ p["shared_up"]) \
+        @ p["shared_down"]
 
 
 def slot_map(top_e: torch.Tensor, n_experts: int, capacity: int
@@ -92,17 +168,17 @@ def slot_map(top_e: torch.Tensor, n_experts: int, capacity: int
     return torch.empty_like(dest).scatter_(1, order, dest)
 
 
-def _moe_y(p, x: torch.Tensor, cfg: ModelConfig, e0: int = 0,
+def _moe_y(p, h: torch.Tensor, cfg: ModelConfig, e0: int = 0,
            n_local: int = 0) -> torch.Tensor:
-    """The MoE FFN's output (without the residual) of x (B, S, d), from
+    """The MoE FFN's output (without the residual) of the normed h
+    (B, S, d), from
     the experts e0 .. e0 + n_local - 1 (all of them for n_local 0) whose
     weights ``p`` holds; ``p``'s weights may hold a shard of each
     expert's ffn-hidden dim, giving that shard's share of the output."""
-    B, S, d = x.shape
+    B, S, d = h.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     n_local = n_local or E
     C = group_capacity(S, cfg)
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
     _, top_w, top_e = route(p, h, cfg)
     dest = slot_map(top_e, E, C)                              # (B, S*K)
     if n_local != E:
@@ -142,9 +218,16 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     DTensor weights) runs on local shards
     (``distributed.shard_ops.experts_local``)."""
     if isinstance(x, DTensor) or isinstance(p["w_gate"], DTensor):
-        return experts_local(
-            lambda xl, pl, e0, n: _moe_y(pl, xl, cfg, e0, n), p, x)
-    return x + _moe_y(p, x, cfg).to(x.dtype)
+        if cfg.n_shared_experts:
+            raise NotImplementedError("moe_ffn: shared experts run on "
+                                      "unsharded inputs only")
+        return experts_local(lambda xl, pl, e0, n: _moe_y(
+            pl, rms_norm(xl, pl["ln"], cfg.norm_eps), cfg, e0, n), p, x)
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    y = _moe_y(p, h, cfg)
+    if cfg.n_shared_experts:
+        y = y + shared_mlp(p, h)
+    return x + y.to(x.dtype)
 
 
 def moe_aux_loss(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
